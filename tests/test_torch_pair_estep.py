@@ -1,0 +1,257 @@
+"""The port's pair E-step: the plain PyTorch version against the JAX
+package's XLA path (f64, rtol 1e-10) and against the explicit-loop NumPy
+oracle of tests/test_pair_estep.py; in f32 against the JAX package's real
+Pallas kernel run in interpret mode (max |got - want| / (|want| + 1) <=
+5e-5, the on-hardware gate of bench.py); plus the dispatch's and the
+build's behaviour on a machine with no CUDA.  The CUDA kernel itself is
+checked against the plain version on the card by chip_smoke.py."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy.special import digamma
+
+from tests.test_pair_estep import oracle_pair
+from vbhem_tpu.ops import pair_estep as jpe
+from vbhem_tpu.ops import pair_estep_pallas as jpp
+from vbhem_tpu_torch.ops import _build
+from vbhem_tpu_torch.ops import pair_estep as tpe
+from vbhem_tpu_torch.ops import pair_estep_cuda as tpc
+
+REPO = Path(__file__).resolve().parent.parent
+KERNEL_TOL = 5e-5
+ARGS = ("prior_b", "trans_b", "mean_b", "cov_b", "log_pi_r", "log_a_r",
+        "m_r", "w_r", "v_r", "lam_r", "log_lam_r")
+
+
+def make_case(seed, kb=40, kr=3, sb=3, sr=3, d=2, lanes=(), ragged=False,
+              big_neg=False):
+    """Inputs of the fused pair E-step, in the manner of bench.py's
+    make_problem, as float64 numpy arrays in the order of ARGS."""
+    rng = np.random.default_rng(seed)
+    mean = rng.normal(size=(kb, sb, d)) * 3.0
+    a = rng.normal(size=(kb, sb, d, d)) * 0.3
+    cov = np.einsum("ksde,ksfe->ksdf", a, a) + np.eye(d)
+    prior = rng.dirichlet(np.ones(sb), kb)
+    trans = rng.dirichlet(np.ones(sb), (kb, sb))
+    if ragged:   # base HMM 0 has its last state zero-padded (vbhem.py:98-102)
+        prior[0, :-1] = rng.dirichlet(np.ones(sb - 1))
+        prior[0, -1] = 0.0
+        trans[0, -1, :] = 0.0
+        trans[0, :-1, :-1] = rng.dirichlet(np.ones(sb - 1), sb - 1)
+        trans[0, :-1, -1] = 0.0
+        mean[0, -1] = 0.0
+        cov[0, -1] = np.eye(d)
+    shp = lanes + (kr, sr)
+    m = rng.normal(size=shp + (d,)) * 3.0
+    a = rng.normal(size=shp + (d, d)) * 0.3
+    w = np.einsum("...de,...fe->...df", a, a) + np.eye(d)
+    v = rng.uniform(d + 2.0, d + 30.0, shp)
+    lam = rng.uniform(1.0, 30.0, shp)
+    log_lam = (digamma(0.5 * (v[..., None] + 1 - np.arange(1, d + 1)))
+               .sum(-1) + d * np.log(2) + np.linalg.slogdet(w)[1])
+    # sub-normalized reduced scores, like digamma expectations
+    log_pi = np.log(rng.dirichlet(np.ones(sr), shp[:-1]) * 0.9)
+    log_a = np.log(rng.dirichlet(np.ones(sr), shp) * 0.85)
+    if big_neg:  # a masked state's score (numeric.py:182)
+        log_pi[..., 1 % kr, 0] = -1e30
+    return [prior, trans, mean, cov, log_pi, log_a, m, w, v, lam, log_lam]
+
+
+CASES = {
+    "tau10": dict(kw={}, tau=10),
+    "tau1": dict(kw={}, tau=1),
+    "tau2_ragged": dict(kw=dict(ragged=True), tau=2),
+    "d3_sr1": dict(kw=dict(d=3, sr=1), tau=4),
+    "logpi_neg1e30": dict(kw=dict(sb=2, sr=2, big_neg=True), tau=3),
+}
+
+
+def port(case, dtype=torch.float64):
+    return [torch.as_tensor(x, dtype=dtype) for x in case]
+
+
+def rel_err(got, want):
+    g = np.asarray(got, np.float64)
+    w = np.asarray(want, np.float64)
+    return float(np.max(np.abs(g - w) / (np.abs(w) + 1.0)))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_plain_matches_jax_xla_f64(name):
+    c = CASES[name]
+    case = make_case(1, **c["kw"])
+    j = [jnp.asarray(x) for x in case]
+    jell = jpe.expected_pair_ll_variational(*j[2:4], *j[6:])
+    want = jpe.pair_bwd_fwd(*j[:2], *j[4:6], jell, c["tau"])
+    t = port(case)
+    tell = tpe.expected_pair_ll_variational(*t[2:4], *t[6:])
+    np.testing.assert_allclose(tell.numpy(), np.asarray(jell), rtol=1e-10)
+    got = tpc.pair_estep_fused_auto(*t, c["tau"])
+    for f in want._fields:
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   np.asarray(getattr(want, f)),
+                                   rtol=1e-10, atol=1e-13, err_msg=f)
+    if c["kw"].get("ragged"):
+        assert np.all(got.sum_t_nu[0, :, :, -1].numpy() == 0.0)
+
+
+def test_plain_matches_loop_oracle():
+    tau = 6
+    case = make_case(2, kb=4, kr=3, sb=3, sr=2)
+    t = port(case)
+    ell = tpe.expected_pair_ll_variational(*t[2:4], *t[6:])
+    got = tpe.pair_bwd_fwd(*t[:2], *t[4:6], ell, tau)
+    prior, trans, log_pi, log_a = case[0], case[1], case[4], case[5]
+    for i in range(4):
+        for j in range(3):
+            ll, nu1, sxi, stn = oracle_pair(prior[i], trans[i], log_pi[j],
+                                            log_a[j], ell[i, j].numpy(), tau)
+            np.testing.assert_allclose(float(got.ll_elbo[i, j]), ll,
+                                       rtol=1e-10)
+            np.testing.assert_allclose(got.nu_1[i, j].numpy(), nu1,
+                                       atol=1e-12)
+            np.testing.assert_allclose(got.sum_xi[i, j].numpy(), sxi,
+                                       atol=1e-12)
+            np.testing.assert_allclose(got.sum_t_nu[i, j].numpy(), stn,
+                                       atol=1e-12)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_plain_f32_matches_jax_pallas_kernel(name):
+    """The JAX package's fused Pallas kernel (interpret mode) and the
+    port's plain path on the same float32 inputs."""
+    c = CASES[name]
+    case = [x.astype(np.float32) for x in make_case(3, **c["kw"])]
+    want = jpp.pair_bwd_fwd_fused_pallas(*[jnp.asarray(x) for x in case],
+                                         c["tau"], tile=128, interpret=True)
+    got = tpc.pair_estep_fused_auto(*port(case, torch.float32), c["tau"])
+    for f in want._fields:
+        err = rel_err(getattr(got, f).numpy(), getattr(want, f))
+        assert err <= KERNEL_TOL, (f, err)
+
+
+def test_lanes_f32_match_jax_vmapped_kernel():
+    """Three restart lanes: the port's leading lane axis against
+    jax.vmap of the JAX package's trial-folding kernel wrapper."""
+    tau, lanes = 5, 3
+    case = [x.astype(np.float32)
+            for x in make_case(4, kb=24, kr=2, lanes=(lanes,))]
+    f = jpp._pallas_fused_vmappable(tau, interpret=True)
+    want = jax.vmap(f, in_axes=(None,) * 4 + (0,) * 7)(
+        *[jnp.asarray(x) for x in case])
+    got = tpc.pair_estep_fused_auto(*port(case, torch.float32), tau)
+    for fld in want._fields:
+        g = getattr(got, fld)
+        assert g.shape[0] == lanes
+        err = rel_err(g.numpy(), getattr(want, fld))
+        assert err <= KERNEL_TOL, (fld, err)
+    # each lane alone gives the same as the batched call
+    one = tpc.pair_estep_fused_auto(
+        *port(case[:4], torch.float32),
+        *[torch.as_tensor(x[1]) for x in case[4:]], tau)
+    for fld in one._fields:
+        torch.testing.assert_close(getattr(got, fld)[1], getattr(one, fld),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_cpu_dispatch_never_launches():
+    before = tpc.LAUNCHES
+    tpc.pair_estep_fused_auto(*port(make_case(5, kb=8)), 3)
+    assert tpc.LAUNCHES == before == 0
+
+
+def test_modules_import_without_cuda_toolchain(tmp_path):
+    """In a fresh process with no card visible, no nvcc on PATH and triton
+    blocked, the port imports and its CPU path runs: nothing is built or
+    loaded at import time."""
+    code = (
+        "import sys; sys.modules['triton'] = None\n"
+        "import torch\n"
+        "from vbhem_tpu_torch.ops import _build, pair_estep_cuda as p\n"
+        "from vbhem_tpu_torch.models import vbhem\n"
+        "x = [torch.ones(2, 1), torch.ones(2, 1, 1), torch.zeros(2, 1, 1),\n"
+        "     torch.ones(2, 1, 1, 1), torch.zeros(1, 1), torch.zeros(1, 1, 1),\n"
+        "     torch.zeros(1, 1, 1), torch.ones(1, 1, 1, 1),\n"
+        "     torch.full((1, 1), 4.0), torch.ones(1, 1), torch.zeros(1, 1)]\n"
+        "assert p.pair_estep_fused_auto(*x, 3).ll_elbo.shape == (2, 1)\n"
+        "assert _build._lib is None and p.LAUNCHES == 0\n"
+        "print('imported', torch.cuda.is_available())\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PATH=str(tmp_path),
+               PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "imported False"
+
+
+def test_kernel_wrapper_rejects_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tpc.pair_bwd_fwd_fused_cuda(*port(make_case(6, kb=8)), 3)
+    assert _build._lib is None
+
+
+def _bad(case, **over):
+    t = port(case)
+    named = dict(zip(ARGS, t))
+    named.update(over)
+    return [named[a] for a in ARGS]
+
+
+def test_validate_rejects_what_the_kernel_cannot_take():
+    case = make_case(7, kb=8, kr=2, sb=2, sr=2)
+    t = port(case)
+    with pytest.raises(ValueError, match="tau"):
+        tpc.pair_estep_fused_auto(*t, 0)
+    with pytest.raises(ValueError, match="dtype"):
+        tpc.pair_estep_fused_auto(*port(case, torch.float16), 2)
+    with pytest.raises(ValueError, match="dtype"):
+        tpc.pair_estep_fused_auto(*_bad(case, v_r=t[8].float()), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        w_nc = t[7].transpose(-1, -2)           # a strided view
+        tpc.pair_estep_fused_auto(*_bad(case, w_r=w_nc), 2)
+    with pytest.raises(ValueError, match="shape"):
+        tpc.pair_estep_fused_auto(*_bad(case, m_r=t[6][:, :1].contiguous()), 2)
+    for kw, msg in ((dict(sb=9), "Sb"), (dict(sr=9), "Sr"),
+                    (dict(d=5), "D=5")):
+        with pytest.raises(ValueError, match=msg):
+            tpc.pair_estep_fused_auto(*port(make_case(8, kb=4, kr=1, **kw)),
+                                      2)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: None)
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        _build.build()
+    assert not (tmp_path / "build").exists()
+
+
+def test_build_reports_compiler_errors(monkeypatch, tmp_path):
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: fake compiler refused' >&2\n"
+                    "exit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    with pytest.raises(_build.KernelBuildError, match="fake compiler refused"):
+        _build.build()
+    # no half-built library left behind
+    assert list((tmp_path / "build").iterdir()) == []
+
+
+def test_library_path_keys_on_sources(monkeypatch, tmp_path):
+    src = tmp_path / "k.cu"
+    src.write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    first = _build.library_path()
+    assert first.parent == tmp_path / "build"
+    src.write_text("// two\n")
+    assert _build.library_path() != first

@@ -1,0 +1,194 @@
+"""Profile one VBHEM EM iteration of the PyTorch / CUDA port on one NVIDIA
+card, stage by stage.
+
+    python3 tools/profile_em.py [--n 50] [--iters 20] [--out FILE]
+
+At the bench shape (Kb=8192, one lane of Kr=8) and at the largest cell of
+chip_smoke.py's ``cluster`` grid (Kb=8192, 8 lanes of Kr=3), both with
+Sb=Sr=3, D=2, tau=10 in float32, it
+
+  * times each stage of the iteration alone (``reduced_expectations``,
+    ``e_step``, the kernel wrapper, ``soft_assignments``, ``elbo``,
+    ``aggregate_stats``, ``m_step``) and the whole iteration, by CUDA
+    events over ``n`` calls after warm-up, beside the host's time to
+    enqueue the same calls;
+  * records a torch.profiler window of ``iters`` whole iterations and
+    reads from its trace the device kernels launched, the device busy
+    time (the union of the kernels' intervals), the window's wall time
+    and the pair E-step kernel's mean device time.
+
+Prints the card's ``nvidia-smi`` name and power limit, then one JSON
+object with every number; ``--out`` also writes the object to a file.
+The profiler's traces go to ``build/profile/``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+from vbhem_tpu_torch import VBHEMConfig  # noqa: E402
+from vbhem_tpu_torch.models import vbhem  # noqa: E402
+from vbhem_tpu_torch.ops import pair_estep_cuda  # noqa: E402
+from vbhem_tpu_torch.utils.planted import random_bank  # noqa: E402
+
+SHAPES = [
+    # name, kb, lanes, kr, sr
+    ("bench Kb=8192 L=1 Kr=8 Sb=Sr=3 D=2 tau=10", 8192, 1, 8, 3),
+    ("main-path cell Kb=8192 L=8 Kr=3 Sb=Sr=3 D=2 tau=10", 8192, 8, 3, 3),
+]
+KERNEL_NAME = "pair_estep_fused_kernel"
+
+
+def time_stage(fn, n, warmup=5):
+    """(device ms per call by CUDA events, host ms per call to enqueue)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    host = (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n, host * 1e3
+
+
+def trace_numbers(trace_file: Path) -> dict:
+    """Kernel count, busy time and the pair E-step kernel's mean device
+    time from a chrome trace written by torch.profiler."""
+    events = json.loads(trace_file.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in kernels)
+    busy, cur_start, cur_end = 0.0, None, None
+    for s, e in spans:
+        if cur_end is None or s > cur_end:
+            if cur_end is not None:
+                busy += cur_end - cur_start
+            cur_start, cur_end = s, e
+        else:
+            cur_end = max(cur_end, e)
+    if cur_end is not None:
+        busy += cur_end - cur_start
+    ours = [float(e["dur"]) for e in kernels if KERNEL_NAME in e["name"]]
+    return {"device_kernels": len(kernels), "device_busy_ms": busy / 1e3,
+            "pair_estep_kernels": len(ours),
+            "pair_estep_kernel_device_ms":
+                float(np.mean(ours)) / 1e3 if ours else None}
+
+
+def profile_shape(name, kb, lanes, kr, sr, n, iters, trace_dir: Path):
+    device = torch.device("cuda", 0)
+    tau, d = 10, 2
+    base = random_bank(np.random.default_rng(0), kb, 3, d, device,
+                       torch.float32)
+    cfg = VBHEMConfig(m0=(0.0,) * d, w0=1.0, nv=100, tau=tau)
+    hyps = vbhem.VBHEMHyps.from_config(cfg, d, torch.float32, device)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    post = vbhem.stack_lanes([vbhem.init_baseem(gen, base, kr, sr, hyps,
+                                                cfg.nv)
+                              for _ in range(lanes)])
+    tilde_n = (cfg.nv * kb) * base.omega
+    exps = vbhem.reduced_expectations(post)
+    pair = vbhem.e_step(base, post, exps, tau)
+    hat_z, z_ni, nj = vbhem.soft_assignments(tilde_n, exps.log_omega,
+                                             pair.ll_elbo)
+    stats = vbhem.aggregate_stats(base, pair, z_ni, nj)
+    kargs = (base.hmm.prior, base.hmm.trans, base.hmm.mean, base.hmm.cov,
+             exps.log_pi, exps.log_a, post.niw.m, post.niw.w, post.niw.v,
+             post.niw.beta, exps.log_lam, tau)
+
+    def iteration(p):
+        ex = vbhem.reduced_expectations(p)
+        pr = vbhem.e_step(base, p, ex, tau)
+        hz, zn, nn = vbhem.soft_assignments(tilde_n, ex.log_omega,
+                                            pr.ll_elbo)
+        vbhem.elbo(p, ex, pr, hz, zn, nn, hyps)
+        return vbhem.m_step(vbhem.aggregate_stats(base, pr, zn, nn), hyps)
+
+    stages = {
+        "reduced_expectations": lambda: vbhem.reduced_expectations(post),
+        "e_step": lambda: vbhem.e_step(base, post, exps, tau),
+        "kernel_wrapper(pair_bwd_fwd_fused_cuda)":
+            lambda: pair_estep_cuda.pair_bwd_fwd_fused_cuda(*kargs),
+        "soft_assignments": lambda: vbhem.soft_assignments(
+            tilde_n, exps.log_omega, pair.ll_elbo),
+        "elbo": lambda: vbhem.elbo(post, exps, pair, hat_z, z_ni, nj, hyps),
+        "aggregate_stats": lambda: vbhem.aggregate_stats(base, pair, z_ni,
+                                                         nj),
+        "m_step": lambda: vbhem.m_step(stats, hyps),
+        "em_iteration": lambda: iteration(post),
+    }
+    out = {}
+    for stage, fn in stages.items():
+        ev, host = time_stage(fn, n)
+        out[stage] = {"event_ms": ev, "host_enqueue_ms": host}
+        print(f"[{name}] {stage}: {ev:.4f} ms by events, host enqueue "
+              f"{host:.4f} ms", flush=True)
+
+    p = post
+    for _ in range(3):
+        p = iteration(p)
+    torch.cuda.synchronize()
+    trace_file = trace_dir / f"trace_{kb}_{lanes}x{kr}.json"
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        t0 = time.perf_counter()
+        p = post
+        for _ in range(iters):
+            p = iteration(p)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(str(trace_file))
+    window = dict(iterations=iters, wall_ms=wall, **trace_numbers(trace_file))
+    window["device_busy_share"] = window["device_busy_ms"] / wall
+    out["profile"] = window
+    print(f"[{name}] profiler window: {json.dumps(window)}", flush=True)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=50,
+                    help="calls per stage timing")
+    ap.add_argument("--iters", type=int, default=20,
+                    help="EM iterations in the profiler window")
+    ap.add_argument("--out", type=Path, help="also write the JSON here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_em: no CUDA device is available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(f"nvidia-smi: {smi}", flush=True)
+    trace_dir = REPO / "build" / "profile"
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    result = {"card": smi}
+    for name, kb, lanes, kr, sr in SHAPES:
+        result[name] = profile_shape(name, kb, lanes, kr, sr, args.n,
+                                     args.iters, trace_dir)
+    text = json.dumps(result, indent=1)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(text)
+    print(text, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,676 @@
+"""VBHEM: clustering a bank of HMMs into K reduced cluster-center HMMs
+with S states each, without touching raw data — the PyTorch counterpart
+of :mod:`vbhem_tpu.models.vbhem` (the main path: baseem initialization,
+restart trials, the EM loop, (K, S) selection and pruning).
+
+Where the JAX package vmaps restart trials, the reduced posterior here
+carries an explicit leading lane axis [L, Kr, ...]; every function of the
+EM iteration accepts any number of leading lane axes, and the pair E-step
+kernel folds L*Kr into one launch.  :func:`vbhem_em` runs all lanes
+together with a per-lane ``done`` mask and freezes a lane once it is
+done, as ``jax.vmap`` of ``lax.while_loop`` does.
+
+Randomness comes from an explicit ``torch.Generator``; its draws differ
+from ``jax.random``'s, so restarts are comparable only in distribution.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import VBHEMConfig
+from ..containers import H3M, HMM, H3MPosterior, NIW, VBHMMResult
+from ..ops.pair_estep import PairStats
+from ..ops.pair_estep_cuda import pair_estep_fused_auto
+from ..utils.numeric import (e_log_det_lambda, e_log_dirichlet, inv_psd,
+                             log_dirichlet_const, log_wishart_b, logdet_psd,
+                             logsumexp, sym, tiny)
+
+
+class VBHEMHyps(NamedTuple):
+    """Prior hyperparameters of the reduced model (the learnable set of
+    `vbhem_get_hypinfo.m`)."""
+    alpha0: torch.Tensor
+    eta0: torch.Tensor
+    epsilon0: torch.Tensor
+    lambda0: torch.Tensor
+    v0: torch.Tensor
+    m0: torch.Tensor   # [D]
+    w0: torch.Tensor   # [D] diagonal of W0
+
+    @property
+    def w0inv_diag(self) -> torch.Tensor:
+        return 1.0 / self.w0
+
+    @classmethod
+    def from_config(cls, config: VBHEMConfig, dim: int,
+                    dtype=torch.float64, device=None):
+        w0 = config.w0
+        w0 = tuple(w0) if isinstance(w0, (tuple, list)) else (w0,) * dim
+
+        def t(x):
+            return torch.as_tensor(x, dtype=dtype, device=device)
+
+        return cls(alpha0=t(config.alpha0), eta0=t(config.eta0),
+                   epsilon0=t(config.epsilon0), lambda0=t(config.lambda0),
+                   v0=t(config.v0), m0=t(config.default_m0(dim)), w0=t(w0))
+
+
+def _tree_map(fn, *trees):
+    """Map ``fn`` over the tensor leaves of NamedTuples of one type."""
+    first = trees[0]
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*[_tree_map(fn, *parts) for parts in zip(*trees)])
+    if first is None:
+        return None
+    return fn(*trees)
+
+
+# ---------------------------------------------------------------------------
+# base bank construction (hmms_to_h3m_hem.m)
+# ---------------------------------------------------------------------------
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _bank(prior, trans, mean, cov, mask, device) -> H3M:
+    k_b = prior.shape[0]
+    omega = np.full((k_b,), 1.0 / k_b, prior.dtype)
+
+    def t(x):
+        return torch.as_tensor(x, device=device)
+
+    return H3M(omega=t(omega),
+               hmm=HMM(prior=t(prior), trans=t(trans), mean=t(mean),
+                       cov=t(cov)),
+               state_mask=t(mask))
+
+
+def h3m_from_results(results: Sequence[VBHMMResult], use_post: bool = True,
+                     s_max: Optional[int] = None, dtype=None,
+                     covar_type: str = "full", device=None) -> H3M:
+    """Convert learned VBHMMs into a dense padded base H3M.
+
+    With ``use_post`` (`vbhem_h3m_cluster.m:210`), point estimates are
+    replaced by posterior expectations (`hmms_to_h3m_hem.m:43-92`):
+      prior = exp(E[log pi]),  A = exp(E[log A])   (sub-normalized)
+      cov   = ((beta + 1) / beta) * E[Sigma]
+    Padded states get zero prior/transition mass and identity covariance
+    (inert through the pair recursions).  ``dtype`` is a numpy dtype."""
+    k_b = len(results)
+    d = _np(results[0].post.niw.m).shape[-1]
+    ss = [_np(r.post.alpha).shape[-1] for r in results]
+    sm = s_max if s_max is not None else max(ss)
+    dt = dtype or _np(results[0].post.niw.m).dtype
+
+    prior = np.zeros((k_b, sm), dt)
+    trans = np.zeros((k_b, sm, sm), dt)
+    mean = np.zeros((k_b, sm, d), dt)
+    cov = np.tile(np.eye(d, dtype=dt), (k_b, sm, 1, 1))
+    mask = np.zeros((k_b, sm), bool)
+    for i, r in enumerate(results):
+        s = ss[i]
+        mask[i, :s] = True
+        if use_post:
+            prior[i, :s] = np.exp(_np(e_log_dirichlet(r.post.alpha)))
+            trans[i, :s, :s] = np.exp(_np(e_log_dirichlet(r.post.epsilon)))
+            beta = _np(r.post.niw.beta)
+            cov[i, :s] = _np(r.post.niw.expected_cov()) * \
+                ((beta + 1.0) / beta)[:, None, None]
+        else:
+            prior[i, :s] = _np(r.model.prior)
+            trans[i, :s, :s] = _np(r.model.trans)
+            cov[i, :s] = _np(r.model.cov)
+        mean[i, :s] = _np(r.post.niw.m if use_post else r.model.mean)
+    if covar_type == "diag":
+        cov = cov * np.eye(d, dtype=dt)
+    return _bank(prior, trans, mean, cov, mask, device)
+
+
+def h3m_from_hmms(hmms: Sequence[HMM], s_max: Optional[int] = None,
+                  device=None) -> H3M:
+    """Build a base H3M from plain point-estimate HMMs."""
+    k_b = len(hmms)
+    d = hmms[0].dim
+    ss = [h.num_states for h in hmms]
+    sm = s_max if s_max is not None else max(ss)
+    dt = _np(hmms[0].mean).dtype
+    prior = np.zeros((k_b, sm), dt)
+    trans = np.zeros((k_b, sm, sm), dt)
+    mean = np.zeros((k_b, sm, d), dt)
+    cov = np.tile(np.eye(d, dtype=dt), (k_b, sm, 1, 1))
+    mask = np.zeros((k_b, sm), bool)
+    for i, h in enumerate(hmms):
+        s = ss[i]
+        mask[i, :s] = True
+        prior[i, :s] = _np(h.prior)
+        trans[i, :s, :s] = _np(h.trans)
+        mean[i, :s] = _np(h.mean)
+        cov[i, :s] = _np(h.cov)
+    return _bank(prior, trans, mean, cov, mask, device)
+
+
+# ---------------------------------------------------------------------------
+# E-step
+# ---------------------------------------------------------------------------
+
+class ReducedExpectations(NamedTuple):
+    log_omega: torch.Tensor  # [..., Kr]      E[log omega]
+    log_pi: torch.Tensor     # [..., Kr, Sr]  E[log pi]
+    log_a: torch.Tensor      # [..., Kr, Sr, Sr]
+    log_lam: torch.Tensor    # [..., Kr, Sr]  E[log |Lambda|]
+
+
+def reduced_expectations(post: H3MPosterior) -> ReducedExpectations:
+    """Digamma expectations of the reduced model
+    (`vbhem_h3m_c_step_fc.m:118-165, 270-273`)."""
+    return ReducedExpectations(
+        log_omega=e_log_dirichlet(post.alpha),
+        log_pi=e_log_dirichlet(post.eta),
+        log_a=e_log_dirichlet(post.epsilon),
+        log_lam=e_log_det_lambda(post.niw.v, post.niw.w))
+
+
+def e_step(base: H3M, post: H3MPosterior, exps: ReducedExpectations,
+           tau: int) -> PairStats:
+    """Pair E-step over the full [Kb, Kr] grid of every lane
+    (`vbhem_h3m_c_step_fc.m:168-268`): the fused CUDA kernel on the card,
+    the plain PyTorch version on the CPU."""
+    return pair_estep_fused_auto(
+        base.hmm.prior, base.hmm.trans, base.hmm.mean, base.hmm.cov,
+        exps.log_pi, exps.log_a, post.niw.m, post.niw.w, post.niw.v,
+        post.niw.beta, exps.log_lam, tau)
+
+
+def soft_assignments(tilde_n: torch.Tensor, log_omega: torch.Tensor,
+                     ll_elbo: torch.Tensor):
+    """hat_Z softmax weighted by virtual counts
+    (`vbhem_h3m_c_step_fc.m:275-283`).  tilde_n [Kb], log_omega [..., Kr],
+    ll_elbo [..., Kb, Kr]."""
+    dtype = ll_elbo.dtype
+    log_z = tilde_n[:, None] * (log_omega[..., None, :] + ll_elbo)
+    hat_z = torch.exp(log_z - logsumexp(log_z, dim=-1, keepdim=True))
+    hat_z = hat_z + tiny(dtype)
+    z_ni = hat_z * tilde_n[:, None]
+    nj = torch.sum(z_ni, dim=-2) + tiny(dtype)
+    return hat_z, z_ni, nj
+
+
+# ---------------------------------------------------------------------------
+# M-step (vbhem_compute_Statistics.m + vbhem_mstep_component.m)
+# ---------------------------------------------------------------------------
+
+class ClusterStats(NamedTuple):
+    nj: torch.Tensor          # [..., Kr]
+    nj_rho1: torch.Tensor     # [..., Kr, Sr]
+    nj_rho2rho: torch.Tensor  # [..., Kr, Sr, Sr]
+    nj_rho: torch.Tensor      # [..., Kr, Sr]
+    y_bar: torch.Tensor       # [..., Kr, Sr, D]
+    s_plus_c: torch.Tensor    # [..., Kr, Sr, D, D]
+
+
+def aggregate_stats(base: H3M, pair: PairStats, z_ni: torch.Tensor,
+                    nj: torch.Tensor) -> ClusterStats:
+    """Z-weighted reduction of pair statistics over the base axis.  The
+    emission statistics are linear images of ``sum_t_nu`` against cached
+    base moments (`vbhem_hmm_bwd_fwd_fast.m:350-384` merged with
+    `vbhem_compute_Statistics.m:33-78`)."""
+    dtype = z_ni.dtype
+    mean_b, cov_b = base.hmm.mean, base.hmm.cov
+    nj_rho1 = torch.einsum("...ij,...ijr->...jr", z_ni, pair.nu_1)
+    nj_rho2rho = torch.einsum("...ij,...ijrs->...jrs", z_ni, pair.sum_xi)
+    # second moment cache: mu mu^T + Sigma per base state
+    m2_b = mean_b[..., :, None] * mean_b[..., None, :] + cov_b  # [Kb,Sb,D,D]
+    emit_pr = torch.sum(pair.sum_t_nu, dim=-1)                 # [..,Kb,Kr,Sr]
+    nj_rho = torch.einsum("...ij,...ijr->...jr", z_ni, emit_pr)
+    w_stn = z_ni[..., None, None] * pair.sum_t_nu              # [..,i,j,r,b]
+    y_sum = torch.einsum("...ijrb,ibd->...jrd", w_stn, mean_b)
+    m2_sum = torch.einsum("...ijrb,ibde->...jrde", w_stn, m2_b)
+    nj_rho = nj_rho + tiny(dtype)
+    y_bar = y_sum / nj_rho[..., None]
+    s_plus_c = sym(m2_sum / nj_rho[..., None, None]
+                   - y_bar[..., :, None] * y_bar[..., None, :])
+    if nj_rho1.shape[-1] == 1:
+        # degenerate transition counts (`vbhem_compute_Statistics.m:80-82`)
+        nj_rho2rho = torch.full_like(nj_rho2rho, 1e-12)
+    return ClusterStats(nj=nj, nj_rho1=nj_rho1, nj_rho2rho=nj_rho2rho,
+                        nj_rho=nj_rho, y_bar=y_bar, s_plus_c=s_plus_c)
+
+
+def m_step(stats: ClusterStats, hyps: VBHEMHyps,
+           covar_type: str = "full") -> H3MPosterior:
+    """Conjugate natural-parameter updates (`vbhem_mstep_component.m:42-72`
+    + the alpha update of `vbhem_h3m_c_step_fc.m:394-397`).  With
+    ``covar_type='diag'`` the scatter enters as diag(S_plus_C) and the
+    Wishart scale is kept as a diagonal matrix."""
+    dtype = stats.y_bar.dtype
+    alpha = hyps.alpha0 + stats.nj
+    eta = hyps.eta0 + stats.nj_rho1
+    epsilon = hyps.epsilon0 + stats.nj_rho2rho
+    lam = hyps.lambda0 + stats.nj_rho
+    v = hyps.v0 + stats.nj_rho + 1.0
+    m = (hyps.lambda0 * hyps.m0 + stats.nj_rho[..., None] * stats.y_bar) \
+        / lam[..., None]
+    mult1 = hyps.lambda0 * stats.nj_rho / lam
+    diff3 = stats.y_bar - hyps.m0                              # [..,Kr,Sr,D]
+    w0inv = torch.diag(hyps.w0inv_diag.to(dtype))
+    d = stats.y_bar.shape[-1]
+    eye = torch.eye(d, dtype=dtype, device=stats.y_bar.device)
+    s_pc = stats.s_plus_c
+    if covar_type == "diag":
+        s_pc = s_pc * eye
+    winv = (w0inv + stats.nj_rho[..., None, None] * s_pc
+            + mult1[..., None, None] * diff3[..., :, None] * diff3[..., None, :])
+    w = inv_psd(winv)
+    if covar_type == "diag":
+        w = w * eye
+    return H3MPosterior(alpha=alpha, eta=eta, epsilon=epsilon,
+                        niw=NIW(beta=lam, v=v, m=m, w=w))
+
+
+# ---------------------------------------------------------------------------
+# ELBO (vbhemh3m_lb.m)
+# ---------------------------------------------------------------------------
+
+def elbo(post: H3MPosterior, exps: ReducedExpectations, pair: PairStats,
+         hat_z: torch.Tensor, z_ni: torch.Tensor, nj: torch.Tensor,
+         hyps: VBHEMHyps) -> torch.Tensor:
+    """The 10-term VBHEM lower bound (`vbhemh3m_lb.m:88-186`), one value
+    per lane: [...]."""
+    dtype = hat_z.dtype
+    kr = post.num_clusters
+    sr = post.num_states
+    d = post.niw.dim
+    niw = post.niw
+    two_pi = 2.0 * math.pi
+    ks = (-2, -1)           # the (Kr, Sr) axes of each lane
+
+    logdet_w0inv = torch.sum(torch.log(hyps.w0inv_diag))
+    log_c_alpha0 = torch.lgamma(kr * hyps.alpha0) - kr * torch.lgamma(hyps.alpha0)
+    log_c_eta0 = torch.lgamma(sr * hyps.eta0) - sr * torch.lgamma(hyps.eta0)
+    log_c_eps0 = (torch.lgamma(sr * hyps.epsilon0)
+                  - sr * torch.lgamma(hyps.epsilon0))
+    log_b0 = log_wishart_b(logdet_w0inv, hyps.v0, d)
+
+    lt1 = torch.sum(z_ni * pair.ll_elbo, dim=(-2, -1))
+    lt7 = torch.sum(hat_z * torch.log(hat_z), dim=(-2, -1))
+    lt2 = torch.sum(nj * exps.log_omega, dim=-1)
+    lt3 = kr * log_c_eta0 + (hyps.eta0 - 1.0) * torch.sum(exps.log_pi, dim=ks)
+    lt4 = (kr * sr * log_c_eps0
+           + (hyps.epsilon0 - 1.0) * torch.sum(exps.log_a, dim=(-3, -2, -1)))
+
+    # Lt5: E[log p(mu, Lambda)] over all (j, k)
+    dm = niw.m - hyps.m0                                       # [..,Kr,Sr,D]
+    m_w_m = torch.einsum("...d,...de,...e->...", dm, niw.w, dm)
+    w0inv_diag = hyps.w0inv_diag.to(dtype)
+    tr_w0inv_w = torch.sum(w0inv_diag * torch.diagonal(niw.w, dim1=-2,
+                                                       dim2=-1), dim=-1)
+    const2 = d * torch.log(hyps.lambda0 / two_pi)
+    lt51 = 0.5 * torch.sum(const2 + exps.log_lam - d * hyps.lambda0 / niw.beta
+                           - hyps.lambda0 * niw.v * m_w_m, dim=ks)
+    lt52 = (kr * sr * log_b0
+            + 0.5 * (hyps.v0 - d - 1.0) * torch.sum(exps.log_lam, dim=ks)
+            - 0.5 * torch.sum(niw.v * tr_w0inv_w, dim=ks))
+    lt5 = lt51 + lt52
+
+    lt6 = log_c_alpha0 + (hyps.alpha0 - 1.0) * torch.sum(exps.log_omega, dim=-1)
+    lt8 = log_dirichlet_const(post.alpha) \
+        + torch.sum((post.alpha - 1.0) * exps.log_omega, dim=-1)
+    lt9 = (torch.sum(log_dirichlet_const(post.eta), dim=-1)
+           + torch.sum((post.eta - 1.0) * exps.log_pi, dim=ks)
+           + torch.sum(log_dirichlet_const(post.epsilon), dim=ks)
+           + torch.sum((post.epsilon - 1.0) * exps.log_a, dim=(-3, -2, -1)))
+
+    log_bk = log_wishart_b(-logdet_psd(niw.w), niw.v, d)       # [..,Kr,Sr]
+    h_ent = torch.sum(-log_bk - 0.5 * (niw.v - d - 1.0) * exps.log_lam
+                      + 0.5 * niw.v * d, dim=ks)
+    lt10 = 0.5 * torch.sum(exps.log_lam + d * torch.log(niw.beta / two_pi),
+                           dim=ks) - 0.5 * d * kr * sr - h_ent
+
+    return lt1 + lt2 + lt3 + lt4 + lt5 + lt6 - lt7 - lt8 - lt9 - lt10
+
+
+# ---------------------------------------------------------------------------
+# EM loop (vbhem_h3m_c_step_fc.m)
+# ---------------------------------------------------------------------------
+
+def _project_diag(post: H3MPosterior) -> H3MPosterior:
+    """Constrain a posterior's Wishart scales to diagonal matrices."""
+    eye = torch.eye(post.niw.dim, dtype=post.niw.w.dtype,
+                    device=post.niw.w.device)
+    return post._replace(niw=post.niw._replace(w=post.niw.w * eye))
+
+
+class VBHEMState(NamedTuple):
+    post: H3MPosterior
+    ll: torch.Tensor          # [...]
+    last_ll: torch.Tensor     # [...]
+    it: torch.Tensor          # [...] int64
+    hat_z: torch.Tensor       # [..., Kb, Kr]
+    ll_elbo: torch.Tensor     # [..., Kb, Kr]
+    stats: ClusterStats
+    done: torch.Tensor        # [...] bool
+
+
+def _em_iteration(base: H3M, post: H3MPosterior, hyps: VBHEMHyps,
+                  tilde_n: torch.Tensor, tau: int, covar_type: str = "full"):
+    """One EM iteration on every lane: returns (new posterior, ELBO of
+    ``post``, pair ll_elbo, hat_z, stats)."""
+    exps = reduced_expectations(post)
+    pair = e_step(base, post, exps, tau)
+    hat_z, z_ni, nj = soft_assignments(tilde_n, exps.log_omega, pair.ll_elbo)
+    ll = elbo(post, exps, pair, hat_z, z_ni, nj, hyps)
+    stats = aggregate_stats(base, pair, z_ni, nj)
+    return m_step(stats, hyps, covar_type), ll, pair.ll_elbo, hat_z, stats
+
+
+def _lane(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Broadcast a per-lane mask [...] against a lane-leading tensor."""
+    return mask.reshape(mask.shape + (1,) * (like.dim() - mask.dim()))
+
+
+def vbhem_em(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
+             nv: int, tau: int, max_iter: int = 200,
+             min_diff: float = 1e-5, covar_type: str = "full") -> VBHEMState:
+    """The VBHEM EM loop (`vbhem_h3m_c_step_fc.m:115-433`) over every lane
+    of ``init_post`` at once.
+
+    Virtual counts: tilde_N_i = Nv * Kb * omega_i.  Per iteration:
+    expectations, pair E-step, hat_Z, ELBO, convergence check, M-step —
+    the M-step still applies on the converging iteration, and a NaN ELBO
+    becomes -inf and keeps the old posterior.  A lane is done once it
+    converged (``|(ll - last)/last| <= min_diff`` after its first
+    iteration), went unstable or reached ``max_iter``; from then on it is
+    frozen, as under ``jax.vmap`` of ``lax.while_loop``."""
+    dtype = base.hmm.mean.dtype
+    dev = base.hmm.mean.device
+    tilde_n = (nv * base.num_hmms) * base.omega
+    if covar_type == "diag":
+        init_post = _project_diag(init_post)
+    lanes = init_post.alpha.shape[:-1]
+
+    def body(st: VBHEMState) -> VBHEMState:
+        new_post, ll, ll_elbo, hat_z, stats = _em_iteration(
+            base, st.post, hyps, tilde_n, tau, covar_type)
+        unstable = torch.isnan(ll)
+        ll = torch.where(unstable, torch.full_like(ll, -math.inf), ll)
+        lik_incr = torch.abs((ll - st.ll) / st.ll)
+        converged = (st.it > 0) & (lik_incr <= min_diff)
+        done = converged | unstable | (st.it + 1 >= max_iter)
+        new_post = _tree_map(
+            lambda new, old: torch.where(_lane(unstable, new), old, new),
+            new_post, st.post)
+        return VBHEMState(post=new_post, ll=ll, last_ll=st.ll, it=st.it + 1,
+                          hat_z=hat_z, ll_elbo=ll_elbo, stats=stats,
+                          done=done)
+
+    ll0 = torch.full(lanes, -torch.finfo(dtype).max, dtype=dtype, device=dev)
+    st0 = VBHEMState(post=init_post, ll=ll0, last_ll=ll0,
+                     it=torch.zeros(lanes, dtype=torch.int64, device=dev),
+                     hat_z=None, ll_elbo=None, stats=None,
+                     done=torch.zeros(lanes, dtype=torch.bool, device=dev))
+    # the first iteration runs on every lane (the loop body always runs
+    # at least once)
+    st = body(st0)
+    while not bool(torch.all(st.done)):
+        active = ~st.done
+        st = _tree_map(lambda new, old: torch.where(_lane(active, new), new,
+                                                    old), body(st), st)
+    return st
+
+
+def em_trace(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
+             nv: int, tau: int, n_iter: int = 50):
+    """Run exactly ``n_iter`` EM iterations recording the ELBO before each
+    M-step (the reference's `LogLs` history).  Returns (final posterior,
+    ll_history [n_iter, ...])."""
+    tilde_n = (nv * base.num_hmms) * base.omega
+    post, lls = init_post, []
+    for _ in range(n_iter):
+        post, ll, _, _, _ = _em_iteration(base, post, hyps, tilde_n, tau)
+        lls.append(ll)
+    return post, torch.stack(lls)
+
+
+# ---------------------------------------------------------------------------
+# initializers (vbhemhmm_init.m)
+# ---------------------------------------------------------------------------
+
+def _emission_w_from_cov(cov: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """W = inv((v - D - 1) * Sigma) (`vbhemhmm_init.m:86`)."""
+    d = cov.shape[-1]
+    return inv_psd((v[..., None, None] - d - 1.0) * cov)
+
+
+def init_baseem(gen: torch.Generator, base: H3M, kr: int, sr: int,
+                hyps: VBHEMHyps, nv: int) -> H3MPosterior:
+    """'baseem' initializer (`vbhemhmm_init.m:58-100`): each reduced
+    emission copies a random base emission; priors/transitions uniform
+    (initopt mode 'u'); cluster weights random.  Draws on the generator's
+    device, then moves to the bank's."""
+    dtype = base.hmm.mean.dtype
+    dev = base.hmm.mean.device
+    kb, sb_max = base.state_mask.shape
+    nv_total = nv * kb
+    nlr = nv_total / kr
+
+    rand_b = torch.randint(0, kb, (kr, sr), generator=gen,
+                           device=gen.device).to(dev)
+    # random valid state of the chosen base HMM
+    n_states = torch.sum(base.state_mask, dim=-1)              # [Kb]
+    u = torch.rand((kr, sr), generator=gen, device=gen.device,
+                   dtype=torch.float64).to(dev)
+    rand_g = torch.floor(u * n_states[rand_b]).to(torch.int64)
+    rand_g = torch.clamp(rand_g, max=sb_max - 1)
+
+    v = torch.full((kr, sr), float(hyps.v0) + nlr / sr + 1.0, dtype=dtype,
+                   device=dev)
+    lam = torch.full((kr, sr), float(hyps.lambda0) + nlr / sr, dtype=dtype,
+                     device=dev)
+    m = base.hmm.mean[rand_b, rand_g]                          # [Kr,Sr,D]
+    w = _emission_w_from_cov(base.hmm.cov[rand_b, rand_g], v)
+
+    eta = torch.full((kr, sr), 1.0 / sr, dtype=dtype, device=dev) * nlr \
+        + hyps.eta0
+    epsilon = torch.full((kr, sr, sr), 1.0 / sr, dtype=dtype,
+                         device=dev) * nlr / sr + hyps.epsilon0
+    omega = torch.rand((kr,), generator=gen, device=gen.device,
+                       dtype=dtype).to(dev)
+    omega = omega / torch.sum(omega)
+    alpha = hyps.alpha0 + omega * nv_total
+    return H3MPosterior(alpha=alpha, eta=eta, epsilon=epsilon,
+                        niw=NIW(beta=lam, v=v, m=m, w=w))
+
+
+_INITIALIZERS = {"baseem": init_baseem}
+# initializers of the JAX package that this package does not have yet
+_NOT_PORTED = {
+    "gmmNew": "ROADMAP.md queue A item 'other initializers' (ops/gmm.py)",
+    "gmmNew2": "ROADMAP.md queue A item 'other initializers' (ops/gmm.py)",
+    "wtkmeans": "ROADMAP.md queue A item 'other initializers' "
+                "(ops/kmeans.py)",
+    "random": "ROADMAP.md queue A item 'other initializers' (ops/gmm.py)",
+    "auto": "ROADMAP.md queue A item 'other initializers' (the 'auto' "
+            "try-all needs gmmNew and wtkmeans)",
+}
+
+
+def resolve_initmode(mode: str) -> str:
+    """Validate an initmode: 'baseem' runs; the JAX package's other modes
+    raise NotImplementedError naming the ROADMAP item that ports them."""
+    if mode in _INITIALIZERS:
+        return mode
+    if mode in _NOT_PORTED:
+        raise NotImplementedError(
+            f"initmode {mode!r} is not ported yet: {_NOT_PORTED[mode]}")
+    raise ValueError(f"unknown initmode {mode!r}; expected one of "
+                     f"{sorted(_INITIALIZERS) + sorted(_NOT_PORTED)}")
+
+
+# ---------------------------------------------------------------------------
+# trials + (K,S) sweep (vbhem_h3m_c.m / vbhem_h3m_cluster.m)
+# ---------------------------------------------------------------------------
+
+class VBHEMResult(NamedTuple):
+    """Final packaged model (`form_outputH3M.m`)."""
+    post: H3MPosterior
+    h3m: H3M                  # point-estimate form
+    ll: torch.Tensor
+    hat_z: torch.Tensor       # [Kb, Kr]
+    ll_elbo: torch.Tensor     # [Kb, Kr]
+    nj: torch.Tensor          # [Kr]
+    label: torch.Tensor       # [Kb] hard assignments
+    counts_n1: torch.Tensor   # [Kr, Sr]
+    counts: torch.Tensor      # [Kr, Sr]
+    trans_counts: torch.Tensor  # [Kr, Sr, Sr]
+
+    @property
+    def groups(self):
+        lab = self.label.cpu().numpy()
+        return [list(np.where(lab == j)[0]) for j in range(self.nj.shape[-1])]
+
+
+def finalize(st: VBHEMState) -> VBHEMResult:
+    return VBHEMResult(
+        post=st.post, h3m=st.post.to_h3m(), ll=st.ll, hat_z=st.hat_z,
+        ll_elbo=st.ll_elbo, nj=st.stats.nj,
+        label=torch.argmax(st.hat_z, dim=-1),
+        counts_n1=st.stats.nj_rho1, counts=st.stats.nj_rho,
+        trans_counts=st.stats.nj_rho2rho)
+
+
+def fit_single_ks(gen: torch.Generator, base: H3M, kr: int, sr: int,
+                  config: VBHEMConfig, hyps: Optional[VBHEMHyps] = None,
+                  initmode: Optional[str] = None) -> VBHEMState:
+    """Random restarts for one (K, S) cell (`vbhem_h3m_c.m:28-76`): the
+    ``config.trials`` restarts are the lanes of one :func:`vbhem_em`.
+    Returns the VBHEMState with a leading trial axis."""
+    dtype = base.hmm.mean.dtype
+    if hyps is None:
+        hyps = VBHEMHyps.from_config(config, base.hmm.mean.shape[-1], dtype,
+                                     base.hmm.mean.device)
+    init_fn = _INITIALIZERS[resolve_initmode(initmode or config.initmode)]
+    post0 = stack_lanes([init_fn(gen, base, kr, sr, hyps, config.nv)
+                         for _ in range(config.trials)])
+    return vbhem_em(base, post0, hyps, nv=config.nv, tau=config.tau,
+                    max_iter=config.max_iter, min_diff=config.min_diff,
+                    covar_type=config.covar_type)
+
+
+def stack_lanes(posts: Sequence[H3MPosterior]) -> H3MPosterior:
+    """Stack posteriors on a new leading lane axis."""
+    return _tree_map(lambda *xs: torch.stack(xs), *posts)
+
+
+def select_best_trial(states: VBHEMState) -> VBHEMState:
+    best = int(torch.argmax(states.ll))
+    return _tree_map(lambda a: a[best], states)
+
+
+def cluster(gen: torch.Generator, base: H3M, k, s,
+            config: VBHEMConfig = VBHEMConfig(),
+            hyps: Optional[VBHEMHyps] = None):
+    """(K, S) model-selection sweep (`vbhem_h3m_cluster.m:253-354`).
+
+    ``k``/``s`` may be ints or sequences.  Grid cells are scored by
+    ``LL + lgamma(K+1) + lgamma(S+1)`` and selected by the reference's
+    two-stage rule (:func:`_two_stage_select`).  Returns
+    (VBHEMResult, info dict)."""
+    if config.learn_hyps:
+        raise NotImplementedError(
+            "learn_hyps=True is not ported yet: ROADMAP.md queue A item "
+            "'hyperparameter learning'; pass learn_hyps=False")
+    resolve_initmode(config.initmode)
+    ks = list(k) if isinstance(k, (list, tuple, range)) else [int(k)]
+    ss = list(s) if isinstance(s, (list, tuple, range)) else [int(s)]
+    dim = base.hmm.mean.shape[-1]
+    hyps0 = hyps if hyps is not None else VBHEMHyps.from_config(
+        config, dim, base.hmm.mean.dtype, base.hmm.mean.device)
+
+    results, em_iters = {}, {}
+    scores = np.full((len(ks), len(ss)), -np.inf)
+    for ki, kk in enumerate(ks):
+        for si, sv in enumerate(ss):
+            states = fit_single_ks(gen, base, kk, sv, config, hyps0)
+            # the lanes run together until the slowest is done
+            em_iters[(kk, sv)] = int(torch.max(states.it))
+            st = select_best_trial(states)
+            ll = float(st.ll)
+            # every trial unstable: coalesce to -inf, keep the state so
+            # finalize() has a model to package
+            ll = ll if np.isfinite(ll) else -np.inf
+            results[(kk, sv)] = finalize(st)
+            scores[ki, si] = ll + math.lgamma(kk + 1) + math.lgamma(sv + 1)
+
+    best_k, best_s, model_ll_k, s_star = _two_stage_select(scores, ks, ss)
+    from .. import __version__
+    info = {"model_ll": scores, "model_ll_k": model_ll_k,
+            "model_best_s_per_k": s_star, "model_k": ks, "model_s": ss,
+            "model_best_k": best_k, "model_best_s": best_s,
+            "model_all": results, "model_em_iters": em_iters,
+            "vbhemopt": config, "version": __version__}
+    return results[(best_k, best_s)], info
+
+
+def _two_stage_select(scores, ks, ss):
+    """The reference's (K,S) selection rule (`vbhem_h3m_cluster.m:261-345`):
+    per K pick S* maximizing LL + lgamma(S+1); then pick K maximizing the
+    per-K winner's raw LL + lgamma(K+1).  ``scores`` is the [nK, nS] grid
+    of LL + lgamma(K+1) + lgamma(S+1).
+    Returns (best_k, best_s, model_ll_k, s_star_per_k)."""
+    scores = np.asarray(scores)
+    s_star = np.argmax(scores, axis=1)                       # [nK]
+    s_corr = np.asarray([math.lgamma(s + 1) for s in ss])
+    model_ll_k = scores[np.arange(len(ks)), s_star] - s_corr[s_star]
+    if not np.isfinite(model_ll_k).any():
+        return ks[0], ss[0], model_ll_k, [ss[i] for i in s_star]
+    bi = int(np.argmax(model_ll_k))
+    return ks[bi], ss[s_star[bi]], model_ll_k, [ss[i] for i in s_star]
+
+
+def to_hmm_list(res: VBHEMResult, state_thresh: float = 1e-3):
+    """Reduced H3M -> list of per-cluster point-estimate HMMs with
+    low-count states pruned (`convert_h3m2hmms.m` + the per-HMM pruning
+    of `vbh3m_remove_empty.m:63-76`).  Host-side (ragged shapes)."""
+    out = []
+    counts = res.counts.cpu().numpy()
+    for j in range(res.h3m.omega.shape[-1]):
+        keep = np.where(counts[j] >= state_thresh)[0]
+        if len(keep) == 0:
+            keep = np.asarray([int(np.argmax(counts[j]))])
+        p = res.h3m.hmm.prior[j].cpu().numpy()[keep]
+        a = res.h3m.hmm.trans[j].cpu().numpy()[np.ix_(keep, keep)]
+        p = p / p.sum()
+        a = a / np.maximum(a.sum(-1, keepdims=True), 1e-300)
+        dev = res.h3m.hmm.mean.device
+        idx = torch.as_tensor(keep, device=dev)
+        out.append(HMM(prior=torch.as_tensor(p, device=dev),
+                       trans=torch.as_tensor(a, device=dev),
+                       mean=res.h3m.hmm.mean[j][idx],
+                       cov=res.h3m.hmm.cov[j][idx]))
+    return out
+
+
+def remove_empty_clusters(res: VBHEMResult, cluster_thresh: float = 1.0,
+                          state_thresh: float = 1e-3) -> VBHEMResult:
+    """Post-hoc pruning (`vbh3m_remove_empty.m`): drop clusters with
+    Nj < cluster_thresh, renormalize, relabel.  States with count below
+    ``state_thresh`` are dropped when converting to HMM lists."""
+    nj = res.nj.cpu().numpy()
+    keep = np.where(nj >= cluster_thresh)[0]
+    if len(keep) == len(nj):
+        return res
+    perm = torch.as_tensor(keep, device=res.nj.device)
+    post = _tree_map(lambda a: a[perm], res.post)
+    hat_z = res.hat_z[:, perm]
+    hat_z = hat_z / torch.sum(hat_z, dim=-1, keepdim=True)
+    return VBHEMResult(
+        post=post, h3m=post.to_h3m(), ll=res.ll, hat_z=hat_z,
+        ll_elbo=res.ll_elbo[:, perm], nj=res.nj[perm],
+        label=torch.argmax(hat_z, dim=-1),
+        counts_n1=res.counts_n1[perm], counts=res.counts[perm],
+        trans_counts=res.trans_counts[perm])

@@ -1,0 +1,103 @@
+"""Build the package's CUDA kernels at first use and load them with ctypes.
+
+The sources under ``vbhem_tpu_torch/csrc/`` export a plain C interface
+and are compiled by ``nvcc`` for ``sm_90a`` into one shared library in
+``build/vbhem_tpu_torch/`` beside the package (a directory the repository
+ignores).  The library's file name carries a hash of the sources and the
+flags, so an edited ``.cu`` file builds anew.  Nothing here runs at
+import time: this module imports on machines with no CUDA toolkit.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Optional
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "vbhem_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused the sources; carries the compiler's
+    output."""
+
+
+def find_nvcc() -> Optional[str]:
+    """Path of nvcc: on PATH, else under the CUDA home PyTorch detects."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME:
+        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.is_file():
+            return str(cand)
+    return None
+
+
+def sources() -> list:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libvbhem_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless the library for them exists; returns its
+    path.  The compiler's output (with the ptxas register and spill
+    report) is kept beside it as ``<name>.log``."""
+    lib_path = library_path()
+    if lib_path.is_file():
+        return lib_path
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise KernelBuildError(
+            "nvcc not found (not on PATH and no CUDA home): the CUDA "
+            "kernels of vbhem_tpu_torch cannot be built")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in sources()]
+    # build under a temporary name, then rename: a concurrent build or
+    # an interrupted one never leaves a half-written library in place
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *cu],
+                              capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed with exit code {proc.returncode}:\n{log}")
+        lib_path.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib_path
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed and load the library once per process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = ctypes.CDLL(str(build()))
+        return _lib

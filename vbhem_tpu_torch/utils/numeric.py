@@ -1,0 +1,145 @@
+"""Numeric primitives shared by the engines (the counterpart of
+:mod:`vbhem_tpu.utils.numeric`): log-sum-exp, digamma expectations,
+Dirichlet / Wishart normalizers, and small symmetric positive-definite
+inverses and log-determinants.  Dtype-polymorphic: float64 for the CPU
+parity tests, float32 on the card.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = [
+    "tiny",
+    "logsumexp",
+    "e_log_det_lambda",
+    "e_log_dirichlet",
+    "log_dirichlet_const",
+    "log_wishart_b",
+    "sym",
+    "solve_psd",
+    "inv_psd",
+    "logdet_psd",
+]
+
+
+def tiny(dtype) -> float:
+    """Smallest positive normal of ``dtype``: the reference's `+1e-50`
+    mass floors underflow in float32 (`vbhem_h3m_c_step_fc.m:277`)."""
+    return torch.finfo(dtype).tiny
+
+
+def logsumexp(a: torch.Tensor, dim=-1, keepdim: bool = False) -> torch.Tensor:
+    """log-sum-exp (the reference's `logtrick`), with the finite-max guard
+    of the JAX package: an all -inf slice gives -inf, not NaN."""
+    amax = torch.amax(a, dim=dim, keepdim=True)
+    amax = torch.where(torch.isfinite(amax), amax, torch.zeros_like(amax))
+    out = torch.log(torch.sum(torch.exp(a - amax), dim=dim,
+                              keepdim=True)) + amax
+    return out if keepdim else out.squeeze(dim)
+
+
+def e_log_det_lambda(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """E[log |Lambda|] for Lambda ~ Wishart(W, v); Bishop (10.65):
+    sum_i psi((v + 1 - i)/2) + D log 2 + log det W.  v [...], w [..., D, D]."""
+    d = w.shape[-1]
+    i = torch.arange(1, d + 1, dtype=v.dtype, device=v.device)
+    t = torch.sum(torch.special.digamma(0.5 * (v[..., None] + 1.0 - i)),
+                  dim=-1)
+    return t + d * math.log(2.0) + logdet_psd(w)
+
+
+def e_log_dirichlet(conc: torch.Tensor, dim=-1) -> torch.Tensor:
+    """E[log pi_k] for pi ~ Dir(conc); Bishop (10.66)."""
+    return (torch.special.digamma(conc)
+            - torch.special.digamma(torch.sum(conc, dim=dim, keepdim=True)))
+
+
+def log_dirichlet_const(conc: torch.Tensor, dim=-1) -> torch.Tensor:
+    """log C(conc) of a Dirichlet: lgamma(sum conc) - sum lgamma(conc)."""
+    return (torch.lgamma(torch.sum(conc, dim=dim))
+            - torch.sum(torch.lgamma(conc), dim=dim))
+
+
+def log_wishart_b(logdet_winv, v, d: int) -> torch.Tensor:
+    """log B(W, v) of a Wishart given log det(W^{-1}) (`vbhmm_em_lb.m:88-89`):
+    (v/2) logdet(W^-1) - (v d / 2) log 2 - (d(d-1)/4) log pi
+    - sum_i lgamma((v + 1 - i)/2)."""
+    if not torch.is_tensor(v):
+        v = torch.as_tensor(v, dtype=torch.as_tensor(logdet_winv).dtype)
+    i = torch.arange(1, d + 1, dtype=v.dtype, device=v.device)
+    return (0.5 * v * logdet_winv
+            - 0.5 * v * d * math.log(2.0)
+            - 0.25 * d * (d - 1) * math.log(math.pi)
+            - torch.sum(torch.lgamma(0.5 * (v[..., None] + 1.0 - i)), dim=-1))
+
+
+def sym(a: torch.Tensor) -> torch.Tensor:
+    """Symmetrize [..., D, D]."""
+    return 0.5 * (a + a.transpose(-1, -2))
+
+
+def solve_psd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve a @ x = b for symmetric positive-definite ``a`` via Cholesky."""
+    return torch.cholesky_solve(b, torch.linalg.cholesky(a))
+
+
+def inv_psd(a: torch.Tensor) -> torch.Tensor:
+    """Inverse of a symmetric positive-definite matrix.
+
+    D <= 3 uses the closed-form cofactor inverse (the model family's
+    emission dims are tiny; elementwise arithmetic batches without a
+    per-matrix factorization launch).  Larger D uses Cholesky."""
+    d = a.shape[-1]
+    if d == 1:
+        return 1.0 / a
+    if d == 2:
+        a00 = a[..., 0, 0]
+        a01 = 0.5 * (a[..., 0, 1] + a[..., 1, 0])
+        a11 = a[..., 1, 1]
+        det = a00 * a11 - a01 * a01
+        inv = torch.stack([
+            torch.stack([a11, -a01], dim=-1),
+            torch.stack([-a01, a00], dim=-1)], dim=-2)
+        return inv / det[..., None, None]
+    if d == 3:
+        s = sym(a)
+        a00, a01, a02 = s[..., 0, 0], s[..., 0, 1], s[..., 0, 2]
+        a11, a12, a22 = s[..., 1, 1], s[..., 1, 2], s[..., 2, 2]
+        c00 = a11 * a22 - a12 * a12
+        c01 = a02 * a12 - a01 * a22
+        c02 = a01 * a12 - a02 * a11
+        c11 = a00 * a22 - a02 * a02
+        c12 = a01 * a02 - a00 * a12
+        c22 = a00 * a11 - a01 * a01
+        det = a00 * c00 + a01 * c01 + a02 * c02
+        inv = torch.stack([
+            torch.stack([c00, c01, c02], dim=-1),
+            torch.stack([c01, c11, c12], dim=-1),
+            torch.stack([c02, c12, c22], dim=-1)], dim=-2)
+        return inv / det[..., None, None]
+    eye = torch.eye(d, dtype=a.dtype, device=a.device).expand(a.shape)
+    return sym(solve_psd(a, eye))
+
+
+def logdet_psd(a: torch.Tensor) -> torch.Tensor:
+    """log det of a symmetric positive-definite matrix: closed form for
+    D <= 3 (see :func:`inv_psd`), Cholesky otherwise."""
+    d = a.shape[-1]
+    if d == 1:
+        return torch.log(a[..., 0, 0])
+    if d == 2:
+        a01 = 0.5 * (a[..., 0, 1] + a[..., 1, 0])
+        return torch.log(a[..., 0, 0] * a[..., 1, 1] - a01 * a01)
+    if d == 3:
+        s = sym(a)
+        a00, a01, a02 = s[..., 0, 0], s[..., 0, 1], s[..., 0, 2]
+        a11, a12, a22 = s[..., 1, 1], s[..., 1, 2], s[..., 2, 2]
+        det = (a00 * (a11 * a22 - a12 * a12)
+               + a01 * (a02 * a12 - a01 * a22)
+               + a02 * (a01 * a12 - a02 * a11))
+        return torch.log(det)
+    chol = torch.linalg.cholesky(a)
+    diag = torch.diagonal(chol, dim1=-2, dim2=-1)
+    return 2.0 * torch.sum(torch.log(diag), dim=-1)
