@@ -98,14 +98,16 @@ def _jax_niw(rng, lanes, k, d):
 def test_expected_cov_to_h3m_to_point(d):
     rng = np.random.default_rng(3 + d)
     niw = _jax_niw(rng, (2,), 3, d)       # v on both sides of D + 1
-    close(convert.to_torch(niw).expected_cov(), niw.expected_cov())
+    close(convert.to_torch(niw, device="cpu").expected_cov(),
+          niw.expected_cov())
 
     eps = rng.uniform(0.1, 4, (2, 3, 3))
     eps[0, 1] = 0.0                        # an all-zero row stays zero
     jpost = jc.H3MPosterior(alpha=jnp.asarray(rng.uniform(1, 9, (2,))),
                             eta=jnp.asarray(rng.uniform(1, 9, (2, 3))),
                             epsilon=jnp.asarray(eps), niw=niw)
-    got, want = convert.to_torch(jpost).to_h3m(), jpost.to_h3m()
+    got = convert.to_torch(jpost, device="cpu").to_h3m()
+    want = jpost.to_h3m()
     assert isinstance(got, tc.H3M)
     for g, w in zip(convert.to_numpy(got.hmm), want.hmm):
         np.testing.assert_allclose(g, np.asarray(w), rtol=RTOL)
@@ -115,14 +117,15 @@ def test_expected_cov_to_h3m_to_point(d):
 
     jhp = jc.HMMPosterior(alpha=jpost.eta[0], epsilon=jpost.epsilon[0],
                           niw=jc.NIW(*[f[0] for f in niw]))
-    for g, w in zip(convert.to_torch(jhp).to_point(), jhp.to_point()):
+    for g, w in zip(convert.to_torch(jhp, device="cpu").to_point(),
+                    jhp.to_point()):
         close(g, w)
 
 
 def test_pack_sequences_and_seqbatch():
     rng = np.random.default_rng(7)
     seqs = [rng.normal(size=(t, 2)) for t in (5, 3, 7)]
-    got, want = tc.pack_sequences(seqs), jc.pack_sequences(seqs)
+    got, want = tc.pack_sequences(seqs, device="cpu"), jc.pack_sequences(seqs)
     close(got.x, want.x)
     close(got.lengths, want.lengths)
     assert np.array_equal(got.mask.numpy(), np.asarray(want.mask))
@@ -138,7 +141,7 @@ def test_convert_round_trip_numpy_port_numpy():
                              mean=rng.normal(size=(kb, sb, d)),
                              cov=spd(rng, (kb, sb), d)),
                   state_mask=np.ones((kb, sb), bool))
-    t = convert.to_torch(bank)
+    t = convert.to_torch(bank, device="cpu")
     assert isinstance(t, tc.H3M) and isinstance(t.hmm, tc.HMM)
     assert t.hmm.mean.dtype == torch.float64
     assert t.state_mask.dtype == torch.bool
@@ -148,9 +151,73 @@ def test_convert_round_trip_numpy_port_numpy():
         np.testing.assert_array_equal(g, w)
     np.testing.assert_array_equal(back.state_mask, bank.state_mask)
     # dtype cast applies to floating leaves only
-    t32 = convert.to_torch(bank, dtype=torch.float32)
+    t32 = convert.to_torch(bank, device="cpu", dtype=torch.float32)
     assert t32.hmm.cov.dtype == torch.float32
     assert t32.state_mask.dtype == torch.bool
     unknown = collections.namedtuple("Unknown", ["foo", "bar"])(1.0, 2.0)
     with pytest.raises(TypeError):
-        convert.to_torch(unknown)
+        convert.to_torch(unknown, device="cpu")
+
+
+def test_entry_points_default_to_the_card():
+    """Constructors that build tensors from host data put them on "cuda"
+    unless told otherwise: with no card they raise, and never quietly
+    return CPU tensors."""
+    from vbhem_tpu_torch.models import vbhem, vbhmm
+    from vbhem_tpu_torch.utils import planted
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the defaults build on it")
+    rng = np.random.default_rng(9)
+    seqs = [rng.normal(size=(4, 2))]
+    post = tc.HMMPosterior(alpha=torch.ones(2), epsilon=torch.ones(2, 2),
+                           niw=tc.NIW(beta=torch.ones(2),
+                                      v=torch.full((2,), 5.0),
+                                      m=torch.zeros(2, 2),
+                                      w=torch.eye(2).repeat(2, 1, 1)))
+    res = tc.VBHMMResult(post=post, model=post.to_point(),
+                         ll=torch.tensor(0.0), gamma=torch.zeros(1, 1, 2),
+                         counts_n1=torch.ones(2), counts=torch.ones(2),
+                         trans_counts=torch.ones(2, 2))
+    calls = {
+        "pack_sequences": lambda: tc.pack_sequences(seqs),
+        "h3m_from_results": lambda: vbhem.h3m_from_results([res]),
+        "h3m_from_hmms": lambda: vbhem.h3m_from_hmms([res.model]),
+        "VBHEMHyps.from_config": lambda: vbhem.VBHEMHyps.from_config(
+            tconfig.VBHEMConfig(), 2),
+        "VBHyps.from_config": lambda: vbhmm.VBHyps.from_config(
+            tconfig.VBConfig(), 2),
+        "to_torch": lambda: convert.to_torch(np.ones(3)),
+        "synthetic_subjects": lambda: planted.synthetic_subjects(1, 2, 3),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # asked for explicitly, the CPU still works
+    assert tc.pack_sequences(seqs, device="cpu").x.device.type == "cpu"
+    assert vbhem.h3m_from_results([res], device="cpu").omega.device.type \
+        == "cpu"
+
+
+def test_port_imports_with_jax_blocked():
+    """No module of the port, and not chip_smoke.py or the profiler,
+    imports jax or the JAX package."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    repo = Path(__file__).resolve().parent.parent
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['vbhem_tpu'] = None\n"
+        "import vbhem_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    vbhem_tpu_torch.__path__, 'vbhem_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import chip_smoke, profile_em, restart_success\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15

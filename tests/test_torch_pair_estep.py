@@ -255,3 +255,61 @@ def test_library_path_keys_on_sources(monkeypatch, tmp_path):
     assert first.parent == tmp_path / "build"
     src.write_text("// two\n")
     assert _build.library_path() != first
+
+
+def kernel_pair_transliteration(prior, trans, log_pi, log_a, ell, tau):
+    """``csrc/pair_estep_fused.cu`` for one pair, in numpy: the backward
+    carry rebased per base state (its shift kept apart), the stored
+    carries feeding the forward pass's softmaxes."""
+    sb, sr = ell.shape
+
+    def lse(v):
+        m = v.max()
+        m = m if np.isfinite(m) else 0.0
+        return m + np.log(np.exp(v - m).sum())
+
+    llo, sh, carries = np.zeros((sb, sr)), np.zeros(sb), []
+    for _ in range(tau - 1):
+        carries.append(llo.copy())
+        lse_v = np.array([[lse(log_a[rp] + ell[c] + llo[c])
+                           for c in range(sb)] for rp in range(sr)])
+        acc = trans @ lse_v.T                                 # [b, rp]
+        m = acc.max(axis=1)
+        sh = trans @ sh + m
+        llo = acc - m[:, None]
+    x = log_pi[None, :] + ell + llo
+    lse1 = np.array([lse(x[b]) for b in range(sb)])
+    ll = float(prior @ (lse1 + sh))
+    nu = (prior[:, None] * np.exp(x - lse1[:, None])).T       # [r, b]
+    nu1, stn, sxi = nu.sum(1), nu.copy(), np.zeros((sr, sr))
+    for lk in reversed(carries):
+        nn = np.zeros((sr, sb))
+        for rp in range(sr):
+            for c in range(sb):
+                foo = nu[rp] @ trans[:, c]
+                z = log_a[rp] + ell[c] + lk[c]
+                p = np.exp(z - lse(z))
+                sxi[rp] += foo * p
+                nn[:, c] += foo * p
+        nu = nn
+        stn += nn
+    return ll, nu1, sxi, stn
+
+
+@pytest.mark.parametrize("tau,sr", [(1, 3), (2, 2), (10, 3), (50, 2)])
+def test_kernel_rebased_carry_matches_loop_oracle(tau, sr):
+    """The rebased recursion of the CUDA kernel, which cannot run here,
+    against the explicit-loop oracle of tests/test_pair_estep.py."""
+    case = make_case(9, kb=3, kr=2, sb=3, sr=sr, ragged=True)
+    t = port(case)
+    ell = tpe.expected_pair_ll_variational(*t[2:4], *t[6:]).numpy()
+    prior, trans, log_pi, log_a = case[0], case[1], case[4], case[5]
+    for i in range(3):
+        for j in range(2):
+            got = kernel_pair_transliteration(prior[i], trans[i], log_pi[j],
+                                              log_a[j], ell[i, j], tau)
+            want = oracle_pair(prior[i], trans[i], log_pi[j], log_a[j],
+                               ell[i, j], tau)
+            np.testing.assert_allclose(got[0], want[0], rtol=1e-12)
+            for g, w in zip(got[1:], want[1:]):
+                np.testing.assert_allclose(g, w, rtol=1e-10, atol=1e-13)

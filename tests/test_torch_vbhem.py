@@ -27,6 +27,10 @@ from vbhem_tpu_torch.utils import planted
 RTOL = 1e-10
 
 
+def to_port(obj):
+    return convert.to_torch(obj, device="cpu")
+
+
 def assert_tree_close(got, want, rtol=RTOL, atol=0.0):
     g, w = convert.to_numpy(got), want
     if isinstance(w, tuple) and hasattr(w, "_fields"):
@@ -65,24 +69,24 @@ def problem(request):
                                           pair.ll_elbo)
     return dict(jb=jb, jh=jh, jpost=jpost, tilde_n=tilde_n, exps=exps,
                 pair=pair, soft=(hat_z, z_ni, nj), tau=tau, cfg=cfg,
-                tb=convert.to_torch(jb), th=convert.to_torch(jh),
-                tpost=convert.to_torch(jpost))
+                tb=to_port(jb), th=to_port(jh),
+                tpost=to_port(jpost))
 
 
 def test_reduced_expectations_and_e_step(problem):
     p = problem
     exps = tv.reduced_expectations(p["tpost"])
     assert_tree_close(exps, p["exps"])
-    pair = tv.e_step(p["tb"], p["tpost"], convert.to_torch(p["exps"]),
+    pair = tv.e_step(p["tb"], p["tpost"], to_port(p["exps"]),
                      p["tau"])
     assert_tree_close(pair, p["pair"], atol=1e-13)
 
 
 def test_soft_assignments(problem):
     p = problem
-    got = tv.soft_assignments(convert.to_torch(p["tilde_n"]),
-                              convert.to_torch(p["exps"].log_omega),
-                              convert.to_torch(p["pair"].ll_elbo))
+    got = tv.soft_assignments(to_port(p["tilde_n"]),
+                              to_port(p["exps"].log_omega),
+                              to_port(p["pair"].ll_elbo))
     for g, w in zip(got, p["soft"]):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL)
 
@@ -91,8 +95,8 @@ def test_aggregate_stats(problem):
     p = problem
     hat_z, z_ni, nj = p["soft"]
     want = jv.aggregate_stats(p["jb"], p["pair"], z_ni, nj)
-    got = tv.aggregate_stats(p["tb"], convert.to_torch(p["pair"]),
-                             convert.to_torch(z_ni), convert.to_torch(nj))
+    got = tv.aggregate_stats(p["tb"], to_port(p["pair"]),
+                             to_port(z_ni), to_port(nj))
     assert_tree_close(got, want, atol=1e-12)
     if p["jpost"].num_states == 1:
         assert np.all(got.nj_rho2rho.numpy() == 1e-12)
@@ -104,7 +108,7 @@ def test_m_step(problem, covar_type):
     hat_z, z_ni, nj = p["soft"]
     stats = jv.aggregate_stats(p["jb"], p["pair"], z_ni, nj)
     want = jv.m_step(stats, p["jh"], covar_type)
-    got = tv.m_step(convert.to_torch(stats), p["th"], covar_type)
+    got = tv.m_step(to_port(stats), p["th"], covar_type)
     assert_tree_close(got, want, atol=1e-14)
 
 
@@ -113,8 +117,8 @@ def test_elbo(problem):
     hat_z, z_ni, nj = p["soft"]
     want = jv.elbo(p["jpost"], p["exps"], p["pair"], hat_z, z_ni, nj,
                    p["jh"])
-    got = tv.elbo(p["tpost"], convert.to_torch(p["exps"]),
-                  convert.to_torch(p["pair"]), *map(convert.to_torch,
+    got = tv.elbo(p["tpost"], to_port(p["exps"]),
+                  to_port(p["pair"]), *map(to_port,
                                                    (hat_z, z_ni, nj)),
                   p["th"])
     np.testing.assert_allclose(float(got), float(want), rtol=RTOL)
@@ -131,8 +135,8 @@ def test_vbhem_em_lanes_match_jax_vmap():
         jax.random.split(jax.random.key(0), 4))
     want = jax.vmap(lambda q: jv.vbhem_em(jb, q, jh, nv=cfg.nv, tau=cfg.tau,
                                           max_iter=30))(posts)
-    got = tv.vbhem_em(convert.to_torch(jb), convert.to_torch(posts),
-                      convert.to_torch(jh), nv=cfg.nv, tau=cfg.tau,
+    got = tv.vbhem_em(to_port(jb), to_port(posts),
+                      to_port(jh), nv=cfg.nv, tau=cfg.tau,
                       max_iter=30)
     it = np.asarray(want.it)
     assert len(set(it.tolist())) > 1      # lanes finish at different times
@@ -159,8 +163,8 @@ def test_em_trace_elbo_never_decreases():
     jh = jv.VBHEMHyps.from_config(cfg, d)
     jpost = jv.init_baseem(jax.random.key(5), jb, 2, 2, jh, cfg.nv)
     _, want = jv.em_trace(jb, jpost, jh, cfg.nv, cfg.tau, n_iter=25)
-    post, lls = tv.em_trace(convert.to_torch(jb), convert.to_torch(jpost),
-                            convert.to_torch(jh), cfg.nv, cfg.tau, n_iter=25)
+    post, lls = tv.em_trace(to_port(jb), to_port(jpost),
+                            to_port(jh), cfg.nv, cfg.tau, n_iter=25)
     lls = lls.numpy()
     np.testing.assert_allclose(lls, np.asarray(want), rtol=1e-9)
     assert np.all(np.diff(lls) >= -1e-9 * np.abs(lls[:-1])), lls
@@ -246,7 +250,7 @@ def _jax_result(rng, kb, kr, sr, d):
 
 def test_remove_empty_clusters_and_to_hmm_list():
     jres = _jax_result(np.random.default_rng(21), 9, 4, 3, 2)
-    tres = convert.to_torch(jres)
+    tres = to_port(jres)
     want = jv.remove_empty_clusters(jres, cluster_thresh=1.0)
     got = tv.remove_empty_clusters(tres, cluster_thresh=1.0)
     assert got.nj.shape == (3,)
@@ -260,15 +264,15 @@ def test_remove_empty_clusters_and_to_hmm_list():
 def test_select_best_trial_finalize_and_groups():
     jres = _jax_result(np.random.default_rng(22), 6, 3, 2, 2)
     st = tv.VBHEMState(
-        post=tv.stack_lanes([convert.to_torch(jres.post)] * 3),
+        post=tv.stack_lanes([to_port(jres.post)] * 3),
         ll=torch.tensor([-3.0, -1.0, -2.0], dtype=torch.float64),
         last_ll=torch.zeros(3, dtype=torch.float64),
-        it=torch.tensor([4, 5, 6]), hat_z=convert.to_torch(
+        it=torch.tensor([4, 5, 6]), hat_z=to_port(
             np.stack([np.asarray(jres.hat_z)] * 3)),
-        ll_elbo=convert.to_torch(np.stack([np.asarray(jres.ll_elbo)] * 3)),
+        ll_elbo=to_port(np.stack([np.asarray(jres.ll_elbo)] * 3)),
         stats=tv.ClusterStats(*[torch.stack([x] * 3) for x in (
-            convert.to_torch(jres.nj), convert.to_torch(jres.counts_n1),
-            convert.to_torch(jres.trans_counts), convert.to_torch(jres.counts),
+            to_port(jres.nj), to_port(jres.counts_n1),
+            to_port(jres.trans_counts), to_port(jres.counts),
             torch.zeros(3, 2, 2, dtype=torch.float64),
             torch.zeros(3, 2, 2, 2, dtype=torch.float64))]),
         done=torch.ones(3, dtype=torch.bool))
@@ -296,14 +300,24 @@ def test_h3m_from_results_and_hmms():
             post=post, model=post.to_point(), ll=jnp.asarray(0.0),
             gamma=jnp.zeros((1, 1, s)), counts_n1=jnp.ones(s),
             counts=jnp.ones(s), trans_counts=jnp.ones((s, s))))
-    tres = [convert.to_torch(r) for r in results]
+    tres = [to_port(r) for r in results]
     for kw in (dict(), dict(use_post=False), dict(covar_type="diag")):
-        assert_tree_close(tv.h3m_from_results(tres, **kw),
+        assert_tree_close(tv.h3m_from_results(tres, device="cpu", **kw),
                           jv.h3m_from_results(results, **kw), rtol=1e-12)
     hmms = [r.model for r in results]
-    assert_tree_close(tv.h3m_from_hmms([convert.to_torch(h) for h in hmms]),
+    assert_tree_close(tv.h3m_from_hmms([to_port(h) for h in hmms],
+                                       device="cpu"),
                       jv.h3m_from_hmms(hmms), rtol=1e-12)
+    # a bank of one state count is stacked on the device in one pass
+    uniform = [r for r in results if r.post.alpha.shape == (2,)]
+    for kw in (dict(), dict(use_post=False), dict(covar_type="diag"),
+               dict(dtype=np.float32)):
+        got = tv.h3m_from_results([to_port(r) for r in uniform],
+                                  device="cpu", **kw)
+        assert_tree_close(got, jv.h3m_from_results(uniform, **kw),
+                          rtol=1e-6 if kw.get("dtype") else 1e-12)
+        assert got.state_mask.dtype == torch.bool
     cfg = dataclasses.replace(VBHEMConfig(), w0=(0.5, 2.0))
-    h = tv.VBHEMHyps.from_config(cfg, 2)
+    h = tv.VBHEMHyps.from_config(cfg, 2, device="cpu")
     assert_tree_close(h, jv.VBHEMHyps.from_config(
         dataclasses.replace(JConfig(), w0=(0.5, 2.0)), 2), rtol=0)

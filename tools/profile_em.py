@@ -1,11 +1,11 @@
-"""Profile one VBHEM EM iteration of the PyTorch / CUDA port on one NVIDIA
-card, stage by stage.
+"""Profile one EM iteration of each engine of the PyTorch / CUDA port on
+one NVIDIA card, stage by stage.
 
     python3 tools/profile_em.py [--n 50] [--iters 20] [--out FILE]
 
-At the bench shape (Kb=8192, one lane of Kr=8) and at the largest cell of
-chip_smoke.py's ``cluster`` grid (Kb=8192, 8 lanes of Kr=3), both with
-Sb=Sr=3, D=2, tau=10 in float32, it
+VBHEM: at the bench shape (Kb=8192, one lane of Kr=8) and at the largest
+cell of chip_smoke.py's ``cluster`` grid (Kb=8192, 8 lanes of Kr=3), both
+with Sb=Sr=3, D=2, tau=10 in float32, it
 
   * times each stage of the iteration alone (``reduced_expectations``,
     ``e_step``, the kernel wrapper, ``soft_assignments``, ``elbo``,
@@ -16,6 +16,14 @@ Sb=Sr=3, D=2, tau=10 in float32, it
     reads from its trace the device kernels launched, the device busy
     time (the union of the kernels' intervals), the window's wall time
     and the pair E-step kernel's mean device time.
+
+VBEM: at the VBEM path of chip_smoke.py (``batch.learn_bank`` on 8192
+synthetic subjects x 20 restarts, 25 sequences of T=50, D=2, K=2, float32)
+it times the stages of one iteration (``expected_log_gauss``, the
+forward-backward with kernel B2, ``suff_stats``, ``elbo``, ``m_step``), the
+whole iteration and the float64 rescoring pass the same way, and reads a
+profiler window of ``max(iters // 4, 2)`` iterations for the device
+kernels, the busy share and B2's mean device time.
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON
 object with every number; ``--out`` also writes the object to a file.
@@ -36,10 +44,13 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from vbhem_tpu_torch import VBHEMConfig  # noqa: E402
-from vbhem_tpu_torch.models import vbhem  # noqa: E402
-from vbhem_tpu_torch.ops import pair_estep_cuda  # noqa: E402
-from vbhem_tpu_torch.utils.planted import random_bank  # noqa: E402
+from vbhem_tpu_torch import SeqBatch, VBConfig, VBHEMConfig  # noqa: E402
+from vbhem_tpu_torch.models import rescore, vbhem, vbhmm  # noqa: E402
+from vbhem_tpu_torch.ops import fb as fb_plain  # noqa: E402
+from vbhem_tpu_torch.ops import fb_cuda, pair_estep_cuda  # noqa: E402
+from vbhem_tpu_torch.utils.numeric import e_log_dirichlet  # noqa: E402
+from vbhem_tpu_torch.utils.planted import (random_bank,  # noqa: E402
+                                           synthetic_subjects)
 
 SHAPES = [
     # name, kb, lanes, kr, sr
@@ -47,6 +58,7 @@ SHAPES = [
     ("main-path cell Kb=8192 L=8 Kr=3 Sb=Sr=3 D=2 tau=10", 8192, 8, 3, 3),
 ]
 KERNEL_NAME = "pair_estep_fused_kernel"
+FB_KERNEL_NAME = "fb_kernel"
 
 
 def time_stage(fn, n, warmup=5):
@@ -66,9 +78,10 @@ def time_stage(fn, n, warmup=5):
     return start.elapsed_time(end) / n, host * 1e3
 
 
-def trace_numbers(trace_file: Path) -> dict:
-    """Kernel count, busy time and the pair E-step kernel's mean device
-    time from a chrome trace written by torch.profiler."""
+def trace_numbers(trace_file: Path, kernel_name: str = KERNEL_NAME,
+                  label: str = "pair_estep") -> dict:
+    """Kernel count, busy time and the mean device time of the kernels
+    named ``kernel_name`` from a chrome trace written by torch.profiler."""
     events = json.loads(trace_file.read_text())["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
@@ -83,11 +96,84 @@ def trace_numbers(trace_file: Path) -> dict:
             cur_end = max(cur_end, e)
     if cur_end is not None:
         busy += cur_end - cur_start
-    ours = [float(e["dur"]) for e in kernels if KERNEL_NAME in e["name"]]
+    ours = [float(e["dur"]) for e in kernels if kernel_name in e["name"]]
     return {"device_kernels": len(kernels), "device_busy_ms": busy / 1e3,
-            "pair_estep_kernels": len(ours),
-            "pair_estep_kernel_device_ms":
+            f"{label}_kernels": len(ours),
+            f"{label}_kernel_device_ms":
                 float(np.mean(ours)) / 1e3 if ours else None}
+
+
+def profile_window(step, iters, trace_file: Path, **names) -> dict:
+    """A torch.profiler window of ``iters`` calls of ``step``."""
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(str(trace_file))
+    window = dict(iterations=iters, wall_ms=wall,
+                  **trace_numbers(trace_file, **names))
+    window["device_busy_share"] = window["device_busy_ms"] / wall
+    return window
+
+
+def profile_vbem(n, iters, trace_dir: Path, n_per_group=4096, trials=20):
+    """Stages of one VBEM iteration at chip_smoke.py's VBEM path."""
+    name = (f"VBEM {2 * n_per_group} subjects x {trials} restarts, 25 "
+            f"sequences T=50 D=2 K=2")
+    device = torch.device("cuda", 0)
+    batches, _ = synthetic_subjects(n_per_group, seed=1, device=device)
+    bank = SeqBatch(x=torch.stack([b.x for b in batches]),
+                    lengths=torch.stack([b.lengths for b in batches]))
+    cfg = VBConfig(mu0=(1.5, 1.5), w0=1.0, numtrials=trials)
+    hyps = vbhmm.VBHyps.from_config(cfg, 2, torch.float32, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    post = vbhmm.random_init(gen, bank, 2, hyps, lanes=(trials,))
+    x, mask = vbhmm._views(bank, post.alpha.shape[:-1])
+    log_rho = fb_plain.expected_log_gauss(x, post.niw)
+    log_pz1 = e_log_dirichlet(post.alpha)
+    log_trans = e_log_dirichlet(post.epsilon)
+    fb = fb_cuda.forward_backward_auto(log_pz1, log_trans, log_rho, mask)
+    stats = vbhmm.suff_stats(bank, fb)
+    n_small = max(n // 10, 3)
+    stages = {
+        "expected_log_gauss": lambda: fb_plain.expected_log_gauss(
+            x, post.niw),
+        "e_log_dirichlet (pi, A)": lambda: (e_log_dirichlet(post.alpha),
+                                            e_log_dirichlet(post.epsilon)),
+        "forward_backward_auto (B2 wrapper + kernel)":
+            lambda: fb_cuda.forward_backward_auto(log_pz1, log_trans,
+                                                  log_rho, mask),
+        "suff_stats": lambda: vbhmm.suff_stats(bank, fb),
+        "elbo": lambda: vbhmm.elbo(bank, post, fb, stats, hyps),
+        "m_step": lambda: vbhmm.m_step(stats, hyps),
+        "em_iteration": lambda: vbhmm._iteration(bank, post, hyps),
+        "f64 rescoring (vbem_rescore_lanes)":
+            lambda: rescore.vbem_rescore_lanes(bank, post, hyps),
+    }
+    out = {}
+    for stage, fn in stages.items():
+        ev, host = time_stage(fn, n_small, warmup=2)
+        out[stage] = {"event_ms": ev, "host_enqueue_ms": host}
+        print(f"[{name}] {stage}: {ev:.4f} ms by events, host enqueue "
+              f"{host:.4f} ms", flush=True)
+    state = [post]
+
+    def step():
+        state[0] = vbhmm._iteration(bank, state[0], hyps)[0]
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    window = profile_window(step, max(iters // 4, 2),
+                            trace_dir / "trace_vbem.json",
+                            kernel_name=FB_KERNEL_NAME, label="fb")
+    window["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["profile"] = window
+    print(f"[{name}] profiler window: {json.dumps(window)}", flush=True)
+    return name, out
 
 
 def profile_shape(name, kb, lanes, kr, sr, n, iters, trace_dir: Path):
@@ -139,23 +225,16 @@ def profile_shape(name, kb, lanes, kr, sr, n, iters, trace_dir: Path):
         print(f"[{name}] {stage}: {ev:.4f} ms by events, host enqueue "
               f"{host:.4f} ms", flush=True)
 
-    p = post
+    state = [post]
+
+    def step():
+        state[0] = iteration(state[0])
     for _ in range(3):
-        p = iteration(p)
+        step()
     torch.cuda.synchronize()
-    trace_file = trace_dir / f"trace_{kb}_{lanes}x{kr}.json"
-    act = [torch.profiler.ProfilerActivity.CPU,
-           torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=act) as prof:
-        t0 = time.perf_counter()
-        p = post
-        for _ in range(iters):
-            p = iteration(p)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(str(trace_file))
-    window = dict(iterations=iters, wall_ms=wall, **trace_numbers(trace_file))
-    window["device_busy_share"] = window["device_busy_ms"] / wall
+    state[0] = post
+    window = profile_window(step, iters,
+                            trace_dir / f"trace_{kb}_{lanes}x{kr}.json")
     out["profile"] = window
     print(f"[{name}] profiler window: {json.dumps(window)}", flush=True)
     return out
@@ -182,6 +261,8 @@ def main() -> int:
     for name, kb, lanes, kr, sr in SHAPES:
         result[name] = profile_shape(name, kb, lanes, kr, sr, args.n,
                                      args.iters, trace_dir)
+    name, out = profile_vbem(args.n, args.iters, trace_dir)
+    result[name] = out
     text = json.dumps(result, indent=1)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

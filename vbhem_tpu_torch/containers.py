@@ -139,23 +139,49 @@ class H3MPosterior(NamedTuple):
 
 class SeqBatch(NamedTuple):
     """Dense padded batch of variable-length sequences: [N, T_max, D] +
-    lengths."""
-    x: torch.Tensor        # [N, T_max, D]
-    lengths: torch.Tensor  # [N] int32
+    lengths.  A bank of subjects' batches of one shape stacks on leading
+    axes: x [..., N, T_max, D], lengths [..., N]."""
+    x: torch.Tensor        # [..., N, T_max, D]
+    lengths: torch.Tensor  # [..., N] int32
 
     @property
-    def mask(self) -> torch.Tensor:  # [N, T_max] bool
+    def mask(self) -> torch.Tensor:  # [..., N, T_max] bool
         t = torch.arange(self.x.shape[-2], device=self.x.device)
-        return t[None, :] < self.lengths[:, None]
+        return t < self.lengths[..., None]
 
     @property
-    def total(self) -> torch.Tensor:
-        return torch.sum(self.lengths)
+    def total(self) -> torch.Tensor:  # [...] observations per batch
+        return torch.sum(self.lengths, dim=-1)
+
+
+def tree_map(fn, *trees):
+    """Map ``fn`` over the tensor leaves of NamedTuples of one type
+    (``None`` leaves stay ``None``)."""
+    first = trees[0]
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*[tree_map(fn, *parts) for parts in zip(*trees)])
+    if first is None:
+        return None
+    return fn(*trees)
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point builds its tensors on.  Entry points
+    default to ``"cuda"``; a CUDA device that is not there raises, so a
+    machine without a card never quietly runs on the CPU.  Pass
+    ``device="cpu"`` to run there."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device is available for {dev}; pass "
+                           f"device='cpu' to build the tensors on the CPU")
+    return dev
 
 
 def pack_sequences(seqs, dtype=None, t_max: Optional[int] = None,
-                   device=None) -> SeqBatch:
-    """Pack a python list of [T_i, D] arrays into a SeqBatch."""
+                   device="cuda") -> SeqBatch:
+    """Pack a python list of [T_i, D] arrays into a SeqBatch on
+    ``device`` (the card unless the caller names another)."""
+    device = resolve_device(device)
     import numpy as np
     n = len(seqs)
     d = np.asarray(seqs[0]).shape[-1]

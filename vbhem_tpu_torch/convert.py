@@ -3,7 +3,8 @@
 :func:`to_torch` turns a container whose leaves are numpy (or any
 array-like) values — ``H3M``, ``H3MPosterior``, ``HMM``, ``VBHEMHyps``
 and the other NamedTuples the two packages share — into this package's
-container of the same field names, on a given device and dtype.
+container of the same field names, on a given device (the card by
+default) and dtype.
 :func:`to_numpy` turns one of this package's containers back into the
 same container with numpy leaves.  Containers are matched by their field
 names, so this module never imports the JAX package.
@@ -16,18 +17,21 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .containers import resolve_device
+
 
 @functools.lru_cache(maxsize=1)
 def _registry() -> dict:
     from . import containers
-    from .models import vbhem
-    from .ops import pair_estep
+    from .models import vbhem, vbhmm
+    from .ops import fb, gmm, pair_estep
     classes = (containers.NIW, containers.HMM, containers.HMMPosterior,
                containers.H3M, containers.H3MPosterior,
                containers.VBHMMResult, containers.SeqBatch,
                pair_estep.PairStats, vbhem.VBHEMHyps,
                vbhem.ReducedExpectations, vbhem.ClusterStats,
-               vbhem.VBHEMState, vbhem.VBHEMResult)
+               vbhem.VBHEMState, vbhem.VBHEMResult, fb.FBStats, gmm.GMM,
+               vbhmm.VBHyps, vbhmm.SuffStats, vbhmm.EMState)
     return {tuple(c._fields): c for c in classes}
 
 
@@ -43,11 +47,14 @@ def _port_class(obj):
     return cls
 
 
-def to_torch(obj: Any, device=None, dtype: Optional[torch.dtype] = None):
-    """Container (or single array) -> this package's container of tensors.
+def to_torch(obj: Any, device="cuda",
+             dtype: Optional[torch.dtype] = None):
+    """Container (or single array) -> this package's container of tensors
+    on ``device`` (the card unless the caller names another).
 
     Floating leaves are cast to ``dtype`` when it is given; integer and
     boolean leaves keep their type.  ``None`` leaves stay ``None``."""
+    device = resolve_device(device)
     if obj is None:
         return None
     if _is_container(obj):

@@ -21,11 +21,16 @@
 //   * grid (ceil(Kb / 128), L*Kr): a block serves one reduced model, whose
 //     parameters (a few hundred bytes) it stages once in shared memory;
 //   * E3logN is computed in registers and never stored;
+//   * the backward carry is rebased per base state at every step (its
+//     shift kept apart in registers), so the softmaxes read numbers near
+//     their spread, not near the carry's magnitude, which grows with tau;
 //   * the backward pass stores only its carry LL_old [Sb, Sr] per step (not
 //     Theta [Sr, Sb, Sr]) to a global scratch [tau-1, Sb*Sr, L*Kr, Kb]; the
 //     forward pass rebuilds Theta from it.  That trades Sr*Sb*Sr exps per
-//     step for 3x fewer scratch bytes (the scratch then fits in L2 at the
-//     main-path shapes);
+//     step (doubling the function's own count) for 3x fewer scratch
+//     bytes: itemsize * (tau-1) * Sb * Sr per pair, written once and read
+//     back once; in f32 at tau=10, 21 MB at the bench shape (fits in the
+//     50 MB L2) and 64 MB at the main-path cell (does not);
 //   * the shapes the clustering path launches, (Sb, Sr, D) = (3, 3, 2) and
 //     (3, 2, 2), are compile-time specializations whose loops unroll and
 //     whose arrays live in registers; every other shape in Sb, Sr <= 8,
@@ -164,11 +169,19 @@ pair_estep_fused_kernel(const T* __restrict__ prior,    // [Sb, Kb]
   }
 
   // ---- backward: carry LL_old [Sb, Sr] ----
+  // The carry is kept rebased: LL_old[b][r] = llo[b][r] + sh[b], with
+  // max_r llo[b][r] = 0.  Every use of the carry but the termination's
+  // ll_elbo is a softmax over r, where sh[b] cancels, so only llo is
+  // stored; in float32 this keeps the softmax inputs near their spread
+  // instead of the carry's magnitude, which grows with tau.
   T llo[MSB][MSR];
+  T sh[MSB];
 #pragma unroll
-  for (int b = 0; b < sb; ++b)
+  for (int b = 0; b < sb; ++b) {
+    sh[b] = 0;
 #pragma unroll
     for (int r = 0; r < sr; ++r) llo[b][r] = 0;
+  }
 
   for (int k = 0; k < tau - 1; ++k) {
     T* cst = carry + static_cast<size_t>(k) * sb * sr * plane + pix;
@@ -197,17 +210,29 @@ pair_estep_fused_kernel(const T* __restrict__ prior,    // [Sb, Kb]
         lse[rp][c] = dlog(s) + mx;
       }
     }
-    // LL_new[b][rp] = sum_c trans[b][c] lse[rp][c]
+    // LL_new[b][rp] = sum_c trans[b][c] (lse[rp][c] + sh[c]); rebased
+    T sh_new[MSB];
 #pragma unroll
     for (int b = 0; b < sb; ++b) {
+      T shift = 0;
+#pragma unroll
+      for (int c = 0; c < sb; ++c) shift += tr[b][c] * sh[c];
+      T m = neg_inf<T>();
 #pragma unroll
       for (int rp = 0; rp < sr; ++rp) {
         T acc = 0;
 #pragma unroll
         for (int c = 0; c < sb; ++c) acc += tr[b][c] * lse[rp][c];
         llo[b][rp] = acc;
+        m = dmax(m, acc);
       }
+      m = finite_or_zero(m);
+#pragma unroll
+      for (int rp = 0; rp < sr; ++rp) llo[b][rp] -= m;
+      sh_new[b] = shift + m;
     }
+#pragma unroll
+    for (int b = 0; b < sb; ++b) sh[b] = sh_new[b];
   }
 
   // ---- terminate (t = 1) and start the forward pass ----
@@ -226,8 +251,8 @@ pair_estep_fused_kernel(const T* __restrict__ prior,    // [Sb, Kb]
     T s = 0;
 #pragma unroll
     for (int r = 0; r < sr; ++r) s += dexp(x[r] - mx);
-    const T lse1 = dlog(s) + mx;
-    ll += pr[b] * lse1;
+    const T lse1 = dlog(s) + mx;  // of the rebased carry
+    ll += pr[b] * (lse1 + sh[b]);
 #pragma unroll
     for (int r = 0; r < sr; ++r) nu[r][b] = pr[b] * dexp(x[r] - lse1);
   }

@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from ..config import VBHEMConfig
-from ..containers import H3M, HMM, H3MPosterior, NIW, VBHMMResult
+from ..containers import (H3M, HMM, H3MPosterior, HMMPosterior, NIW,
+                          VBHMMResult, resolve_device, tree_map)
 from ..ops.pair_estep import PairStats
 from ..ops.pair_estep_cuda import pair_estep_fused_auto
 from ..utils.numeric import (e_log_det_lambda, e_log_dirichlet, inv_psd,
@@ -47,7 +48,10 @@ class VBHEMHyps(NamedTuple):
 
     @classmethod
     def from_config(cls, config: VBHEMConfig, dim: int,
-                    dtype=torch.float64, device=None):
+                    dtype=torch.float64, device="cuda"):
+        """Hyperparameters of ``config`` as 0-d / [D] tensors on ``device``
+        (the card unless the caller names another)."""
+        device = resolve_device(device)
         w0 = config.w0
         w0 = tuple(w0) if isinstance(w0, (tuple, list)) else (w0,) * dim
 
@@ -57,16 +61,6 @@ class VBHEMHyps(NamedTuple):
         return cls(alpha0=t(config.alpha0), eta0=t(config.eta0),
                    epsilon0=t(config.epsilon0), lambda0=t(config.lambda0),
                    v0=t(config.v0), m0=t(config.default_m0(dim)), w0=t(w0))
-
-
-def _tree_map(fn, *trees):
-    """Map ``fn`` over the tensor leaves of NamedTuples of one type."""
-    first = trees[0]
-    if isinstance(first, tuple) and hasattr(first, "_fields"):
-        return type(first)(*[_tree_map(fn, *parts) for parts in zip(*trees)])
-    if first is None:
-        return None
-    return fn(*trees)
 
 
 # ---------------------------------------------------------------------------
@@ -92,18 +86,27 @@ def _bank(prior, trans, mean, cov, mask, device) -> H3M:
 
 def h3m_from_results(results: Sequence[VBHMMResult], use_post: bool = True,
                      s_max: Optional[int] = None, dtype=None,
-                     covar_type: str = "full", device=None) -> H3M:
-    """Convert learned VBHMMs into a dense padded base H3M.
+                     covar_type: str = "full", device="cuda") -> H3M:
+    """Convert learned VBHMMs into a dense padded base H3M on ``device``
+    (the card unless the caller names another).
 
     With ``use_post`` (`vbhem_h3m_cluster.m:210`), point estimates are
     replaced by posterior expectations (`hmms_to_h3m_hem.m:43-92`):
       prior = exp(E[log pi]),  A = exp(E[log A])   (sub-normalized)
       cov   = ((beta + 1) / beta) * E[Sigma]
     Padded states get zero prior/transition mass and identity covariance
-    (inert through the pair recursions).  ``dtype`` is a numpy dtype."""
+    (inert through the pair recursions).  ``dtype`` is a numpy dtype.
+
+    A bank whose HMMs all have the same state count (what ``learn_bank``
+    returns) is stacked and converted on the device in one pass; a ragged
+    bank is padded on the host, one HMM at a time."""
+    device = resolve_device(device)
+    ss = [int(r.post.alpha.shape[-1]) for r in results]
+    if len(set(ss)) == 1 and s_max in (None, ss[0]) and all(
+            torch.is_tensor(r.post.alpha) for r in results):
+        return _bank_uniform(results, use_post, dtype, covar_type, device)
     k_b = len(results)
     d = _np(results[0].post.niw.m).shape[-1]
-    ss = [_np(r.post.alpha).shape[-1] for r in results]
     sm = s_max if s_max is not None else max(ss)
     dt = dtype or _np(results[0].post.niw.m).dtype
 
@@ -131,9 +134,45 @@ def h3m_from_results(results: Sequence[VBHMMResult], use_post: bool = True,
     return _bank(prior, trans, mean, cov, mask, device)
 
 
+def _bank_uniform(results, use_post, dtype, covar_type, device) -> H3M:
+    """:func:`h3m_from_results` for HMMs of one state count, on the
+    device: each field of every result is stacked once."""
+    def stack(get):
+        return torch.stack([get(r) for r in results]).to(device)
+
+    if use_post:
+        post = HMMPosterior(*[stack(lambda r, f=f: getattr(r.post, f))
+                              for f in ("alpha", "epsilon")],
+                            niw=NIW(*[stack(lambda r, f=f: getattr(
+                                r.post.niw, f)) for f in NIW._fields]))
+        beta = post.niw.beta
+        prior = torch.exp(e_log_dirichlet(post.alpha))
+        trans = torch.exp(e_log_dirichlet(post.epsilon))
+        mean = post.niw.m
+        cov = post.niw.expected_cov() * ((beta + 1.0) / beta)[..., None, None]
+    else:
+        prior, trans, mean, cov = (stack(lambda r, f=f: getattr(r.model, f))
+                                   for f in HMM._fields)
+    if covar_type == "diag":
+        cov = cov * torch.eye(cov.shape[-1], dtype=cov.dtype,
+                              device=cov.device)
+    if dtype is not None:
+        tdt = torch.from_numpy(np.zeros(0, dtype)).dtype
+        prior, trans, mean, cov = (x.to(tdt) for x in (prior, trans, mean,
+                                                        cov))
+    k_b, s = prior.shape
+    return H3M(omega=torch.full((k_b,), 1.0 / k_b, dtype=prior.dtype,
+                                device=device),
+               hmm=HMM(prior=prior, trans=trans, mean=mean, cov=cov),
+               state_mask=torch.ones((k_b, s), dtype=torch.bool,
+                                     device=device))
+
+
 def h3m_from_hmms(hmms: Sequence[HMM], s_max: Optional[int] = None,
-                  device=None) -> H3M:
-    """Build a base H3M from plain point-estimate HMMs."""
+                  device="cuda") -> H3M:
+    """Build a base H3M from plain point-estimate HMMs, on ``device`` (the
+    card unless the caller names another)."""
+    device = resolve_device(device)
     k_b = len(hmms)
     d = hmms[0].dim
     ss = [h.num_states for h in hmms]
@@ -401,7 +440,7 @@ def vbhem_em(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
         lik_incr = torch.abs((ll - st.ll) / st.ll)
         converged = (st.it > 0) & (lik_incr <= min_diff)
         done = converged | unstable | (st.it + 1 >= max_iter)
-        new_post = _tree_map(
+        new_post = tree_map(
             lambda new, old: torch.where(_lane(unstable, new), old, new),
             new_post, st.post)
         return VBHEMState(post=new_post, ll=ll, last_ll=st.ll, it=st.it + 1,
@@ -418,7 +457,7 @@ def vbhem_em(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
     st = body(st0)
     while not bool(torch.all(st.done)):
         active = ~st.done
-        st = _tree_map(lambda new, old: torch.where(_lane(active, new), new,
+        st = tree_map(lambda new, old: torch.where(_lane(active, new), new,
                                                     old), body(st), st)
     return st
 
@@ -563,12 +602,12 @@ def fit_single_ks(gen: torch.Generator, base: H3M, kr: int, sr: int,
 
 def stack_lanes(posts: Sequence[H3MPosterior]) -> H3MPosterior:
     """Stack posteriors on a new leading lane axis."""
-    return _tree_map(lambda *xs: torch.stack(xs), *posts)
+    return tree_map(lambda *xs: torch.stack(xs), *posts)
 
 
 def select_best_trial(states: VBHEMState) -> VBHEMState:
     best = int(torch.argmax(states.ll))
-    return _tree_map(lambda a: a[best], states)
+    return tree_map(lambda a: a[best], states)
 
 
 def cluster(gen: torch.Generator, base: H3M, k, s,
@@ -665,7 +704,7 @@ def remove_empty_clusters(res: VBHEMResult, cluster_thresh: float = 1.0,
     if len(keep) == len(nj):
         return res
     perm = torch.as_tensor(keep, device=res.nj.device)
-    post = _tree_map(lambda a: a[perm], res.post)
+    post = tree_map(lambda a: a[perm], res.post)
     hat_z = res.hat_z[:, perm]
     hat_z = hat_z / torch.sum(hat_z, dim=-1, keepdim=True)
     return VBHEMResult(

@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
 The sources under ``vbhem_tpu_torch/csrc/`` export a plain C interface
-and are compiled by ``nvcc`` for ``sm_90a`` into one shared library in
+and are compiled by ``nvcc`` for ``sm_90a``, each in its own process and
+all at once, and linked into one shared library in
 ``build/vbhem_tpu_torch/`` beside the package (a directory the repository
 ignores).  The library's file name carries a hash of the sources and the
 flags, so an edited ``.cu`` file builds anew.  Nothing here runs at
@@ -23,7 +24,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "vbhem_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -63,8 +64,10 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources unless the library for them exists; returns its
-    path.  The compiler's output (with the ptxas register and spill
-    report) is kept beside it as ``<name>.log``."""
+    path.  Every source compiles in its own ``nvcc`` process, all started
+    together, and one more links the objects.  The compilers' output
+    (with the ptxas register and spill report) is kept beside the library
+    as ``<name>.log``."""
     lib_path = library_path()
     if lib_path.is_file():
         return lib_path
@@ -74,23 +77,36 @@ def build() -> Path:
             "nvcc not found (not on PATH and no CUDA home): the CUDA "
             "kernels of vbhem_tpu_torch cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources()]
-    # build under a temporary name, then rename: a concurrent build or
-    # an interrupted one never leaves a half-written library in place
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *cu],
+    # build in a temporary directory, then rename the library: a
+    # concurrent build or an interrupted one never leaves a half-written
+    # library in place
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        jobs = []
+        for src in sources():
+            obj = tmp / f"{src.stem}.o"
+            jobs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = "", []
+        for src, _, proc in jobs:
+            out, _ = proc.communicate()
+            log += f"== {src.name}\n{out}"
+            if proc.returncode != 0:
+                failed.append(f"{src.name} (exit code {proc.returncode})")
+        if failed:
+            raise KernelBuildError(f"nvcc failed on {', '.join(failed)}:\n"
+                                   f"{log}")
+        so = tmp / lib_path.name
+        proc = subprocess.run([nvcc, "-shared", "-o", str(so),
+                               *[str(obj) for _, obj, _ in jobs]],
                               capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+        log += f"== link\n{proc.stdout}{proc.stderr}"
         if proc.returncode != 0:
             raise KernelBuildError(
-                f"nvcc failed with exit code {proc.returncode}:\n{log}")
+                f"nvcc failed to link, exit code {proc.returncode}:\n{log}")
         lib_path.with_suffix(".log").write_text(log)
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(so, lib_path)
     return lib_path
 
 
@@ -101,3 +117,18 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             _lib = ctypes.CDLL(str(build()))
         return _lib
+
+
+_fns: dict = {}
+
+
+def c_function(name: str, argtypes) -> ctypes._CFuncPtr:
+    """The library's entry point ``name``, with its ctypes signature (an
+    ``int`` cudaError_t result) set once per process."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(load(), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn

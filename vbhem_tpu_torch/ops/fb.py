@@ -1,0 +1,125 @@
+"""Masked, batched scaled forward-backward of the VBEM E-step: the plain
+PyTorch version, the counterpart of :mod:`vbhem_tpu.ops.fb`.
+
+This is the path for CPU tensors and the oracle of the hand-written CUDA
+kernel ``csrc/fb.cu`` (see :mod:`.fb_cuda`).  It keeps the reference's
+numerical conventions (`vbhmm_fb.m:289-377`): emissions rescaled per step
+by ``max_k log_rho``, the forward pass renormalized by ``c_t``, a padded
+step carrying alpha through with c = 1, and beta reset to ones before a
+padded successor.
+
+Every function accepts leading lane axes (subjects x restarts):
+``log_rho [..., N, T, K]`` with a mask ``[..., N, T]`` that broadcasts
+against it, and shared (``[..., K]`` / ``[..., K, K]``) or per-sequence
+(``[..., N, K]`` / ``[..., N, K, K]``) initial and transition scores.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..containers import NIW
+from ..utils.numeric import e_log_det_lambda, quad_diff
+
+
+class FBStats(NamedTuple):
+    """E-step outputs, mirroring `vbhmm_fb.m:383-389`."""
+    log_rho: torch.Tensor   # [..., N, T, K] expected log emission (masked = 0)
+    gamma: torch.Tensor     # [..., N, T, K] responsibilities (masked = 0)
+    xi_sum: torch.Tensor    # [..., N, K, K] summed transition responsibilities
+    phi_norm: torch.Tensor  # [..., N] per-sequence log normalizer of q(Z)
+
+
+def expected_log_gauss(x: torch.Tensor, niw: NIW) -> torch.Tensor:
+    """Expected log Gaussian density under the NIW posterior, Bishop
+    (10.46)/(10.64) as in `vbhmm_fb.m:234-257`:
+
+        delta[k]  = D / beta_k + v_k (x - m_k)^T W_k (x - m_k)
+        logrho[k] = 0.5 E[log|Lambda_k|] - 0.5 delta[k] - (D/2) log(2 pi)
+
+    x [..., N, T, D] (its leading axes broadcast against the posterior's
+    lane axes), niw fields [..., K, ...] -> [..., N, T, K]."""
+    d = x.shape[-1]
+    quad = quad_diff(x[..., :, :, None, :], niw.m[..., None, None, :, :],
+                     niw.w[..., None, None, :, :, :])        # [..,N,T,K]
+    delta = d / niw.beta[..., None, None, :] + niw.v[..., None, None, :] * quad
+    log_lam = e_log_det_lambda(niw.v, niw.w)                 # [..., K]
+    cd = 0.5 * d * math.log(2.0 * math.pi)
+    return 0.5 * log_lam[..., None, None, :] - 0.5 * delta - cd
+
+
+def _scores(log_pz1: torch.Tensor, log_trans: torch.Tensor, log_rho_dim: int):
+    """exp of the initial and transition scores, broadcast to
+    [..., N, K] and [..., N, K, K]; whether each is per sequence is read
+    from its rank against ``log_rho``'s."""
+    pz1 = torch.exp(log_pz1)
+    trans = torch.exp(log_trans)
+    if pz1.dim() == log_rho_dim - 2:          # shared [..., K]
+        pz1 = pz1[..., None, :]
+    if trans.dim() == log_rho_dim - 1:        # shared [..., K, K]
+        trans = trans[..., None, :, :]
+    return pz1, trans
+
+
+def forward_backward(log_pz1: torch.Tensor, log_trans: torch.Tensor,
+                     log_rho: torch.Tensor, mask: torch.Tensor) -> FBStats:
+    """Scaled forward-backward over a padded batch (`vbhmm_fb.m:201-379`).
+
+    log_pz1   [..., K] or [..., N, K]        E[log pi], not normalized
+    log_trans [..., K, K] or [..., N, K, K]  E[log A], row format
+    log_rho   [..., N, T, K]                 expected log emissions
+    mask      [..., N, T] bool (broadcasts against log_rho[..., 0]); every
+              sequence must have mask[..., 0] true.
+
+    A Python loop over T: the plain version of kernel B2."""
+    t_max = log_rho.shape[-2]
+    pz1, trans = _scores(log_pz1, log_trans, log_rho.dim())
+    mask = torch.broadcast_to(mask, log_rho.shape[:-1])
+    maskf = mask.to(log_rho.dtype)
+
+    max_rho = torch.amax(log_rho, dim=-1)                    # [..., N, T]
+    px = torch.exp(log_rho - max_rho[..., None])             # [..., N, T, K]
+
+    # ---- forward: alpha_t = normalize((alpha_{t-1} A) * px_t) ----
+    delta0 = pz1 * px[..., 0, :]
+    c0 = torch.sum(delta0, dim=-1)
+    alphas = [delta0 / c0[..., None]]
+    cs = [c0]
+    for t in range(1, t_max):
+        prev = alphas[-1]
+        delta = torch.sum(prev[..., :, None] * trans, dim=-2) * px[..., t, :]
+        c = torch.sum(delta, dim=-1)
+        c_safe = torch.where(c > 0, c, torch.ones_like(c))
+        valid = mask[..., t]
+        # a padded step carries alpha through; its c contributes log 1
+        alphas.append(torch.where(valid[..., None], delta / c_safe[..., None],
+                                  prev))
+        cs.append(torch.where(valid, c_safe, torch.ones_like(c_safe)))
+
+    # ---- backward: beta, gamma, xi (vbhmm_fb.m:325-362) ----
+    beta = torch.ones_like(alphas[0])
+    betas = [beta]
+    xi_sum = torch.zeros(log_rho.shape[:-2] + trans.shape[-2:],
+                         dtype=log_rho.dtype, device=log_rho.device)
+    for t in range(t_max - 2, -1, -1):
+        valid = mask[..., t + 1]
+        bp = beta * px[..., t + 1, :]
+        c_next = cs[t + 1]
+        beta_t = torch.sum(trans * bp[..., None, :], dim=-1) / c_next[..., None]
+        beta = torch.where(valid[..., None], beta_t, torch.ones_like(beta_t))
+        xi_t = (trans * (alphas[t][..., :, None] * bp[..., None, :])
+                / c_next[..., None, None])
+        xi_sum = xi_sum + torch.where(valid[..., None, None], xi_t,
+                                      torch.zeros_like(xi_t))
+        betas.append(beta)
+    betas.reverse()
+
+    gamma = torch.stack(alphas, dim=-2) * torch.stack(betas, dim=-2)
+    gamma = gamma * maskf[..., None]
+    log_c = torch.where(mask, torch.log(torch.stack(cs, dim=-1)),
+                        torch.zeros_like(maskf))
+    phi_norm = torch.sum(log_c, dim=-1) + torch.sum(max_rho * maskf, dim=-1)
+    return FBStats(log_rho=log_rho * maskf[..., None], gamma=gamma,
+                   xi_sum=xi_sum, phi_norm=phi_norm)

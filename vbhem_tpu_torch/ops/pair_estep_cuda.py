@@ -87,21 +87,6 @@ def validate(prior_b, trans_b, mean_b, cov_b, log_pi_r, log_a_r, m_r, w_r,
     return kb, sb, d, lanes, kr, sr
 
 
-_fns = {}
-
-
-def _c_fn(dtype):
-    """The library's entry point for ``dtype``, its ctypes signature set
-    once per process."""
-    fn = _fns.get(dtype)
-    if fn is None:
-        fn = getattr(_build.load(), _C_FN[dtype])
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        _fns[dtype] = fn
-    return fn
-
-
 def _launch(prior_b, trans_b, mean_b, cov_b, reduced, tau, kb, sb, lanes,
             kr, sr) -> PairStats:
     """One launch on arguments :func:`validate` has accepted."""
@@ -109,7 +94,7 @@ def _launch(prior_b, trans_b, mean_b, cov_b, reduced, tau, kb, sb, lanes,
     dev, dt = mean_b.device, mean_b.dtype
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
-    fn = _c_fn(dt)
+    fn = _build.c_function(_C_FN[dt], _ARGTYPES)
     lkr = math.prod(lanes) * kr
     d = mean_b.shape[-1]
 

@@ -21,6 +21,8 @@ __all__ = [
     "solve_psd",
     "inv_psd",
     "logdet_psd",
+    "quad_diff",
+    "lane_contract",
 ]
 
 
@@ -143,3 +145,32 @@ def logdet_psd(a: torch.Tensor) -> torch.Tensor:
     chol = torch.linalg.cholesky(a)
     diag = torch.diagonal(chol, dim1=-2, dim2=-1)
     return 2.0 * torch.sum(torch.log(diag), dim=-1)
+
+
+def quad_diff(x: torch.Tensor, m: torch.Tensor,
+              w: torch.Tensor) -> torch.Tensor:
+    """(x - m)^T W (x - m) over the last axis, for x [..., D], m [..., D]
+    and w [..., D, D] that broadcast against one another.  Works one
+    dimension at a time, so the only large temporaries are D differences
+    of the broadcast shape (no [..., D, D] product is materialized)."""
+    d = x.shape[-1]
+    diffs = [x[..., e] - m[..., e] for e in range(d)]
+    out = 0
+    for e in range(d):
+        for f in range(d):
+            out = out + diffs[e] * w[..., e, f] * diffs[f]
+    return out
+
+
+def lane_contract(wt: torch.Tensor, y: torch.Tensor, nx: int) -> torch.Tensor:
+    """sum_m wt[*X, *L, M, K] y[*X, 1.., M, E] -> [*X, *L, K, E].
+
+    ``y`` holds data shared by the lanes L (unit axes there), so it is
+    not expanded over them: the lanes fold into the columns of one
+    batched matmul over the X axes."""
+    lead, lanes = wt.shape[:nx], wt.shape[nx:-2]
+    m, k = wt.shape[-2:]
+    y = y.reshape(y.shape[:nx] + y.shape[-2:])                # [*X, M, E]
+    g = wt.movedim(-2, nx).reshape(lead + (m, -1))            # [*X, M, L*K]
+    out = torch.matmul(y.transpose(-1, -2), g)                # [*X, E, L*K]
+    return out.transpose(-1, -2).reshape(lead + lanes + (k, y.shape[-1]))

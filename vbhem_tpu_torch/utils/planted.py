@@ -1,7 +1,8 @@
-"""Synthetic banks of base HMMs for checking the clustering path, and the
-Rand index that scores a clustering against the planted groups.
+"""Synthetic banks of base HMMs for checking the clustering path, the
+synthetic protocol's fixation sequences for checking the whole pipeline,
+and the Rand index that scores a clustering against the planted groups.
 
-Both the CPU tests and ``chip_smoke.py`` draw their banks from here, so
+Both the CPU tests and ``chip_smoke.py`` draw their data from here, so
 the two see the same data for the same seed.
 """
 from __future__ import annotations
@@ -9,7 +10,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..containers import H3M, HMM
+from ..containers import H3M, HMM, SeqBatch, resolve_device
+
+# the synthetic protocol's ground truth (`exprmt1_sampledata.m:21-43`):
+# two 2-state HMMs with shared emissions, one sticky and one switching
+SYNTH_MEANS = np.array([[0.0, 0.0], [3.0, 3.0]])
+SYNTH_TRANS = np.array([[[0.6, 0.4], [0.4, 0.6]],
+                        [[0.4, 0.6], [0.6, 0.4]]])
 
 
 def bank_from_numpy(prior, trans, mean, cov, mask, device, dtype) -> H3M:
@@ -67,6 +74,37 @@ def planted_bank(kb, device, dtype, seed=3):
     base = bank_from_numpy(prior, trans, mean, cov, np.ones((kb, sb), bool),
                            device, dtype)
     return base, labels
+
+
+def synthetic_subjects(n_per_group: int, n_seqs: int = 25, t: int = 50,
+                       noise: float = 0.1, seed: int = 0, device="cuda",
+                       dtype=torch.float32):
+    """Fixation-like sequences of the synthetic protocol
+    (`experiments/synthetic.py:27-59`, `exprmt1_sampledata.m:51-87`):
+    ``n_per_group`` subjects for each of the two ground-truth HMMs (prior
+    [.5, .5], means (0,0) / (3,3), identity covariances, transitions
+    [[.6,.4],[.4,.6]] and the swapped matrix), ``n_seqs`` sequences of
+    length ``t`` each, plus N(0, noise^2) noise.  Drawn with numpy from
+    ``seed``.  Returns (one SeqBatch per subject on ``device``, the card
+    unless the caller names another; group labels [S])."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    labels = np.repeat([0, 1], n_per_group)
+    n_subj = len(labels)
+    trans = SYNTH_TRANS[labels]                              # [S, 2, 2]
+    rows = np.arange(n_subj)[:, None]
+    z = np.empty((n_subj, n_seqs, t), np.int64)
+    z[..., 0] = rng.random((n_subj, n_seqs)) < 0.5
+    for tt in range(1, t):
+        p1 = trans[rows, z[..., tt - 1], 1]                  # p(next = 1)
+        z[..., tt] = rng.random((n_subj, n_seqs)) < p1
+    x = SYNTH_MEANS[z] + rng.standard_normal(z.shape + (2,))
+    x = x + noise * rng.standard_normal(x.shape)
+    xt = torch.as_tensor(x, dtype=dtype, device=device)
+    lengths = torch.full((n_subj, n_seqs), t, dtype=torch.int32,
+                         device=device)
+    return ([SeqBatch(x=xt[i], lengths=lengths[i]) for i in range(n_subj)],
+            labels)
 
 
 def rand_index(a, b) -> float:
