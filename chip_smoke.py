@@ -12,7 +12,7 @@ Phases (any failure exits non-zero and prints no result line):
      float32 kernel within 5e-5 and the float64 kernel within 1e-10 of
      max |got - want| / (|want| + 1), at small shapes and at the shapes the
      main paths launch.  B1 is the pair E-step, B2 the VBEM
-     forward-backward;
+     forward-backward, B3 the VHEM / DIC pair recursion;
   3. VBHEM path: ``vbhem.cluster`` over (K, S) in {1,2,3} x {2,3} on a
      planted bank of 8192 base HMMs with 8 restart trials per cell; the
      ELBOs must be finite, every EM iteration must have launched B1, and
@@ -28,12 +28,27 @@ Phases (any failure exits non-zero and prints no result line):
      ``vbhem.cluster`` (K in {1,2,3}, S=2, the JAX package's test
      settings with 64 restarts, see PIPELINE_TRIALS); the (K=2, S=2)
      labels must recover the two groups;
-  6. timing (informational): each kernel's device time, its wrapper's
+  6. VHEM path: ``experiments.synthetic.run_vhem_grid`` at its defaults
+     (20 restarts, Nv=100, tau=10, initmode 'auto') over K, S in {1,2,3}
+     on the point-estimate bank phase 4 learned (Kb=8192, Sb=2): every LL
+     and criterion finite, kernel B3 (the pair recursion on a precomputed
+     emission matrix) launched on every EM iteration, the (K=2, S=2)
+     labels recovering the groups; the AIC and BIC selections printed;
+  7. DIC: ``run_vbhem_dic`` over the pipeline's grid, once in float32 and
+     once with the same results and bank cast to float64 (B3's float64
+     entry); every DIC finite, B3 launched once per cell and dtype, and
+     each of those launches held against the plain version in float64 on
+     its own inputs, with phase 2's tolerances; both tables and
+     selections printed;
+  8. timing (informational): each kernel's device time, its wrapper's
      time and its plain version's time at its main-path shape, and one EM
-     iteration of each engine with the kernel and with the plain version.
+     iteration of each engine (VBHEM, VBEM, VHEM) with the kernel and
+     with the plain version (the engine's own iteration, its kernel
+     wrapper rebound to the plain version for the plain runs).
 
-Each of phases 3-5 sets every kernel's launch count to 0 just before it
-runs its path and reads the counts just after.  Prints a JSON line
+B3 is checked in phase 2 like B1 and B2.  Each of phases 3-7 sets every
+kernel's launch count to 0 just before it runs its path and reads the
+counts just after.  Prints a JSON line
 describing each kernel, the ``nvidia-smi`` name and power-limit line, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, before any
 result, when no CUDA device is available.  Imports neither JAX nor the
@@ -41,6 +56,7 @@ JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -53,9 +69,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from vbhem_tpu_torch import SeqBatch, VBConfig, VBHEMConfig
+from vbhem_tpu_torch import HEMConfig, SeqBatch, VBConfig, VBHEMConfig
+from vbhem_tpu_torch.containers import tree_map
+from vbhem_tpu_torch.experiments import synthetic
 from vbhem_tpu_torch.models import batch as vbem_batch
-from vbhem_tpu_torch.models import vbhem, vbhmm
+from vbhem_tpu_torch.models import dic as dic_model
+from vbhem_tpu_torch.models import vbhem, vbhmm, vhem
 from vbhem_tpu_torch.ops import _build
 from vbhem_tpu_torch.ops import fb as fb_plain
 from vbhem_tpu_torch.ops import fb_cuda
@@ -73,9 +92,15 @@ KERNELS = {
     "B2": {"name": "fb", "route": "cuda",
            "source": "vbhem_tpu_torch/csrc/fb.cu",
            "replaces": "vbhem_tpu/ops/fb_pallas.py:51"},
+    "B3": {"name": "pair_bwd_fwd", "route": "cuda",
+           "source": "vbhem_tpu_torch/csrc/pair_bwd_fwd.cu",
+           "replaces": "vbhem_tpu/ops/pair_estep_pallas.py:110"},
 }
-COUNTERS = {"B1": pair_estep_cuda, "B2": fb_cuda}
-DEVICE_NAMES = {"B1": "pair_estep_fused_kernel", "B2": "fb_kernel"}
+# each kernel's launch counter: (module, attribute)
+COUNTERS = {"B1": (pair_estep_cuda, "LAUNCHES"), "B2": (fb_cuda, "LAUNCHES"),
+            "B3": (pair_estep_cuda, "BWD_FWD_LAUNCHES")}
+DEVICE_NAMES = {"B1": "pair_estep_fused_kernel", "B2": "fb_kernel",
+                "B3": "pair_bwd_fwd_kernel"}
 
 # Peak rates of one H100 SXM, from NVIDIA's published specifications:
 # device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.
@@ -107,13 +132,24 @@ def nvidia_smi_line() -> str:
         else f"nvidia-smi failed: {out.stderr.strip()}"
 
 
+@contextlib.contextmanager
+def rebound(module, name, fn):
+    """Bind ``module.name`` to ``fn`` for the duration of the block."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
 def reset_counts():
-    for mod in COUNTERS.values():
-        mod.LAUNCHES = 0
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def read_counts() -> dict:
-    return {k: mod.LAUNCHES for k, mod in COUNTERS.items()}
+    return {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -150,6 +186,23 @@ def b1_bound(kb, lkr, sb, sr, d, tau, itemsize) -> dict:
                           + lkr * sr * (sr + d + d * d + 4)
                           + pairs * (1 + sr + sr * sr + sr * sb))
     return {**bound(n_bytes, sfu, flop),
+            "scratch_bytes": 2 * itemsize * (tau - 1) * sb * sr * pairs}
+
+
+def b3_bound(kb, lkr, sb, sr, tau, itemsize) -> dict:
+    """B3 per (base, reduced) pair: B1's special functions and recursion
+    flops (no E3logN).  Bytes: ell [L*Kr, Sb, Sr, Kb] read once, the base
+    prior and transitions and the reduced log_pi and log_a read once, the
+    four outputs written once.  The carry scratch, as for B1, is the
+    kernel's choice and not counted."""
+    pairs = kb * lkr
+    sfu = pairs * ((tau - 1) * (sr * sr * sb + sr * sb) + sb * (2 * sr + 1))
+    flop = pairs * (tau - 1) * (5 * sr * sr * sb + 4 * sr * sb * sb)
+    n_bytes = itemsize * (kb * (sb + sb * sb) + lkr * sr * (1 + sr)
+                          + pairs * sb * sr
+                          + pairs * (1 + sr + sr * sr + sr * sb))
+    return {**bound(n_bytes, sfu, flop),
+            "ell_bytes": itemsize * pairs * sb * sr,
             "scratch_bytes": 2 * itemsize * (tau - 1) * sb * sr * pairs}
 
 
@@ -248,6 +301,7 @@ B1_CASES = [
     # name, kb, kr, sb, sr, d, tau, lanes, ragged
     ("kb256_tau10", 256, 4, 3, 3, 2, 10, 1, False),
     ("tau1", 256, 4, 3, 3, 2, 1, 1, False),
+    ("sb2_sr2_tau1", 256, 4, 2, 2, 2, 1, 1, False),
     ("ragged_sb", 256, 4, 3, 3, 2, 10, 1, True),
     ("d3", 256, 4, 3, 3, 3, 10, 1, False),
     ("sr1", 256, 4, 3, 1, 2, 10, 1, False),
@@ -391,6 +445,72 @@ def phase_parity_b2(fails: Failures, device) -> float:
             del got
             _gate(fails, "B2", name, dtype, errs)
             torch.cuda.empty_cache()
+    return max_abs_f32
+
+
+VHEM_FULL = (20, 8192, 3, 2, 3, 10)   # lanes, Kb, Kr, Sb, Sr, tau
+B3_CASES = [
+    # name, lanes, kb, kr, sb, sr, tau, ragged, zero transitions
+    ("tau1", 1, 256, 3, 2, 3, 1, False, False),
+    ("tau2", 1, 256, 3, 2, 3, 2, False, False),
+    ("tau10", 1, 256, 3, 2, 3, 10, False, False),
+    ("tau50", 1, 256, 3, 2, 3, 50, False, False),
+    ("ragged_sb", 1, 256, 3, 3, 3, 10, True, False),
+    ("sr1", 1, 256, 3, 2, 1, 10, False, False),
+    ("sr2", 1, 256, 3, 2, 2, 10, False, False),
+    ("log_a_neg_inf", 1, 256, 3, 2, 3, 10, False, True),
+    ("lanes3", 3, 256, 3, 2, 3, 10, False, False),
+    ("vhem_full_width", *VHEM_FULL, False, False),
+    # phase 7's launch: the (2, 2) instantiation at tau=50
+    ("dic_cell", 1, 8192, 3, 2, 2, 50, False, False),
+]
+
+
+def b3_inputs(seed, lanes, kb, kr, sb, sr, device, dtype, ragged=False,
+              zeros=False):
+    """B3's arguments as the VHEM E-step forms them: a random bank, a
+    random point-estimate reduced bank per lane, the point E3logN, and
+    the logs of the reduced prior and transitions.  With ``zeros`` some
+    transitions are exactly 0, so log_a holds -inf entries."""
+    rng = np.random.default_rng(seed)
+    base = random_bank(rng, kb, sb, 2, device, dtype, ragged)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    shp = (lanes, kr, sr)
+    a = rng.normal(size=shp + (2, 2)) * 0.3
+    cov_r = t(np.einsum("...de,...fe->...df", a, a) + np.eye(2))
+    ell = plain.expected_pair_ll_point(base.hmm.mean, base.hmm.cov,
+                                       t(rng.normal(size=shp + (2,)) * 3.0),
+                                       cov_r)
+    trans = rng.dirichlet(np.ones(sr), shp)
+    if zeros and sr > 1:
+        trans[..., 0, -1] = 0.0
+        trans = trans / trans.sum(-1, keepdims=True)
+    return (base.hmm.prior, base.hmm.trans,
+            torch.log(t(rng.dirichlet(np.ones(sr), shp[:-1]))),
+            torch.log(t(trans)), ell)
+
+
+def phase_parity_b3(fails: Failures, device) -> float:
+    """B3 against the plain version in float64 on the kernel's inputs, as
+    for B1; returns the largest absolute float32 error seen."""
+    max_abs_f32 = 0.0
+    for dtype in (torch.float32, torch.float64):
+        for name, lanes, kb, kr, sb, sr, tau, ragged, zeros in B3_CASES:
+            args = b3_inputs(5, lanes, kb, kr, sb, sr, device, dtype, ragged,
+                             zeros)
+            got = pair_estep_cuda.pair_bwd_fwd_cuda(*args, tau)
+            torch.cuda.synchronize()
+            want = plain.pair_bwd_fwd(*[a.double() for a in args], tau)
+            errs, max_abs = _errors(got, want)
+            if dtype == torch.float32:
+                max_abs_f32 = max(max_abs_f32, max_abs)
+                k_vs_p32, _ = _errors(got, plain.pair_bwd_fwd(*args, tau))
+                print(f"info B3 {name} f32: kernel vs plain f32 "
+                      f"{max(k_vs_p32.values()):.3e}", flush=True)
+            _gate(fails, "B3", name, dtype, errs)
     return max_abs_f32
 
 
@@ -545,7 +665,105 @@ def phase_pipeline(fails: Failures, device, vbem) -> dict:
     ri = rand_index(info["model_all"][(2, 2)].label.cpu().numpy(), labels)
     fails.check(ri == 1.0, f"pipeline (K=2, S=2) labels vs planted groups: "
                            f"Rand index {ri}")
-    return {"launches": launches, "best_k": info["model_best_k"]}
+    return {"launches": launches, "best_k": info["model_best_k"],
+            "info": info, "base": base, "tau": cfg.tau}
+
+
+# ---------------------------------------------------------------------------
+# phases 6-7: the VHEM path and DIC
+# ---------------------------------------------------------------------------
+
+VHEM_GRID = ([1, 2, 3], [1, 2, 3])
+
+
+def _selection(score) -> str:
+    return (f"K={score.best_k} S={score.best_s} (per-cluster S "
+            f"{score.s_list}) Rand index {score.rand_index:.6f}")
+
+
+def phase_vhem_path(fails: Failures, device, vbem) -> dict:
+    """run_vhem_grid() at its defaults on the bank phase 4 learned, as
+    the synthetic protocol runs it (`experiments/synthetic.py:186-231`)."""
+    labels = vbem["labels"]
+    cfg = HEMConfig(trials=20, nv=100, tau=10)
+    gen = torch.Generator(device=device).manual_seed(0)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = synthetic.run_vhem_grid(gen, vbem["results"], labels, *VHEM_GRID,
+                                  cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    iters = sum(out["em_iters"].values())
+    lls = [float(r.ll) for r in out["cells"].values()]
+    print(f"VHEM path: Kb={len(vbem['results'])} trials={cfg.trials} "
+          f"initmode={cfg.initmode} tau={cfg.tau} grid K={VHEM_GRID[0]} x "
+          f"S={VHEM_GRID[1]} wall={wall:.3f}s em_iterations={iters} "
+          f"launches={launches}", flush=True)
+    print(f"VHEM path: per-cell EM iterations "
+          f"{ {str(c): n for c, n in out['em_iters'].items()} }", flush=True)
+    print(f"VHEM path: AIC selects {_selection(out['aic_score'])}; "
+          f"AIC={out['aic'].tolist()}", flush=True)
+    print(f"VHEM path: BIC selects {_selection(out['bic_score'])}; "
+          f"BIC={out['bic'].tolist()}", flush=True)
+    fails.check(bool(np.all(np.isfinite(lls)))
+                and bool(np.all(np.isfinite(out["aic"])))
+                and bool(np.all(np.isfinite(out["bic"]))),
+                "VHEM path LLs, AIC and BIC finite")
+    fails.check(launches["B3"] >= iters > 0,
+                f"VHEM path launched B3 {launches['B3']} times for {iters} "
+                f"EM iterations")
+    ri = rand_index(out["cells"][(2, 2)].label.cpu().numpy(), labels)
+    fails.check(ri == 1.0, f"VHEM (K=2, S=2) labels vs planted groups: "
+                           f"Rand index {ri}")
+    return {"launches": launches, "wall_s": wall, "iters": iters,
+            "cell33": out["cells"][(3, 3)]}
+
+
+def _to_f64(tree):
+    return tree_map(lambda a: a.double() if a.is_floating_point() else a,
+                    tree)
+
+
+def phase_dic(fails: Failures, device, pipe, labels) -> dict:
+    """run_vbhem_dic() over the pipeline's VBHEM grid in float32, and on
+    the same results and bank cast to float64."""
+    info, base, tau = pipe["info"], pipe["base"], pipe["tau"]
+    n_cells = len(info["model_all"])
+    out = {}
+    for name, cast in (("f32", lambda x: x), ("f64", _to_f64)):
+        inf = {"model_all": {c: cast(r)
+                             for c, r in info["model_all"].items()}}
+        calls = []
+
+        def recorded(*args):
+            got = pair_estep_cuda.pair_bwd_fwd_auto(*args)
+            calls.append((args, got))
+            return got
+        reset_counts()
+        t0 = time.perf_counter()
+        with rebound(dic_model, "pair_bwd_fwd_auto", recorded):
+            res = synthetic.run_vbhem_dic(inf, cast(base), tau, labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        for c, ((*tensors, t), got) in enumerate(calls):
+            want = plain.pair_bwd_fwd(*[a.double() for a in tensors], t)
+            errs, _ = _errors(got, want)
+            _gate(fails, "B3", f"DIC launch {c} (Kr={tensors[2].shape[-2]}, "
+                  f"tau={t})", got.ll_elbo.dtype, errs)
+        print(f"DIC {name}: tau={tau} cells={sorted(info['model_all'])} "
+              f"DIC={res['dic'].ravel().tolist()} wall={wall:.3f}s "
+              f"launches={launches}", flush=True)
+        print(f"DIC {name}: selects {_selection(res['score'])}", flush=True)
+        fails.check(bool(np.all(np.isfinite(res["dic"]))),
+                    f"DIC {name}: every value finite")
+        fails.check(launches["B3"] == n_cells,
+                    f"DIC {name} launched B3 {launches['B3']} times for "
+                    f"{n_cells} cells")
+        out[name] = {"dic": res["dic"].ravel().tolist(),
+                     "best_k": res["score"].best_k, "launches": launches}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -684,6 +902,79 @@ def timing_b2(device, vbem, n=10) -> dict:
     return row
 
 
+def timing_b3(device, vbem, n=50) -> dict:
+    """B3 at the VHEM path's largest launch (20 restart lanes of Kr=3,
+    Sr=3 on the Kb=8192, Sb=2 bank phase 4 learned, tau=10, float32, from
+    baseem starts): wrapper, kernel device time and plain; one VHEM EM
+    iteration with the kernel and with the plain version; and the gap of
+    ll_elbo and of the assignment logits log_z between B3 in float32 and
+    B3 in float64 on the same inputs."""
+    lanes, kb, kr, sb, sr, tau = VHEM_FULL
+    base = vbhem.h3m_from_results(vbem["results"], use_post=False)
+    cfg = HEMConfig(trials=lanes, nv=100, tau=tau)
+    gen = torch.Generator(device=device).manual_seed(4)
+    h3m = vhem.init_baseem(gen, base, kr, sr, cfg, lanes=(lanes,))
+    args = (base.hmm.prior, base.hmm.trans, vhem._log_floor(h3m.hmm.prior),
+            vhem._log_floor(h3m.hmm.trans),
+            plain.expected_pair_ll_point(base.hmm.mean, base.hmm.cov,
+                                         h3m.hmm.mean, h3m.hmm.cov))
+    bf_runs = interleaved({
+        "kernel": lambda: pair_estep_cuda.pair_bwd_fwd_cuda(*args, tau),
+        "plain": lambda: plain.pair_bwd_fwd(*args, tau)}, n, device)
+    dev_ms = device_ms(lambda: pair_estep_cuda.pair_bwd_fwd_cuda(*args, tau),
+                       DEVICE_NAMES["B3"], 20)
+    n_i = (cfg.nv * kb) * base.omega
+    inf_norm = vhem._inf_norm(cfg.inf_norm, cfg.nv, tau, kb)
+
+    def stepper(bwd_fwd):
+        """vhem._iteration with its pair recursion bound to ``bwd_fwd``."""
+        state = [h3m]
+
+        def step():
+            with rebound(vhem, "pair_bwd_fwd_auto", bwd_fwd):
+                state[0] = vhem._iteration(base, state[0], cfg, n_i,
+                                           inf_norm, gen)[0]
+        return step
+    it_runs = interleaved({"kernel": stepper(pair_estep_cuda.pair_bwd_fwd_auto),
+                           "plain": stepper(plain.pair_bwd_fwd)}, 20, device)
+
+    # float32 against float64 on the same inputs, both through B3
+    p32 = pair_estep_cuda.pair_bwd_fwd_cuda(*args, tau)
+    p64 = pair_estep_cuda.pair_bwd_fwd_cuda(*[a.double() for a in args], tau)
+    log_w = vhem._log_floor(h3m.omega.double())[..., None, :]
+    z32 = log_w + n_i.double()[:, None] * (p32.ll_elbo.double() / inf_norm)
+    z64 = log_w + n_i.double()[:, None] * (p64.ll_elbo / inf_norm)
+    d_ll = torch.abs(p32.ll_elbo.double() - p64.ll_elbo)
+    gap = {"ll_elbo_max_abs": float(d_ll.max()),
+           "ll_elbo_max_rel": float(torch.max(d_ll / p64.ll_elbo.abs())),
+           "log_z_max_abs": float(torch.abs(z32 - z64).max()),
+           "log_z_factor": float(n_i.max()) / inf_norm}
+
+    row = {"kernel_device_ms": dev_ms, "f32_vs_f64": gap,
+           **b3_bound(kb, lanes * kr, sb, sr, tau, 4)}
+    for which in ("kernel", "plain"):
+        row[which] = {"bf_ms": float(np.mean(bf_runs[which])) * 1e3,
+                      "iter_ms": float(np.mean(it_runs[which])) * 1e3,
+                      "bf_ms_runs": [v * 1e3 for v in bf_runs[which]],
+                      "iter_ms_runs": [v * 1e3 for v in it_runs[which]]}
+    print(f"timing B3 [VHEM full width: L={lanes} Kb={kb} Kr={kr} Sb={sb} "
+          f"Sr={sr} tau={tau} f32] kernel device {dev_ms:.4f} ms; wrapper "
+          f"{row['kernel']['bf_ms']:.4f} ms (runs {row['kernel']['bf_ms_runs']})"
+          f"; plain {row['plain']['bf_ms']:.4f} ms (runs "
+          f"{row['plain']['bf_ms_runs']}); bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}: {row['sfu_ops']:.4g} SFU ops, "
+          f"{row['bytes']:.4g} bytes of which ell {row['ell_bytes']:.4g}; "
+          f"the carry scratch adds {row['scratch_bytes']:.4g} bytes)",
+          flush=True)
+    print(f"timing VHEM iteration [full width]: kernel "
+          f"{row['kernel']['iter_ms']:.4f} ms (runs "
+          f"{row['kernel']['iter_ms_runs']}), plain "
+          f"{row['plain']['iter_ms']:.4f} ms (runs "
+          f"{row['plain']['iter_ms_runs']})", flush=True)
+    print(f"B3 f32 vs f64 [full width]: {json.dumps(gap)}", flush=True)
+    return row
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -729,28 +1020,35 @@ def main() -> int:
 
     run("parity B1", lambda: phase_parity_b1(fails, device))
     run("parity B2", lambda: phase_parity_b2(fails, device))
+    run("parity B3", lambda: phase_parity_b3(fails, device))
     run("VBHEM path", lambda: phase_vbhem_path(fails, device))
     run("VBEM path", lambda: phase_vbem_path(fails, device))
-    if "VBEM path" in results:
-        run("pipeline", lambda: phase_pipeline(fails, device,
-                                               results["VBEM path"]))
-        run("timing B2", lambda: timing_b2(device, results["VBEM path"]))
+    vbem = results.get("VBEM path")
+    if vbem is not None:
+        run("pipeline", lambda: phase_pipeline(fails, device, vbem))
+        run("VHEM path", lambda: phase_vhem_path(fails, device, vbem))
+        if "pipeline" in results:
+            run("DIC", lambda: phase_dic(fails, device, results["pipeline"],
+                                         vbem["labels"]))
+        else:
+            fails.check(False, "DIC needs the pipeline's grid")
+        run("timing B2", lambda: timing_b2(device, vbem))
+        run("timing B3", lambda: timing_b3(device, vbem))
     else:
-        fails.check(False, "pipeline and B2 timing need the VBEM path")
+        fails.check(False, "the pipeline, VHEM, DIC and the B2 and B3 "
+                           "timings need the VBEM path")
     run("timing B1", lambda: timing_b1(device))
 
     lines = []
-    for key, parity, path, timing in (
-            ("B1", "parity B1", "VBHEM path", "timing B1"),
-            ("B2", "parity B2", "VBEM path", "timing B2")):
+    for key, parity, path, timing, field in (
+            ("B1", "parity B1", "VBHEM path", "timing B1", "estep_ms"),
+            ("B2", "parity B2", "VBEM path", "timing B2", "fb_ms"),
+            ("B3", "parity B3", "VHEM path", "timing B3", "bf_ms")):
         t = results.get(timing, {})
         if key == "B1":   # the kernels line reads the main-path cell
             t = t.get(TIMING_SHAPES[-1][0], {})
-            wrapper_ms = t.get("kernel", {}).get("estep_ms")
-            plain_ms = t.get("plain", {}).get("estep_ms")
-        else:
-            wrapper_ms = t.get("kernel", {}).get("fb_ms")
-            plain_ms = t.get("plain", {}).get("fb_ms")
+        wrapper_ms = t.get("kernel", {}).get(field)
+        plain_ms = t.get("plain", {}).get(field)
         launches = results.get(path, {}).get("launches", {}).get(key)
         lines.append(dict(
             KERNELS[key], launches=launches,

@@ -216,8 +216,12 @@ def test_port_imports_with_jax_blocked():
         "    importlib.import_module(n)\n"
         "sys.path.insert(0, 'tools')\n"
         "import chip_smoke, profile_em, restart_success\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=repo,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    names = set(out.stdout.split())
+    assert len(names) >= 25
+    assert {"vbhem_tpu_torch.models.vhem", "vbhem_tpu_torch.models.dic",
+            "vbhem_tpu_torch.ops.kmeans", "vbhem_tpu_torch.utils.metrics",
+            "vbhem_tpu_torch.experiments.synthetic"} <= names

@@ -181,7 +181,11 @@ def test_modules_import_without_cuda_toolchain(tmp_path):
         "     torch.zeros(1, 1, 1), torch.ones(1, 1, 1, 1),\n"
         "     torch.full((1, 1), 4.0), torch.ones(1, 1), torch.zeros(1, 1)]\n"
         "assert p.pair_estep_fused_auto(*x, 3).ll_elbo.shape == (2, 1)\n"
-        "assert _build._lib is None and p.LAUNCHES == 0\n"
+        "ell = torch.zeros(2, 1, 1, 1)\n"
+        "assert p.pair_bwd_fwd_auto(*x[:2], *x[4:6], ell, 3).nu_1.shape \\\n"
+        "    == (2, 1, 1)\n"
+        "from vbhem_tpu_torch.models import dic, vhem\n"
+        "assert _build._lib is None and p.LAUNCHES == p.BWD_FWD_LAUNCHES == 0\n"
         "print('imported', torch.cuda.is_available())\n")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PATH=str(tmp_path),
                PYTHONPATH=str(REPO))
@@ -249,12 +253,19 @@ def test_build_reports_compiler_errors(monkeypatch, tmp_path):
 def test_library_path_keys_on_sources(monkeypatch, tmp_path):
     src = tmp_path / "k.cu"
     src.write_text("// one\n")
+    header = tmp_path / "shared.cuh"
+    header.write_text("// shared\n")
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     first = _build.library_path()
     assert first.parent == tmp_path / "build"
     src.write_text("// two\n")
-    assert _build.library_path() != first
+    second = _build.library_path()
+    assert second != first
+    # an edit to a header that the sources include builds anew too
+    header.write_text("// shared, edited\n")
+    assert _build.library_path() != second
+    assert _build.sources() == [src]
 
 
 def kernel_pair_transliteration(prior, trans, log_pi, log_a, ell, tau):
@@ -313,3 +324,193 @@ def test_kernel_rebased_carry_matches_loop_oracle(tau, sr):
             np.testing.assert_allclose(got[0], want[0], rtol=1e-12)
             for g, w in zip(got[1:], want[1:]):
                 np.testing.assert_allclose(g, w, rtol=1e-10, atol=1e-13)
+
+
+# ---------------------------------------------------------------------------
+# B3: the recursion on a precomputed emission matrix (VHEM, DIC)
+# ---------------------------------------------------------------------------
+
+BF_ARGS = ("prior_b", "trans_b", "log_pi_r", "log_a_r", "ell")
+
+
+def make_bwd_fwd_case(seed, kb=40, kr=3, sb=3, sr=3, d=2, lanes=(),
+                      ragged=False, neg_inf=False):
+    """Inputs of B3 in the order of BF_ARGS, as float64 numpy arrays: the
+    base bank of make_case, a reduced point-estimate bank, and ell from
+    the point E3logN, as the VHEM E-step forms them.  With ``neg_inf`` a
+    zero transition gives log_a a -inf entry, as log(max(0, 1e-300))
+    does in float32."""
+    case = make_case(seed, kb, kr, sb, sr, d, lanes, ragged)
+    rng = np.random.default_rng(seed + 100)
+    shp = lanes + (kr, sr)
+    pi = rng.dirichlet(np.ones(sr), shp[:-1])
+    a = rng.dirichlet(np.ones(sr), shp)
+    if neg_inf:
+        a[..., 0, -1] = 0.0
+        a = a / a.sum(-1, keepdims=True)
+    with np.errstate(divide="ignore"):
+        log_pi, log_a = np.log(pi), np.log(a)
+    ell = tpe.expected_pair_ll_point(*port([case[2], case[3], case[6],
+                                            case[7]])).numpy()
+    return [case[0], case[1], log_pi, log_a, ell]
+
+
+BF_CASES = {
+    "tau10": dict(kw={}, tau=10),
+    "tau1": dict(kw={}, tau=1),
+    "tau2_ragged": dict(kw=dict(ragged=True), tau=2),
+    "sr1": dict(kw=dict(sr=1), tau=4),
+    "log_a_neg_inf": dict(kw=dict(sb=2, sr=3, neg_inf=True), tau=5),
+}
+
+
+def test_expected_pair_ll_point_matches_jax_f64():
+    """The point E3logN at rtol 1e-12 (the same closed form), with and
+    without restart lanes; its result is a view of a Kb-last buffer, the
+    layout B3 reads, so the wrapper copies nothing."""
+    for lanes in ((), (3,)):
+        case = make_case(11, kb=9, kr=2, sb=3, sr=3, lanes=lanes)
+        mean_b, cov_b, mean_r, cov_r = case[2], case[3], case[6], case[7]
+        if lanes:
+            want = jax.vmap(lambda m, c: jpe.expected_pair_ll_point(
+                jnp.asarray(mean_b), jnp.asarray(cov_b), m, c))(
+                    jnp.asarray(mean_r), jnp.asarray(cov_r))
+        else:
+            want = jpe.expected_pair_ll_point(
+                *map(jnp.asarray, (mean_b, cov_b, mean_r, cov_r)))
+        got = tpe.expected_pair_ll_point(*port([mean_b, cov_b, mean_r,
+                                                cov_r]))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12)
+        assert got.shape == lanes + (9, 2, 3, 3)
+        assert got.movedim(-4, -1).is_contiguous()
+
+
+@pytest.mark.parametrize("name", list(BF_CASES))
+def test_bwd_fwd_plain_matches_jax_xla_f64(name):
+    c = BF_CASES[name]
+    case = make_bwd_fwd_case(12, **c["kw"])
+    want = jpe.pair_bwd_fwd(*map(jnp.asarray, case), c["tau"])
+    got = tpc.pair_bwd_fwd_auto(*port(case), c["tau"])
+    for f in want._fields:
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   np.asarray(getattr(want, f)),
+                                   rtol=1e-10, atol=1e-13, err_msg=f)
+
+
+@pytest.mark.parametrize("name", list(BF_CASES))
+def test_bwd_fwd_f32_matches_jax_pallas_kernel(name):
+    """The JAX package's Pallas kernel B3 (``pair_bwd_fwd_pallas``,
+    interpret mode) and the port's dispatch on the same float32 inputs,
+    within the on-card gate 5e-5."""
+    c = BF_CASES[name]
+    case = [x.astype(np.float32) for x in make_bwd_fwd_case(13, **c["kw"])]
+    want = jpp.pair_bwd_fwd_pallas(*map(jnp.asarray, case), c["tau"],
+                                   tile=128, interpret=True)
+    got = tpc.pair_bwd_fwd_auto(*port(case, torch.float32), c["tau"])
+    for f in want._fields:
+        err = rel_err(getattr(got, f).numpy(), getattr(want, f))
+        assert err <= KERNEL_TOL, (f, err)
+
+
+def test_bwd_fwd_lanes_f32_match_jax_vmapped_kernel():
+    """Three restart lanes: the port's leading lane axis against jax.vmap
+    of the JAX package's trial-folding wrapper of B3, as
+    tests/test_pair_pallas.py folds it."""
+    tau, lanes = 4, 3
+    case = [x.astype(np.float32)
+            for x in make_bwd_fwd_case(14, kb=24, kr=2, lanes=(lanes,))]
+    f = jpp._pallas_vmappable(tau, interpret=True)
+    want = jax.vmap(f, in_axes=(None, None, 0, 0, 0))(
+        *map(jnp.asarray, case))
+    got = tpc.pair_bwd_fwd_auto(*port(case, torch.float32), tau)
+    for fld in want._fields:
+        g = getattr(got, fld)
+        assert g.shape[0] == lanes
+        err = rel_err(g.numpy(), getattr(want, fld))
+        assert err <= KERNEL_TOL, (fld, err)
+
+
+@pytest.mark.parametrize("tau,name", [(1, "tau10"), (10, "log_a_neg_inf"),
+                                      (50, "tau2_ragged")])
+def test_b3_kernel_indexing_matches_loop_oracle(tau, name):
+    """Kernel B3, which cannot run here, in NumPy: each pair reads its
+    ell[b][r] from the wrapper's [L*Kr, Sb, Sr, Kb] buffer at
+    ((j*Sb + b)*Sr + r)*Kb + i, runs the rebased recursion (the shared
+    pair_recursion.cuh, transliterated above), and writes the kernel's
+    Kb-last outputs, which the wrapper unfolds.  Held to the loop oracle
+    per pair and to the plain version through the unfold."""
+    kw = dict(BF_CASES[name]["kw"], kb=5, kr=2, lanes=(2,))
+    prior, trans, log_pi, log_a, ell = make_bwd_fwd_case(15, **kw)
+    lanes, kb, kr, sb, sr = (2,), *ell.shape[1:]
+    lkr = 2 * kr
+    ell_t = torch.as_tensor(ell).movedim(-4, -1).contiguous().numpy().ravel()
+    pi_f, a_f = log_pi.reshape(lkr, sr), log_a.reshape(lkr, sr, sr)
+    outs = [np.zeros((lkr, kb)), np.zeros((lkr, sr, kb)),
+            np.zeros((lkr, sr, sr, kb)), np.zeros((lkr, sr, sb, kb))]
+    for j in range(lkr):
+        for i in range(kb):
+            e = np.array([[ell_t[((j * sb + b) * sr + r) * kb + i]
+                           for r in range(sr)] for b in range(sb)])
+            got = kernel_pair_transliteration(prior[i], trans[i], pi_f[j],
+                                              a_f[j], e, tau)
+            want = oracle_pair(prior[i], trans[i], pi_f[j], a_f[j], e, tau)
+            np.testing.assert_allclose(got[0], want[0], rtol=1e-12)
+            for g, w in zip(got[1:], want[1:]):
+                np.testing.assert_allclose(g, w, rtol=1e-10, atol=1e-13)
+            outs[0][j, i] = got[0]
+            outs[1][j, :, i], outs[2][j, :, :, i] = got[1], got[2]
+            outs[3][j, :, :, i] = got[3]
+    unfolded = tpc._unfold(*map(torch.as_tensor, outs), lanes, kr, kb, sb,
+                           sr)
+    plain = tpe.pair_bwd_fwd(*port([prior, trans, log_pi, log_a, ell]), tau)
+    for f in plain._fields:
+        torch.testing.assert_close(getattr(unfolded, f), getattr(plain, f),
+                                   rtol=1e-10, atol=1e-13)
+
+
+def test_bwd_fwd_cpu_dispatch_never_launches():
+    before = tpc.BWD_FWD_LAUNCHES
+    tpc.pair_bwd_fwd_auto(*port(make_bwd_fwd_case(16, kb=8)), 3)
+    assert tpc.BWD_FWD_LAUNCHES == before == 0
+    assert _build._lib is None
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tpc.pair_bwd_fwd_cuda(*port(make_bwd_fwd_case(16, kb=8)), 3)
+    assert tpc.BWD_FWD_LAUNCHES == 0
+
+
+def test_validate_bwd_fwd_rejects_what_the_kernel_cannot_take():
+    case = make_bwd_fwd_case(17, kb=8, kr=2, sb=2, sr=2)
+    t = dict(zip(BF_ARGS, port(case)))
+
+    def call(tau=2, **over):
+        return tpc.pair_bwd_fwd_auto(*[over.get(a, t[a]) for a in BF_ARGS],
+                                     tau)
+    with pytest.raises(ValueError, match="tau"):
+        call(tau=0)
+    with pytest.raises(ValueError, match="tau"):
+        call(tau=2.5)
+    with pytest.raises(ValueError, match="dtype"):
+        tpc.pair_bwd_fwd_auto(*port(case, torch.float16), 2)
+    with pytest.raises(ValueError, match="dtype"):
+        call(log_a_r=t["log_a_r"].float())
+    with pytest.raises(ValueError, match="meta"):
+        call(trans_b=t["trans_b"].to("meta"))
+    with pytest.raises(ValueError, match="shape"):
+        call(ell=t["ell"][:, :1])
+    with pytest.raises(ValueError, match="shape"):
+        call(log_a_r=t["log_a_r"][None])
+    with pytest.raises(ValueError, match="tensor"):
+        call(prior_b=case[0])
+    for kw, msg in ((dict(sb=9), "Sb"), (dict(sr=9), "Sr")):
+        with pytest.raises(ValueError, match=msg):
+            tpc.pair_bwd_fwd_auto(*port(make_bwd_fwd_case(18, kb=4, kr=1,
+                                                          **kw)), 2)
+    # any strides: the wrapper lays the tensors out for the kernel
+    def strided(x):
+        y = x.transpose(0, 1).contiguous().transpose(0, 1)
+        assert not y.is_contiguous()
+        return y
+    np.testing.assert_array_equal(
+        call(ell=strided(t["ell"]), log_a_r=strided(t["log_a_r"]),
+             trans_b=strided(t["trans_b"])).sum_xi.numpy(),
+        call().sum_xi.numpy())

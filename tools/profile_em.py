@@ -25,6 +25,15 @@ whole iteration and the float64 rescoring pass the same way, and reads a
 profiler window of ``max(iters // 4, 2)`` iterations for the device
 kernels, the busy share and B2's mean device time.
 
+VHEM: at the largest launch of chip_smoke.py's VHEM path (20 restart
+lanes of Kr=3, Sr=3 on a Kb=8192 bank of 2-state HMMs, D=2, tau=10,
+float32; the bank is drawn at random with the learned bank's shapes) it
+times the stages of one iteration (``expected_pair_ll_point``, the logs
+of the reduced prior and transitions, the pair recursion with kernel B3,
+the soft assignments, ``m_step`` and the two degenerate repairs) and the
+whole iteration, and reads a profiler window for the device kernels, the
+busy share and B3's mean device time.
+
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON
 object with every number; ``--out`` also writes the object to a file.
 The profiler's traces go to ``build/profile/``.
@@ -44,11 +53,14 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from vbhem_tpu_torch import SeqBatch, VBConfig, VBHEMConfig  # noqa: E402
-from vbhem_tpu_torch.models import rescore, vbhem, vbhmm  # noqa: E402
+from vbhem_tpu_torch import (HEMConfig, SeqBatch, VBConfig,  # noqa: E402
+                             VBHEMConfig)
+from vbhem_tpu_torch.models import rescore, vbhem, vbhmm, vhem  # noqa: E402
 from vbhem_tpu_torch.ops import fb as fb_plain  # noqa: E402
 from vbhem_tpu_torch.ops import fb_cuda, pair_estep_cuda  # noqa: E402
-from vbhem_tpu_torch.utils.numeric import e_log_dirichlet  # noqa: E402
+from vbhem_tpu_torch.ops import pair_estep as pair_plain  # noqa: E402
+from vbhem_tpu_torch.utils.numeric import (e_log_dirichlet,  # noqa: E402
+                                           logsumexp)
 from vbhem_tpu_torch.utils.planted import (random_bank,  # noqa: E402
                                            synthetic_subjects)
 
@@ -59,6 +71,7 @@ SHAPES = [
 ]
 KERNEL_NAME = "pair_estep_fused_kernel"
 FB_KERNEL_NAME = "fb_kernel"
+BF_KERNEL_NAME = "pair_bwd_fwd_kernel"
 
 
 def time_stage(fn, n, warmup=5):
@@ -176,6 +189,70 @@ def profile_vbem(n, iters, trace_dir: Path, n_per_group=4096, trials=20):
     return name, out
 
 
+def profile_vhem(n, iters, trace_dir: Path, kb=8192, lanes=20, kr=3, sr=3):
+    """Stages of one VHEM iteration at chip_smoke.py's largest VHEM launch."""
+    name = (f"VHEM Kb={kb} Sb=2 L={lanes} Kr={kr} Sr={sr} D=2 tau=10")
+    device = torch.device("cuda", 0)
+    base = random_bank(np.random.default_rng(2), kb, 2, 2, device,
+                       torch.float32)
+    cfg = HEMConfig(trials=lanes, nv=100, tau=10)
+    gen = torch.Generator(device=device).manual_seed(0)
+    h3m = vhem.init_baseem(gen, base, kr, sr, cfg, lanes=(lanes,))
+    n_i = (cfg.nv * kb) * base.omega
+    inf_norm = vhem._inf_norm(cfg.inf_norm, cfg.nv, cfg.tau, kb)
+    ell = pair_plain.expected_pair_ll_point(base.hmm.mean, base.hmm.cov,
+                                            h3m.hmm.mean, h3m.hmm.cov)
+    log_pi = vhem._log_floor(h3m.hmm.prior)
+    log_a = vhem._log_floor(h3m.hmm.trans)
+    pair = pair_estep_cuda.pair_bwd_fwd_auto(base.hmm.prior, base.hmm.trans,
+                                             log_pi, log_a, ell, cfg.tau)
+
+    def assign():
+        log_z = vhem._log_floor(h3m.omega)[..., None, :] \
+            + n_i[:, None] * (pair.ll_elbo / inf_norm)
+        lse = logsumexp(log_z, dim=-1, keepdim=True)
+        return torch.exp(log_z - lse), torch.sum(lse[..., 0], dim=-1)
+    z, _ = assign()
+    new, counts = vhem.m_step(base, pair, z, cfg)
+    stages = {
+        "expected_pair_ll_point": lambda: pair_plain.expected_pair_ll_point(
+            base.hmm.mean, base.hmm.cov, h3m.hmm.mean, h3m.hmm.cov),
+        "log prior / trans": lambda: (vhem._log_floor(h3m.hmm.prior),
+                                      vhem._log_floor(h3m.hmm.trans)),
+        "pair_bwd_fwd_auto (B3 wrapper + kernel)":
+            lambda: pair_estep_cuda.pair_bwd_fwd_auto(
+                base.hmm.prior, base.hmm.trans, log_pi, log_a, ell, cfg.tau),
+        "soft assignments and LL": assign,
+        "m_step": lambda: vhem.m_step(base, pair, z, cfg),
+        "fix_degenerate_components":
+            lambda: vhem.fix_degenerate_components(new, gen),
+        "fix_degenerate_states":
+            lambda: vhem.fix_degenerate_states(new, counts, gen),
+        "em_iteration": lambda: vhem._iteration(base, h3m, cfg, n_i,
+                                                inf_norm, gen),
+    }
+    out = {}
+    for stage, fn in stages.items():
+        ev, host = time_stage(fn, n)
+        out[stage] = {"event_ms": ev, "host_enqueue_ms": host}
+        print(f"[{name}] {stage}: {ev:.4f} ms by events, host enqueue "
+              f"{host:.4f} ms", flush=True)
+    state = [h3m]
+
+    def step():
+        state[0] = vhem._iteration(base, state[0], cfg, n_i, inf_norm,
+                                   gen)[0]
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    state[0] = h3m
+    window = profile_window(step, iters, trace_dir / "trace_vhem.json",
+                            kernel_name=BF_KERNEL_NAME, label="pair_bwd_fwd")
+    out["profile"] = window
+    print(f"[{name}] profiler window: {json.dumps(window)}", flush=True)
+    return name, out
+
+
 def profile_shape(name, kb, lanes, kr, sr, n, iters, trace_dir: Path):
     device = torch.device("cuda", 0)
     tau, d = 10, 2
@@ -261,8 +338,9 @@ def main() -> int:
     for name, kb, lanes, kr, sr in SHAPES:
         result[name] = profile_shape(name, kb, lanes, kr, sr, args.n,
                                      args.iters, trace_dir)
-    name, out = profile_vbem(args.n, args.iters, trace_dir)
-    result[name] = out
+    for fn in (profile_vbem, profile_vhem):
+        name, out = fn(args.n, args.iters, trace_dir)
+        result[name] = out
     text = json.dumps(result, indent=1)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

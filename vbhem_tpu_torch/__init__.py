@@ -1,9 +1,10 @@
 """vbhem_tpu_torch — the PyTorch / CUDA port of :mod:`vbhem_tpu`.
 
 Same containers, field names and layouts as the JAX package, as plain
-functions on tensors.  The VBHEM pair E-step runs as a hand-written CUDA
-kernel (``csrc/pair_estep_fused.cu``) on CUDA tensors and as its plain
-PyTorch version on CPU tensors.  This package never imports JAX.
+functions on tensors.  The VBHEM pair E-step, the VBEM forward-backward
+and the VHEM / DIC pair recursion run as hand-written CUDA kernels
+(``csrc/``) on CUDA tensors and as their plain PyTorch versions on CPU
+tensors.  This package never imports JAX.
 """
 
 __version__ = "0.1.0"

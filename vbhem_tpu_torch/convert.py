@@ -1,8 +1,8 @@
 """Carry weights and state between the JAX package and this one.
 
 :func:`to_torch` turns a container whose leaves are numpy (or any
-array-like) values — ``H3M``, ``H3MPosterior``, ``HMM``, ``VBHEMHyps``
-and the other NamedTuples the two packages share — into this package's
+array-like) values — ``H3M``, ``H3MPosterior``, ``HMM``, ``VBHEMHyps``,
+``VHEMResult`` and the other NamedTuples the two packages share — into this package's
 container of the same field names, on a given device (the card by
 default) and dtype.
 :func:`to_numpy` turns one of this package's containers back into the
@@ -23,7 +23,7 @@ from .containers import resolve_device
 @functools.lru_cache(maxsize=1)
 def _registry() -> dict:
     from . import containers
-    from .models import vbhem, vbhmm
+    from .models import vbhem, vbhmm, vhem
     from .ops import fb, gmm, pair_estep
     classes = (containers.NIW, containers.HMM, containers.HMMPosterior,
                containers.H3M, containers.H3MPosterior,
@@ -31,7 +31,8 @@ def _registry() -> dict:
                pair_estep.PairStats, vbhem.VBHEMHyps,
                vbhem.ReducedExpectations, vbhem.ClusterStats,
                vbhem.VBHEMState, vbhem.VBHEMResult, fb.FBStats, gmm.GMM,
-               vbhmm.VBHyps, vbhmm.SuffStats, vbhmm.EMState)
+               vbhmm.VBHyps, vbhmm.SuffStats, vbhmm.EMState,
+               vhem.VHEMState, vhem.VHEMResult)
     return {tuple(c._fields): c for c in classes}
 
 

@@ -4,9 +4,11 @@
 // launched by `pair_bwd_fwd_fused_pallas`) and its shared `_recursion`.  For
 // every (base HMM i, reduced HMM j) pair it computes the expected emission
 // matrix E3logN[b, r] from the base moments and the reduced NIW posterior,
-// runs tau-1 backward steps with a log-sum-exp over the reduced state, the
-// termination ll_elbo = sum_b prior_b lse_b, and the forward pass that
-// accumulates nu_1, sum_xi and sum_t_nu.  The plain PyTorch version is
+// then runs the recursion of pair_recursion.cuh (shared with kernel B3,
+// pair_bwd_fwd.cu): tau-1 backward steps with a log-sum-exp over the
+// reduced state, the termination ll_elbo = sum_b prior_b lse_b, and the
+// forward pass that accumulates nu_1, sum_xi and sum_t_nu.  The plain
+// PyTorch version is
 // `vbhem_tpu_torch/ops/pair_estep.py` (expected_pair_ll_variational +
 // pair_bwd_fwd).
 //
@@ -31,44 +33,20 @@
 //     bytes: itemsize * (tau-1) * Sb * Sr per pair, written once and read
 //     back once; in f32 at tau=10, 21 MB at the bench shape (fits in the
 //     50 MB L2) and 64 MB at the main-path cell (does not);
-//   * the shapes the clustering path launches, (Sb, Sr, D) = (3, 3, 2) and
-//     (3, 2, 2), are compile-time specializations whose loops unroll and
-//     whose arrays live in registers; every other shape in Sb, Sr <= 8,
+//   * the shapes the clustering paths launch, (Sb, Sr, D) = (3, 3, 2) and
+//     (3, 2, 2) on the planted bank and (2, 2, 2) on a learned bank of
+//     2-state HMMs, are compile-time specializations whose loops unroll
+//     and whose arrays live in registers; every other shape in Sb, Sr <= 8,
 //     D <= 4 runs a generic instantiation with runtime bounds.
 // Templated on float and double; no tensor cores, TMA or tuning yet.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-
-#include <cstddef>
+#include "pair_recursion.cuh"
 
 namespace {
 
-constexpr int kMaxS = 8;
+using namespace vbhem_pair;
+
 constexpr int kMaxD = 4;
-constexpr int kThreads = 128;
-
-__device__ __forceinline__ float dexp(float x) { return expf(x); }
-__device__ __forceinline__ double dexp(double x) { return exp(x); }
-__device__ __forceinline__ float dlog(float x) { return logf(x); }
-__device__ __forceinline__ double dlog(double x) { return log(x); }
-
-__device__ __forceinline__ float dmax(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ double dmax(double a, double b) { return fmax(a, b); }
-// the finite-max guard of the JAX package's logsumexp: a non-finite max
-// shifts by 0, so an all -inf row gives -inf rather than NaN
-__device__ __forceinline__ float finite_or_zero(float x) {
-  return fabsf(x) < CUDART_INF_F ? x : 0.0f;
-}
-__device__ __forceinline__ double finite_or_zero(double x) {
-  return fabs(x) < CUDART_INF ? x : 0.0;
-}
-template <typename T>
-__device__ __forceinline__ T neg_inf();
-template <>
-__device__ __forceinline__ float neg_inf<float>() { return -CUDART_INF_F; }
-template <>
-__device__ __forceinline__ double neg_inf<double>() { return -CUDART_INF; }
 
 // Specialized instantiations pass SB_, SR_, D_ > 0 and the loops below get
 // compile-time trip counts; the generic one passes 0 and reads the runtime
@@ -93,8 +71,8 @@ pair_estep_fused_kernel(const T* __restrict__ prior,    // [Sb, Kb]
                         T* __restrict__ carry,          // [tau-1, Sb*Sr, LKr, Kb]
                         int kb, int lkr, int sb_rt, int sr_rt, int d_rt,
                         int tau) {
-  constexpr int MSB = SB_ > 0 ? SB_ : kMaxS;
-  constexpr int MSR = SR_ > 0 ? SR_ : kMaxS;
+  constexpr int MSB = Cap<SB_>::value;
+  constexpr int MSR = Cap<SR_>::value;
   constexpr int MD = D_ > 0 ? D_ : kMaxD;
   const int sb = SB_ > 0 ? SB_ : sb_rt;
   const int sr = SR_ > 0 ? SR_ : sr_rt;
@@ -126,8 +104,6 @@ pair_estep_fused_kernel(const T* __restrict__ prior,    // [Sb, Kb]
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= kb) return;
   const size_t skb = static_cast<size_t>(kb);
-  const size_t plane = static_cast<size_t>(lkr) * skb;  // carry entry stride
-  const size_t pix = static_cast<size_t>(j) * skb + i;  // this pair in [LKr, Kb]
 
   // ---- this thread's base HMM i ----
   T pr[MSB];
@@ -168,176 +144,9 @@ pair_estep_fused_kernel(const T* __restrict__ prior,    // [Sb, Kb]
     }
   }
 
-  // ---- backward: carry LL_old [Sb, Sr] ----
-  // The carry is kept rebased: LL_old[b][r] = llo[b][r] + sh[b], with
-  // max_r llo[b][r] = 0.  Every use of the carry but the termination's
-  // ll_elbo is a softmax over r, where sh[b] cancels, so only llo is
-  // stored; in float32 this keeps the softmax inputs near their spread
-  // instead of the carry's magnitude, which grows with tau.
-  T llo[MSB][MSR];
-  T sh[MSB];
-#pragma unroll
-  for (int b = 0; b < sb; ++b) {
-    sh[b] = 0;
-#pragma unroll
-    for (int r = 0; r < sr; ++r) llo[b][r] = 0;
-  }
-
-  for (int k = 0; k < tau - 1; ++k) {
-    T* cst = carry + static_cast<size_t>(k) * sb * sr * plane + pix;
-#pragma unroll
-    for (int b = 0; b < sb; ++b)
-#pragma unroll
-      for (int r = 0; r < sr; ++r) cst[(b * sr + r) * plane] = llo[b][r];
-
-    // lse[rp][c] = logsumexp_rc(log_a[rp][rc] + (ell[c][rc] + llo[c][rc]))
-    T lse[MSR][MSB];
-#pragma unroll
-    for (int rp = 0; rp < sr; ++rp) {
-#pragma unroll
-      for (int c = 0; c < sb; ++c) {
-        T x[MSR];
-        T mx = neg_inf<T>();
-#pragma unroll
-        for (int rc = 0; rc < sr; ++rc) {
-          x[rc] = s_log_a[rp * sr + rc] + (ell[c][rc] + llo[c][rc]);
-          mx = dmax(mx, x[rc]);
-        }
-        mx = finite_or_zero(mx);
-        T s = 0;
-#pragma unroll
-        for (int rc = 0; rc < sr; ++rc) s += dexp(x[rc] - mx);
-        lse[rp][c] = dlog(s) + mx;
-      }
-    }
-    // LL_new[b][rp] = sum_c trans[b][c] (lse[rp][c] + sh[c]); rebased
-    T sh_new[MSB];
-#pragma unroll
-    for (int b = 0; b < sb; ++b) {
-      T shift = 0;
-#pragma unroll
-      for (int c = 0; c < sb; ++c) shift += tr[b][c] * sh[c];
-      T m = neg_inf<T>();
-#pragma unroll
-      for (int rp = 0; rp < sr; ++rp) {
-        T acc = 0;
-#pragma unroll
-        for (int c = 0; c < sb; ++c) acc += tr[b][c] * lse[rp][c];
-        llo[b][rp] = acc;
-        m = dmax(m, acc);
-      }
-      m = finite_or_zero(m);
-#pragma unroll
-      for (int rp = 0; rp < sr; ++rp) llo[b][rp] -= m;
-      sh_new[b] = shift + m;
-    }
-#pragma unroll
-    for (int b = 0; b < sb; ++b) sh[b] = sh_new[b];
-  }
-
-  // ---- terminate (t = 1) and start the forward pass ----
-  T nu[MSR][MSB];
-  T ll = 0;
-#pragma unroll
-  for (int b = 0; b < sb; ++b) {
-    T x[MSR];
-    T mx = neg_inf<T>();
-#pragma unroll
-    for (int r = 0; r < sr; ++r) {
-      x[r] = (s_log_pi[r] + ell[b][r]) + llo[b][r];
-      mx = dmax(mx, x[r]);
-    }
-    mx = finite_or_zero(mx);
-    T s = 0;
-#pragma unroll
-    for (int r = 0; r < sr; ++r) s += dexp(x[r] - mx);
-    const T lse1 = dlog(s) + mx;  // of the rebased carry
-    ll += pr[b] * (lse1 + sh[b]);
-#pragma unroll
-    for (int r = 0; r < sr; ++r) nu[r][b] = pr[b] * dexp(x[r] - lse1);
-  }
-  ll_out[pix] = ll;
-
-  T stn[MSR][MSB];
-  T sxi[MSR][MSR];
-#pragma unroll
-  for (int r = 0; r < sr; ++r) {
-    T n1 = 0;
-#pragma unroll
-    for (int b = 0; b < sb; ++b) {
-      stn[r][b] = nu[r][b];
-      n1 += nu[r][b];
-    }
-    nu1_out[static_cast<size_t>(j * sr + r) * skb + i] = n1;
-#pragma unroll
-    for (int rc = 0; rc < sr; ++rc) sxi[r][rc] = 0;
-  }
-
-  // ---- forward: t = 2 .. tau, Theta rebuilt from the stored carries ----
-  for (int k = tau - 2; k >= 0; --k) {
-    const T* cld = carry + static_cast<size_t>(k) * sb * sr * plane + pix;
-    T lk[MSB][MSR];
-#pragma unroll
-    for (int b = 0; b < sb; ++b)
-#pragma unroll
-      for (int r = 0; r < sr; ++r) lk[b][r] = cld[(b * sr + r) * plane];
-
-    T nn[MSR][MSB];
-#pragma unroll
-    for (int rc = 0; rc < sr; ++rc)
-#pragma unroll
-      for (int c = 0; c < sb; ++c) nn[rc][c] = 0;
-
-#pragma unroll
-    for (int rp = 0; rp < sr; ++rp) {
-#pragma unroll
-      for (int c = 0; c < sb; ++c) {
-        // foo[rp][c] = sum_b nu[rp][b] trans[b][c]
-        T foo = 0;
-#pragma unroll
-        for (int b = 0; b < sb; ++b) foo += nu[rp][b] * tr[b][c];
-        // Theta_t[rp][c][:] = softmax_rc of the backward step's logits
-        T x[MSR];
-        T mx = neg_inf<T>();
-#pragma unroll
-        for (int rc = 0; rc < sr; ++rc) {
-          x[rc] = s_log_a[rp * sr + rc] + (ell[c][rc] + lk[c][rc]);
-          mx = dmax(mx, x[rc]);
-        }
-        mx = finite_or_zero(mx);
-        T s = 0;
-#pragma unroll
-        for (int rc = 0; rc < sr; ++rc) {
-          x[rc] = dexp(x[rc] - mx);
-          s += x[rc];
-        }
-        const T scale = foo / s;
-#pragma unroll
-        for (int rc = 0; rc < sr; ++rc) {
-          const T xi = scale * x[rc];
-          sxi[rp][rc] += xi;
-          nn[rc][c] += xi;
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < sr; ++r)
-#pragma unroll
-      for (int b = 0; b < sb; ++b) {
-        nu[r][b] = nn[r][b];
-        stn[r][b] += nn[r][b];
-      }
-  }
-
-#pragma unroll
-  for (int r = 0; r < sr; ++r) {
-#pragma unroll
-    for (int rc = 0; rc < sr; ++rc)
-      sxi_out[static_cast<size_t>((j * sr + r) * sr + rc) * skb + i] = sxi[r][rc];
-#pragma unroll
-    for (int b = 0; b < sb; ++b)
-      stn_out[static_cast<size_t>((j * sr + r) * sb + b) * skb + i] = stn[r][b];
-  }
+  pair_recursion<T, SB_, SR_>(pr, tr, ell, s_log_pi, s_log_a, carry, ll_out,
+                              nu1_out, sxi_out, stn_out, j, i, kb, lkr, sb_rt,
+                              sr_rt, tau);
 }
 
 template <typename T>
@@ -364,6 +173,8 @@ int launch(const void* prior, const void* trans, const void* mean,
     pair_estep_fused_kernel<T, 3, 3, 2><<<grid, block, 0, st>>>(VBHEM_ARGS);
   else if (sb == 3 && sr == 2 && d == 2)
     pair_estep_fused_kernel<T, 3, 2, 2><<<grid, block, 0, st>>>(VBHEM_ARGS);
+  else if (sb == 2 && sr == 2 && d == 2)
+    pair_estep_fused_kernel<T, 2, 2, 2><<<grid, block, 0, st>>>(VBHEM_ARGS);
   else
     pair_estep_fused_kernel<T, 0, 0, 0><<<grid, block, 0, st>>>(VBHEM_ARGS);
 #undef VBHEM_ARGS

@@ -29,6 +29,7 @@ from ..ops.pair_estep_cuda import pair_estep_fused_auto
 from ..utils.numeric import (e_log_det_lambda, e_log_dirichlet, inv_psd,
                              log_dirichlet_const, log_wishart_b, logdet_psd,
                              logsumexp, sym, tiny)
+from . import vbhmm
 
 
 class VBHEMHyps(NamedTuple):
@@ -713,3 +714,37 @@ def remove_empty_clusters(res: VBHEMResult, cluster_thresh: float = 1.0,
         label=torch.argmax(hat_z, dim=-1),
         counts_n1=res.counts_n1[perm], counts=res.counts[perm],
         trans_counts=res.trans_counts[perm])
+
+
+def vbh3m_remove_empty(res: VBHEMResult, cluster_thresh: float = 1.0,
+                       state_thresh: float = 1e-3,
+                       sortclusters: str = "f"):
+    """Full `vbh3m_remove_empty.m` semantics: (1) drop clusters with
+    Nj < cluster_thresh and renormalize/relabel (`:15-59`,
+    :func:`remove_empty_clusters`); (2) prune each surviving cluster
+    HMM's states with soft count < state_thresh (`:63-76`, the
+    reference's ``vbhmm_remove_empty(hmm, 0, 1e-3)``); (3) standardize
+    each pruned HMM's state order (`:80-83`).
+
+    Returns ``(cluster_pruned_result, hmm_list)``: ``hmm_list`` holds the
+    per-cluster state-pruned, standardized ``VBHMMResult``s (ragged state
+    counts), the reference's ``h3mo.hmm``."""
+    res = remove_empty_clusters(res, cluster_thresh=cluster_thresh,
+                                state_thresh=state_thresh)
+    hmms = []
+    for j in range(res.post.alpha.shape[-1]):
+        post_j = HMMPosterior(alpha=res.post.eta[j],
+                              epsilon=res.post.epsilon[j],
+                              niw=tree_map(lambda a: a[j], res.post.niw))
+        sr = post_j.alpha.shape[-1]
+        r_j = VBHMMResult(
+            post=post_j, model=post_j.to_point(), ll=res.ll,
+            gamma=torch.zeros((1, 1, sr), dtype=res.post.eta.dtype,
+                              device=res.post.eta.device),
+            counts_n1=res.counts_n1[j], counts=res.counts[j],
+            trans_counts=res.trans_counts[j],
+            state_mask=torch.ones((sr,), dtype=torch.bool,
+                                  device=res.post.eta.device))
+        r_j, _, _ = vbhmm.remove_empty(r_j, thresh=state_thresh)
+        hmms.append(vbhmm.standardize(r_j, sortclusters))
+    return res, hmms

@@ -4,8 +4,8 @@ The sources under ``vbhem_tpu_torch/csrc/`` export a plain C interface
 and are compiled by ``nvcc`` for ``sm_90a``, each in its own process and
 all at once, and linked into one shared library in
 ``build/vbhem_tpu_torch/`` beside the package (a directory the repository
-ignores).  The library's file name carries a hash of the sources and the
-flags, so an edited ``.cu`` file builds anew.  Nothing here runs at
+ignores).  The library's file name carries a hash of every file under
+``csrc/`` and of the flags, so an edited source or header builds anew.  Nothing here runs at
 import time: this module imports on machines with no CUDA toolkit.
 """
 from __future__ import annotations
@@ -49,14 +49,17 @@ def find_nvcc() -> Optional[str]:
 
 
 def sources() -> list:
+    """The translation units: one nvcc process each."""
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources and flags lives.  The
+    hash covers every file under ``csrc/``, headers included, so an edit
+    to a header the kernels share builds anew too."""
     h = hashlib.sha256()
-    for src in sources():
-        h.update(src.name.encode())
+    for src in sorted(p for p in CSRC_DIR.rglob("*") if p.is_file()):
+        h.update(str(src.relative_to(CSRC_DIR)).encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libvbhem_kernels_{h.hexdigest()[:16]}.so"

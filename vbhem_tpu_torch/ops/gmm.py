@@ -1,5 +1,6 @@
-"""GMM fitting that initializes VBEM: the counterpart of
-:mod:`vbhem_tpu.ops.gmm` (``fit_gmm`` and ``fit_gmm_split``).
+"""GMM fitting that initializes VBEM, and the mixture-hierarchies EM that
+initializes VHEM: the counterpart of :mod:`vbhem_tpu.ops.gmm`
+(``fit_gmm``, ``fit_gmm_split`` and ``mix_hier_em``).
 
 Same convention as MATLAB's ``gmdistribution.fit(..., 'Start',
 'randSample')`` (`vbhmm_init.m:59-60`): the start means are K distinct
@@ -237,3 +238,74 @@ def fit_gmm_split(x: torch.Tensor, k: int,
         cov[..., n_active, :, :] = cj
         g = masked_em(GMM(weight, mean, cov), slots < n_active + 1)
     return _em_to_tol(x, w_pt, g, ridge, max_iter, tol, 1e-300, len(lead))
+
+
+def mix_hier_em(gen: torch.Generator, mean: torch.Tensor, cov: torch.Tensor,
+                prior: torch.Tensor, t: int, nv: float = 100.0,
+                max_iter: int = 30, tol: float = 1e-6,
+                lanes: Sequence[int] = ()):
+    """Vasconcelos mixture-hierarchies EM: reduce a pooled bank of P
+    Gaussians to a T-component GMM using virtual samples
+    (`GMM_MixHierEM.m`: E-step `:113-165`, M-step `:179-199`), for the
+    VHEM 'gmmNew', 'gmmNew2' and 'gmm' initializers.
+
+    mean [P, D], cov [P, D, D], prior [P] (masked-out components carry
+    prior 0 and are inert), shared by the restart ``lanes``; each lane
+    seeds its own weighted kmeans++ start.  Returns (GMM with axes
+    [*lanes, T], log-posterior lp [*lanes, T, P]).  A lane stops once its
+    mean log-likelihood gains at most ``tol`` (after two iterations) or
+    after ``max_iter``; finished lanes are frozen."""
+    from .kmeans import kmeans
+    lanes = tuple(lanes)
+    p, d = mean.shape
+    dtype, dev = mean.dtype, mean.device
+    prior = prior / torch.sum(prior)
+    coef = -0.5 * d * math.log(2.0 * math.pi)
+    dpp = nv * prior                                        # [P]
+
+    # init: weighted kmeans++ centers on base means, covariance = mean
+    # base covariance, uniform weights (GMM_MixHierEM.m:92-100)
+    _, cent = kmeans(gen, mean, t, weights=prior, max_iter=10, lanes=lanes)
+    vrnc = torch.einsum("p,pde->de", prior, cov).expand(
+        lanes + (t, d, d)).clone()
+    mxwt = torch.full(lanes + (t,), 1.0 / t, dtype=dtype, device=dev)
+
+    def e_step(mxwt, cent, vrnc):
+        ivr = inv_psd(vrnc)                                 # [*L, T, D, D]
+        tr = torch.einsum("...tde,ped->...tp", ivr, cov)
+        quad = quad_diff(mean, cent[..., :, None, :],
+                         ivr[..., :, None, :, :])           # [*L, T, P]
+        xpt = (torch.log(mxwt)[..., None]
+               + dpp * (coef - 0.5 * (tr + quad
+                                      + logdet_psd(vrnc)[..., None])))
+        lse = logsumexp(xpt, dim=-2)                        # [*L, P]
+        return xpt - lse[..., None, :], torch.mean(lse, dim=-1)
+
+    def m_step(logpost):
+        post = torch.exp(logpost)                           # [*L, T, P]
+        mxwt = torch.mean(post, dim=-1) + 1e-30
+        wts = post * prior
+        wts = wts / (torch.sum(wts, dim=-1, keepdim=True) + 1e-30)
+        cent = torch.matmul(wts, mean)                      # [*L, T, D]
+        diff = mean - cent[..., :, None, :]                 # [*L, T, P, D]
+        vrnc = (torch.einsum("...tp,...tpd,...tpe->...tde", wts, diff, diff)
+                + torch.einsum("...tp,pde->...tde", wts, cov))
+        return mxwt / torch.sum(mxwt, dim=-1, keepdim=True), cent, sym(vrnc)
+
+    big = torch.full(lanes, -torch.finfo(dtype).max, dtype=dtype, device=dev)
+    ll, last = big, big
+    it = torch.zeros(lanes, dtype=torch.int64, device=dev)
+    while True:
+        active = (it < max_iter) & ((it < 2) | (ll - last > tol))
+        if not bool(torch.any(active)):
+            break
+        logpost, new_ll = e_step(mxwt, cent, vrnc)
+        new = m_step(logpost)
+        mxwt, cent, vrnc = (
+            torch.where(active.reshape(lanes + (1,) * (a.dim() - len(lanes))),
+                        a, b) for a, b in zip(new, (mxwt, cent, vrnc)))
+        last = torch.where(active, ll, last)
+        ll = torch.where(active, new_ll, ll)
+        it = it + active.to(it.dtype)
+    logpost, _ = e_step(mxwt, cent, vrnc)
+    return GMM(weight=mxwt, mean=cent, cov=vrnc), logpost

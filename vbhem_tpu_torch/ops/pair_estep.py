@@ -1,11 +1,12 @@
 """Hierarchical backward/forward recursions over virtual samples — the
-VBHEM E-step over all (base i, reduced j) pairs, in plain PyTorch.
+VBHEM / VHEM E-step over all (base i, reduced j) pairs, in plain PyTorch.
 
-This is the plain version of the CUDA kernel in
-``csrc/pair_estep_fused.cu`` (see :mod:`.pair_estep_cuda`): the CPU path
-of the dispatch and the kernel's reference on the card.  It mirrors
-:mod:`vbhem_tpu.ops.pair_estep` with ``lax.scan`` replaced by a Python
-loop over tau.
+This is the plain version of the CUDA kernels ``csrc/pair_estep_fused.cu``
+(B1: the variational E3logN and the recursion) and ``csrc/pair_bwd_fwd.cu``
+(B3: the recursion on a precomputed ``ell``), see :mod:`.pair_estep_cuda`:
+the CPU path of the dispatches and the kernels' reference on the card.  It
+mirrors :mod:`vbhem_tpu.ops.pair_estep` with ``lax.scan`` replaced by a
+Python loop over tau.
 
 Reduced-model arguments may carry extra leading lane axes (restart
 trials): ``log_pi_r`` [..., Kr, Sr] etc.  The base bank has none.  The
@@ -22,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils.numeric import logsumexp
+from ..utils.numeric import inv_psd, logdet_psd, logsumexp, quad_diff
 
 
 class PairStats(NamedTuple):
@@ -56,6 +57,34 @@ def expected_pair_ll_variational(mean_b: torch.Tensor, cov_b: torch.Tensor,
 
     return -0.5 * (d * math.log(2.0 * math.pi) - rb(log_lam_tilde)
                    + d / rb(lam_r) + rb(v_r) * (tr + quad))
+
+
+def expected_pair_ll_point(mean_b: torch.Tensor, cov_b: torch.Tensor,
+                           mean_r: torch.Tensor,
+                           cov_r: torch.Tensor) -> torch.Tensor:
+    """Expected log Gaussian between point-estimate banks, the VHEM flavor
+    (`g3m_stats.m`; `hem_hmm_bwd_fwd_mex.c` ELL blocks):
+
+      E_{N(mu_b, S_b)}[log N(y | mu_r, S_r)]
+        = -0.5 [ D log 2pi + log|S_r| + tr(S_r^-1 S_b)
+                 + (mu_b - mu_r)^T S_r^-1 (mu_b - mu_r) ]
+
+    mean_b [Kb,Sb,D], cov_b [Kb,Sb,D,D]; mean_r [..., Kr,Sr,D],
+    cov_r [..., Kr,Sr,D,D]  ->  [..., Kb, Kr, Sb, Sr].
+
+    The result is a view of a buffer laid out [..., Kr, Sb, Sr, Kb], the
+    layout kernel B3 reads, so the kernel's wrapper copies nothing."""
+    d = mean_b.shape[-1]
+    prec_r = inv_psd(cov_r)                                   # [..,Kr,Sr,D,D]
+    logdet = logdet_psd(cov_r)                                # [..,Kr,Sr]
+    tr = torch.einsum("...jrde,ibed->...jbri", prec_r, cov_b)
+    # [Sb, 1, Kb, D] against [..., Kr, 1, Sr, 1, D]: [..., Kr, Sb, Sr, Kb]
+    quad = quad_diff(mean_b.transpose(0, 1)[:, None],
+                     mean_r[..., :, None, :, None, :],
+                     prec_r[..., :, None, :, None, :, :])
+    ell = -0.5 * (d * math.log(2.0 * math.pi)
+                  + logdet[..., :, None, :, None] + tr + quad)
+    return ell.contiguous().movedim(-1, -4)
 
 
 def pair_bwd_fwd(prior_b: torch.Tensor, trans_b: torch.Tensor,

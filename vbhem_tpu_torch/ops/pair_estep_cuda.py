@@ -1,15 +1,17 @@
-"""The fused pair E-step on the card: the wrapper of the hand-written CUDA
-kernel ``csrc/pair_estep_fused.cu`` and the dispatch that the VBHEM
-E-step calls.
+"""The pair E-step on the card: the wrappers of the hand-written CUDA
+kernels ``csrc/pair_estep_fused.cu`` (B1) and ``csrc/pair_bwd_fwd.cu``
+(B3), and the dispatches that the VBHEM, VHEM and DIC E-steps call.
 
 :func:`pair_estep_fused_auto` is the counterpart of
-``vbhem_tpu.ops.pair_estep_pallas.pair_estep_fused_auto``.  It validates
-its arguments, then takes the plain PyTorch version
-(:mod:`.pair_estep`) only for CPU tensors; for CUDA tensors it launches
-the kernel or raises.  There is no fallback.
+``vbhem_tpu.ops.pair_estep_pallas.pair_estep_fused_auto`` (E3logN and the
+recursion in one kernel); :func:`pair_bwd_fwd_auto` the counterpart of
+``pair_bwd_fwd_auto`` there (the recursion on a precomputed emission
+matrix ``ell``).  Each validates its arguments, then takes the plain
+PyTorch version (:mod:`.pair_estep`) only for CPU tensors; for CUDA
+tensors it launches its kernel or raises.  There is no fallback.
 
 Restart trials ride as leading lane axes of the reduced-model arguments
-([..., Kr, Sr] ...); the kernel folds L*Kr into its launch grid, so all
+([..., Kr, Sr] ...); the kernels fold L*Kr into their launch grid, so all
 trials of a (K, S) cell go in one launch.
 """
 from __future__ import annotations
@@ -22,9 +24,10 @@ import torch
 from . import _build
 from .pair_estep import PairStats, expected_pair_ll_variational, pair_bwd_fwd
 
-# Kernel launches made by :func:`pair_bwd_fwd_fused_cuda` and
-# :func:`pair_estep_fused_auto` in this process.
+# Kernel launches made in this process: B1 by pair_bwd_fwd_fused_cuda and
+# pair_estep_fused_auto, B3 by pair_bwd_fwd_cuda and pair_bwd_fwd_auto.
 LAUNCHES = 0
+BWD_FWD_LAUNCHES = 0
 
 MAX_STATES = 8
 MAX_DIM = 4
@@ -33,21 +36,17 @@ MAX_GRID_Y = 65535
 _C_FN = {torch.float32: "vbhem_pair_estep_fused_f32",
          torch.float64: "vbhem_pair_estep_fused_f64"}
 _ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_BF_C_FN = {torch.float32: "vbhem_pair_bwd_fwd_f32",
+            torch.float64: "vbhem_pair_bwd_fwd_f64"}
+_BF_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def validate(prior_b, trans_b, mean_b, cov_b, log_pi_r, log_a_r, m_r, w_r,
-             v_r, lam_r, log_lam_r, tau: int):
-    """Check what the kernel accepts; raise ValueError otherwise.
-
-    Returns (kb, sb, d, lanes, kr, sr): ``lanes`` is the tuple of leading
-    lane axes of the reduced-model arguments."""
-    named = dict(prior_b=prior_b, trans_b=trans_b, mean_b=mean_b,
-                 cov_b=cov_b, log_pi_r=log_pi_r, log_a_r=log_a_r, m_r=m_r,
-                 w_r=w_r, v_r=v_r, lam_r=lam_r, log_lam_r=log_lam_r)
+def _check_tensors(named: dict, dtype, device, contiguous=()):
+    """Every tensor of ``named`` has ``dtype`` and ``device``; those named
+    in ``contiguous`` are contiguous."""
     for name, t in named.items():
         if not torch.is_tensor(t):
             raise ValueError(f"{name} must be a tensor, got {type(t)}")
-    dtype, device = mean_b.dtype, mean_b.device
     if dtype not in _C_FN:
         raise ValueError(f"dtype must be float32 or float64, got {dtype}")
     for name, t in named.items():
@@ -55,8 +54,40 @@ def validate(prior_b, trans_b, mean_b, cov_b, log_pi_r, log_a_r, m_r, w_r,
             raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if not t.is_contiguous():
+        if name in contiguous and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_shapes(named: dict, want: dict):
+    for name, shape in want.items():
+        if tuple(named[name].shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(named[name].shape)}, "
+                             f"expected {shape}")
+
+
+def _check_ranges(kb, sb, kr, sr, lanes, tau):
+    if not (1 <= sb <= MAX_STATES and 1 <= sr <= MAX_STATES):
+        raise ValueError(f"Sb={sb}, Sr={sr}: the kernel takes 1..{MAX_STATES}")
+    if int(tau) != tau or tau < 1:
+        raise ValueError(f"tau={tau}: must be an integer >= 1")
+    if kb < 1 or kr < 1:
+        raise ValueError(f"empty bank: Kb={kb}, Kr={kr}")
+    lkr = math.prod(lanes) * kr
+    if lkr > MAX_GRID_Y:
+        raise ValueError(f"L*Kr={lkr} exceeds the launch grid's {MAX_GRID_Y}")
+
+
+def validate(prior_b, trans_b, mean_b, cov_b, log_pi_r, log_a_r, m_r, w_r,
+             v_r, lam_r, log_lam_r, tau: int):
+    """Check what kernel B1 accepts; raise ValueError otherwise.
+
+    Returns (kb, sb, d, lanes, kr, sr): ``lanes`` is the tuple of leading
+    lane axes of the reduced-model arguments."""
+    named = dict(prior_b=prior_b, trans_b=trans_b, mean_b=mean_b,
+                 cov_b=cov_b, log_pi_r=log_pi_r, log_a_r=log_a_r, m_r=m_r,
+                 w_r=w_r, v_r=v_r, lam_r=lam_r, log_lam_r=log_lam_r)
+    _check_tensors(named, getattr(mean_b, "dtype", None),
+                   getattr(mean_b, "device", None), contiguous=named)
     if mean_b.dim() != 3:
         raise ValueError(f"mean_b must be [Kb, Sb, D], got {tuple(mean_b.shape)}")
     kb, sb, d = mean_b.shape
@@ -65,26 +96,35 @@ def validate(prior_b, trans_b, mean_b, cov_b, log_pi_r, log_a_r, m_r, w_r,
                          f"{tuple(log_pi_r.shape)}")
     kr, sr = log_pi_r.shape[-2:]
     lanes = tuple(log_pi_r.shape[:-2])
-    want = dict(prior_b=(kb, sb), trans_b=(kb, sb, sb), cov_b=(kb, sb, d, d),
-                log_a_r=lanes + (kr, sr, sr), m_r=lanes + (kr, sr, d),
-                w_r=lanes + (kr, sr, d, d), v_r=lanes + (kr, sr),
-                lam_r=lanes + (kr, sr), log_lam_r=lanes + (kr, sr))
-    for name, shape in want.items():
-        if tuple(named[name].shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(named[name].shape)}, "
-                             f"expected {shape}")
-    if not (1 <= sb <= MAX_STATES and 1 <= sr <= MAX_STATES):
-        raise ValueError(f"Sb={sb}, Sr={sr}: the kernel takes 1..{MAX_STATES}")
+    _check_shapes(named, dict(
+        prior_b=(kb, sb), trans_b=(kb, sb, sb), cov_b=(kb, sb, d, d),
+        log_a_r=lanes + (kr, sr, sr), m_r=lanes + (kr, sr, d),
+        w_r=lanes + (kr, sr, d, d), v_r=lanes + (kr, sr),
+        lam_r=lanes + (kr, sr), log_lam_r=lanes + (kr, sr)))
+    _check_ranges(kb, sb, kr, sr, lanes, tau)
     if not 1 <= d <= MAX_DIM:
         raise ValueError(f"D={d}: the kernel takes 1..{MAX_DIM}")
-    if int(tau) != tau or tau < 1:
-        raise ValueError(f"tau={tau}: must be an integer >= 1")
-    if kb < 1 or kr < 1:
-        raise ValueError(f"empty bank: Kb={kb}, Kr={kr}")
-    lkr = math.prod(lanes) * kr
-    if lkr > MAX_GRID_Y:
-        raise ValueError(f"L*Kr={lkr} exceeds the launch grid's {MAX_GRID_Y}")
     return kb, sb, d, lanes, kr, sr
+
+
+def _outputs(dev, dt, lkr, kb, sb, sr, tau):
+    """The kernels' Kb-last outputs (ll, nu1, sxi, stn) and the carry
+    scratch."""
+    return (torch.empty((lkr, kb), dtype=dt, device=dev),
+            torch.empty((lkr, sr, kb), dtype=dt, device=dev),
+            torch.empty((lkr, sr, sr, kb), dtype=dt, device=dev),
+            torch.empty((lkr, sr, sb, kb), dtype=dt, device=dev),
+            torch.empty(((tau - 1) * sb * sr * lkr * kb,), dtype=dt,
+                        device=dev))
+
+
+def _unfold(ll, nu1, sxi, stn, lanes, kr, kb, sb, sr) -> PairStats:
+    """[L*Kr, F..., Kb] -> [..., Kb, Kr, F...] views."""
+    return PairStats(
+        ll_elbo=ll.view(lanes + (kr, kb)).movedim(-1, -2),
+        nu_1=nu1.view(lanes + (kr, sr, kb)).movedim(-1, -3),
+        sum_xi=sxi.view(lanes + (kr, sr, sr, kb)).movedim(-1, -4),
+        sum_t_nu=stn.view(lanes + (kr, sr, sb, kb)).movedim(-1, -4))
 
 
 def _launch(prior_b, trans_b, mean_b, cov_b, reduced, tau, kb, sb, lanes,
@@ -104,28 +144,15 @@ def _launch(prior_b, trans_b, mean_b, cov_b, reduced, tau, kb, sb, lanes,
                   trans_b.permute(1, 2, 0).contiguous(),
                   mean_b.permute(1, 2, 0).contiguous(),
                   cov_b.permute(1, 2, 3, 0).contiguous())
-        ll = torch.empty((lkr, kb), dtype=dt, device=dev)
-        nu1 = torch.empty((lkr, sr, kb), dtype=dt, device=dev)
-        sxi = torch.empty((lkr, sr, sr, kb), dtype=dt, device=dev)
-        stn = torch.empty((lkr, sr, sb, kb), dtype=dt, device=dev)
-        carry = torch.empty(((tau - 1) * sb * sr * lkr * kb,), dtype=dt,
-                            device=dev)
+        outs = _outputs(dev, dt, lkr, kb, sb, sr, tau)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[t.data_ptr() for t in base_t + tuple(reduced)],
-                 ll.data_ptr(), nu1.data_ptr(), sxi.data_ptr(),
-                 stn.data_ptr(), carry.data_ptr(),
+        err = fn(*[t.data_ptr() for t in base_t + tuple(reduced) + outs],
                  kb, lkr, sb, sr, d, int(tau), stream)
         if err != 0:
             raise RuntimeError(f"pair_estep_fused kernel launch failed: "
                                f"cudaError {err}")
         LAUNCHES += 1
-
-    # [L*Kr, F..., Kb] -> [..., Kb, Kr, F...]
-    return PairStats(
-        ll_elbo=ll.view(lanes + (kr, kb)).movedim(-1, -2),
-        nu_1=nu1.view(lanes + (kr, sr, kb)).movedim(-1, -3),
-        sum_xi=sxi.view(lanes + (kr, sr, sr, kb)).movedim(-1, -4),
-        sum_t_nu=stn.view(lanes + (kr, sr, sb, kb)).movedim(-1, -4))
+    return _unfold(*outs[:4], lanes, kr, kb, sb, sr)
 
 
 def pair_bwd_fwd_fused_cuda(prior_b, trans_b, mean_b, cov_b, log_pi_r,
@@ -167,3 +194,93 @@ def pair_estep_fused_auto(prior_b, trans_b, mean_b, cov_b, log_pi_r,
     return _launch(prior_b, trans_b, mean_b, cov_b,
                    (log_pi_r, log_a_r, m_r, w_r, v_r, lam_r, log_lam_r),
                    tau, kb, sb, lanes, kr, sr)
+
+
+# ---------------------------------------------------------------------------
+# B3: the recursion on a precomputed emission matrix (VHEM, DIC)
+# ---------------------------------------------------------------------------
+
+def validate_bwd_fwd(prior_b, trans_b, log_pi_r, log_a_r, ell, tau: int):
+    """Check what kernel B3 accepts; raise ValueError otherwise.  The
+    tensors may have any strides: the wrapper lays them out for the
+    kernel.
+
+    Returns (kb, sb, lanes, kr, sr)."""
+    named = dict(prior_b=prior_b, trans_b=trans_b, log_pi_r=log_pi_r,
+                 log_a_r=log_a_r, ell=ell)
+    _check_tensors(named, getattr(ell, "dtype", None),
+                   getattr(ell, "device", None))
+    if prior_b.dim() != 2:
+        raise ValueError(f"prior_b must be [Kb, Sb], got "
+                         f"{tuple(prior_b.shape)}")
+    kb, sb = prior_b.shape
+    if log_pi_r.dim() < 2:
+        raise ValueError(f"log_pi_r must be [..., Kr, Sr], got "
+                         f"{tuple(log_pi_r.shape)}")
+    kr, sr = log_pi_r.shape[-2:]
+    lanes = tuple(log_pi_r.shape[:-2])
+    _check_shapes(named, dict(trans_b=(kb, sb, sb),
+                              log_a_r=lanes + (kr, sr, sr),
+                              ell=lanes + (kb, kr, sb, sr)))
+    _check_ranges(kb, sb, kr, sr, lanes, tau)
+    return kb, sb, lanes, kr, sr
+
+
+def _launch_bwd_fwd(prior_b, trans_b, log_pi_r, log_a_r, ell, tau, kb, sb,
+                    lanes, kr, sr) -> PairStats:
+    """One launch of B3 on arguments :func:`validate_bwd_fwd` has
+    accepted."""
+    global BWD_FWD_LAUNCHES
+    dev, dt = ell.device, ell.dtype
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    fn = _build.c_function(_BF_C_FN[dt], _BF_ARGTYPES)
+    lkr = math.prod(lanes) * kr
+
+    with torch.cuda.device(dev):
+        # [..., Kb, Kr, Sb, Sr] -> [L*Kr, Sb, Sr, Kb]: no copy when ell is
+        # a view of a Kb-last buffer, as expected_pair_ll_point returns
+        ell_t = ell.movedim(-4, -1).contiguous()
+        ins = (ell_t, prior_b.t().contiguous(),
+               trans_b.permute(1, 2, 0).contiguous(), log_pi_r.contiguous(),
+               log_a_r.contiguous())
+        outs = _outputs(dev, dt, lkr, kb, sb, sr, tau)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[t.data_ptr() for t in ins + outs], kb, lkr, sb, sr,
+                 int(tau), stream)
+        if err != 0:
+            raise RuntimeError(f"pair_bwd_fwd kernel launch failed: "
+                               f"cudaError {err}")
+        BWD_FWD_LAUNCHES += 1
+    return _unfold(*outs[:4], lanes, kr, kb, sb, sr)
+
+
+def pair_bwd_fwd_cuda(prior_b, trans_b, log_pi_r, log_a_r, ell,
+                      tau: int) -> PairStats:
+    """The recursion on a precomputed emission matrix in one launch of
+    kernel B3.  Arguments and results as :func:`pair_bwd_fwd_auto`; every
+    tensor must be on one CUDA device.  The results are views of the
+    kernel's Kb-last buffers."""
+    kb, sb, lanes, kr, sr = validate_bwd_fwd(prior_b, trans_b, log_pi_r,
+                                             log_a_r, ell, tau)
+    return _launch_bwd_fwd(prior_b, trans_b, log_pi_r, log_a_r, ell, tau,
+                           kb, sb, lanes, kr, sr)
+
+
+def pair_bwd_fwd_auto(prior_b, trans_b, log_pi_r, log_a_r, ell,
+                      tau: int) -> PairStats:
+    """Backward + forward recursions over tau virtual steps for every
+    (base i, reduced j) pair, on a precomputed emission matrix.
+
+    prior_b [Kb,Sb], trans_b [Kb,Sb,Sb] (zero-padded rows for ragged Sb);
+    log_pi_r [..., Kr,Sr], log_a_r [..., Kr,Sr,Sr] (entries may be -inf);
+    ell [..., Kb,Kr,Sb,Sr]; all float32 or all float64, on one device.
+
+    CPU tensors take the plain version; CUDA tensors launch kernel B3 (or
+    raise)."""
+    kb, sb, lanes, kr, sr = validate_bwd_fwd(prior_b, trans_b, log_pi_r,
+                                             log_a_r, ell, tau)
+    if ell.device.type == "cpu":
+        return pair_bwd_fwd(prior_b, trans_b, log_pi_r, log_a_r, ell, tau)
+    return _launch_bwd_fwd(prior_b, trans_b, log_pi_r, log_a_r, ell, tau,
+                           kb, sb, lanes, kr, sr)

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..containers import H3M, HMM, SeqBatch, resolve_device
+from . import metrics
 
 # the synthetic protocol's ground truth (`exprmt1_sampledata.m:21-43`):
 # two 2-state HMMs with shared emissions, one sticky and one switching
@@ -110,16 +111,4 @@ def synthetic_subjects(n_per_group: int, n_seqs: int = 25, t: int = 50,
 def rand_index(a, b) -> float:
     """Plain (unadjusted) Rand index of two labelings: the share of item
     pairs on which they agree."""
-    a, b = np.asarray(a).ravel(), np.asarray(b).ravel()
-    _, ia = np.unique(a, return_inverse=True)
-    _, ib = np.unique(b, return_inverse=True)
-    c = np.zeros((ia.max() + 1, ib.max() + 1))
-    np.add.at(c, (ia, ib), 1)
-    n = c.sum()
-    pairs = n * (n - 1) / 2
-
-    def comb2(x):
-        return float((x * (x - 1) / 2).sum())
-
-    agree = pairs + 2 * comb2(c) - comb2(c.sum(1)) - comb2(c.sum(0))
-    return agree / pairs
+    return metrics.rand_index(a, b)[1]
