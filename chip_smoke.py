@@ -12,7 +12,10 @@ Phases (any failure exits non-zero and prints no result line):
      float32 kernel within 5e-5 and the float64 kernel within 1e-10 of
      max |got - want| / (|want| + 1), at small shapes and at the shapes the
      main paths launch.  B1 is the pair E-step, B2 the VBEM
-     forward-backward, B3 the VHEM / DIC pair recursion;
+     forward-backward (both of its entries: the forward-backward of given
+     log_rho, in the resident and the streamed design, and the fused
+     E-step that forms log_rho from x in the kernel), B3 the VHEM / DIC
+     pair recursion;
   3. VBHEM path: ``vbhem.cluster`` over (K, S) in {1,2,3} x {2,3} on a
      planted bank of 8192 base HMMs with 8 restart trials per cell; the
      ELBOs must be finite, every EM iteration must have launched B1, and
@@ -20,7 +23,8 @@ Phases (any failure exits non-zero and prints no result line):
      1.0); plus a 50-iteration ``em_trace`` whose ELBO must not decrease;
   4. VBEM path: ``batch.learn_bank`` on the synthetic protocol's data at
      8192 subjects (25 sequences of T=50, D=2), K=2, 20 restarts: every
-     ELBO finite, B2 launched on every EM iteration, the planted
+     ELBO finite, B2's fused E-step launched on every EM iteration, the
+     planted
      transition structure recovered for at least 99.9% of subjects, and a
      50-iteration VBEM ``em_trace`` whose ELBO never falls by more than
      1e-5 relative;
@@ -44,7 +48,9 @@ Phases (any failure exits non-zero and prints no result line):
      time and its plain version's time at its main-path shape, and one EM
      iteration of each engine (VBHEM, VBEM, VHEM) with the kernel and
      with the plain version (the engine's own iteration, its kernel
-     wrapper rebound to the plain version for the plain runs).
+     wrapper rebound to the plain version for the plain runs); for B2
+     both entries, the fused E-step against ``expected_log_gauss``
+     followed by entry 1.
 
 B3 is checked in phase 2 like B1 and B2.  Each of phases 3-7 sets every
 kernel's launch count to 0 just before it runs its path and reads the
@@ -70,7 +76,7 @@ import numpy as np
 import torch
 
 from vbhem_tpu_torch import HEMConfig, SeqBatch, VBConfig, VBHEMConfig
-from vbhem_tpu_torch.containers import tree_map
+from vbhem_tpu_torch.containers import NIW, tree_map
 from vbhem_tpu_torch.experiments import synthetic
 from vbhem_tpu_torch.models import batch as vbem_batch
 from vbhem_tpu_torch.models import dic as dic_model
@@ -90,16 +96,20 @@ KERNELS = {
            "source": "vbhem_tpu_torch/csrc/pair_estep_fused.cu",
            "replaces": "vbhem_tpu/ops/pair_estep_pallas.py:128"},
     "B2": {"name": "fb", "route": "cuda",
-           "source": "vbhem_tpu_torch/csrc/fb.cu",
+           "source": "vbhem_tpu_torch/csrc/fb.cuh",
            "replaces": "vbhem_tpu/ops/fb_pallas.py:51"},
     "B3": {"name": "pair_bwd_fwd", "route": "cuda",
            "source": "vbhem_tpu_torch/csrc/pair_bwd_fwd.cu",
            "replaces": "vbhem_tpu/ops/pair_estep_pallas.py:110"},
 }
-# each kernel's launch counter: (module, attribute)
+# each kernel's launch counters: (module, attribute); B2 counts its two
+# entries apart (entry 1 and the fused E-step)
 COUNTERS = {"B1": (pair_estep_cuda, "LAUNCHES"), "B2": (fb_cuda, "LAUNCHES"),
+            "B2_fused": (fb_cuda, "FUSED_LAUNCHES"),
             "B3": (pair_estep_cuda, "BWD_FWD_LAUNCHES")}
-DEVICE_NAMES = {"B1": "pair_estep_fused_kernel", "B2": "fb_kernel",
+# device kernel names; both B2 entries run fb_resident_kernel at the main
+# path's shapes (fb_streamed_kernel serves long sequences)
+DEVICE_NAMES = {"B1": "pair_estep_fused_kernel", "B2": "fb_resident_kernel",
                 "B3": "pair_bwd_fwd_kernel"}
 
 # Peak rates of one H100 SXM, from NVIDIA's published specifications:
@@ -206,22 +216,52 @@ def b3_bound(kb, lkr, sb, sr, tau, itemsize) -> dict:
             "scratch_bytes": 2 * itemsize * (tau - 1) * sb * sr * pairs}
 
 
+def mask_bytes(m8) -> int:
+    """Bytes of the mask rows m8 [..., T] held as T bits each."""
+    return math.prod(m8.shape[:-1]) * -(-m8.shape[-1] // 8)
+
+
 def b2_bound(log_pz1, log_trans, log_rho, mask) -> dict:
-    """B2 on these inputs: log_rho read and gamma written once, the mask
-    as the kernel reads it (one row per subject, shared by its
-    restarts), the scores, xi_sum and phi_norm.  Operations for the
-    steps this mask makes valid: K exp and one log per valid step, the
-    exp of the scores, and about 10 K^2 flops per valid step."""
+    """B2's entry 1 on these inputs: log_rho read once, the masked log_rho
+    and gamma written once, the mask as the kernel reads it (one row of
+    T bits per subject, shared by its restarts), the scores, xi_sum and
+    phi_norm.
+    Operations for the steps this mask makes valid: K exp and one log per
+    valid step, the exp of the scores, and about 10 K^2 flops per valid
+    step."""
     *lanes, n, t, k = log_rho.shape
     n_seq = math.prod(lanes) * n
     size = log_rho.element_size()
     m8, rep = fb_cuda._mask_lanes(mask, tuple(lanes))
     valid = float(torch.sum(m8.float())) * rep
-    n_bytes = (size * (2 * n_seq * t * k + n_seq * (k * k + 1)
+    n_bytes = (size * (3 * n_seq * t * k + n_seq * (k * k + 1)
                        + log_pz1.numel() + log_trans.numel())
-               + m8.numel())
+               + mask_bytes(m8))
     sfu = valid * (k + 1) + log_pz1.numel() + log_trans.numel()
     return bound(n_bytes, sfu, valid * 10 * k * k)
+
+
+def b2_fused_bound(x, mask, log_pz1, log_trans, emis) -> dict:
+    """B2's fused E-step on these inputs: x read once per subject (the
+    rows the kernel reads, shared by the restarts), the emission
+    constants, the scores and the mask rows (T bits) read once; the masked
+    log_rho, gamma, xi_sum and phi_norm written once.  Operations: entry
+    1's, plus the emission at each valid step (the output is 0 at padded
+    ones): K (D + 2 D^2 + 1) flops."""
+    lanes = tuple(emis.shape[:-2])
+    *_, n, t, d = x.shape
+    k = emis.shape[-2]
+    n_seq = math.prod(lanes) * n
+    size = emis.element_size()
+    xr, _ = fb_cuda._lane_rows(x, lanes, 3)
+    m8, rep = fb_cuda._mask_lanes(mask, lanes)
+    valid = float(torch.sum(m8.float())) * rep
+    n_bytes = (size * (xr.numel() + emis.numel() + log_pz1.numel()
+                       + log_trans.numel() + 2 * n_seq * t * k
+                       + n_seq * (k * k + 1)) + mask_bytes(m8))
+    sfu = valid * (k + 1) + log_pz1.numel() + log_trans.numel()
+    flop = valid * (10 * k * k + k * (d + 2 * d * d + 1))
+    return bound(n_bytes, sfu, flop)
 
 
 # ---------------------------------------------------------------------------
@@ -262,10 +302,10 @@ def device_ms(fn, kernel_name, n) -> float:
 
 
 def interleaved(fns: dict, n, device, warmup=2) -> dict:
-    """{name: [seconds per call, ...]} for fns "kernel" and "plain" in
-    the order kernel, plain, plain, kernel."""
+    """{name: [seconds per call, ...]} for the fns in their order, then
+    in the reverse order (kernel, plain, plain, kernel for two)."""
     runs = {name: [] for name in fns}
-    for which in ("kernel", "plain", "plain", "kernel"):
+    for which in list(fns) + list(fns)[::-1]:
         for _ in range(warmup):
             fns[which]()
         runs[which].append(_time(fns[which], n, device))
@@ -418,33 +458,113 @@ B2_CASES = [
     ("full_width", FULL, 25, 50, 2, False, False, False),
     ("full_width_k3", FULL, 25, 50, 3, False, False, False),
 ]
+# entry 1 only: tiles too large for shared memory, so the streamed design
+B2_STREAMED_CASES = [
+    ("long_t_streamed", (2,), 64, 2000, 8, False, True, False),
+]
+# the fused E-step at every case of B2_CASES with D=2, and these
+B2_FUSED_EXTRA = [
+    # name, lanes, N, T, K, per_seq, ragged, mask_per_lane, D
+    ("d1", (4,), 128, 50, 3, False, True, False, 1),
+    ("d3", (4,), 128, 50, 3, False, True, False, 3),
+    ("d3_k8", (2,), 128, 20, 8, False, True, False, 3),
+    ("d3_full_width", FULL, 25, 50, 2, False, False, False, 3),
+]
+
+
+def fused_inputs(seed, lanes, n, t, k, d, device, dtype, per_seq=False,
+                 ragged=False, mask_per_lane=False):
+    """The fused E-step's arguments drawn on the card: the scores and
+    mask of :func:`fb_inputs`, x with the mask's rows (one per subject,
+    shared by the restarts, unless ``mask_per_lane``) and a random NIW
+    posterior per lane; returns (x, mask, log_pz1, log_trans, niw)."""
+    log_pz1, log_trans, log_rho, mask = fb_inputs(
+        seed, lanes, n, t, k, device, dtype, per_seq, ragged, mask_per_lane)
+    del log_rho
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+
+    def randn(shape):
+        return torch.randn(shape, generator=g, device=device,
+                           dtype=torch.float64)
+
+    shp = lanes + (k,)
+    a = randn(shp + (d, d)) * 0.3
+    eye = torch.eye(d, dtype=torch.float64, device=device)
+    niw = NIW(beta=1.0 + 4.0 * randn(shp).abs(),
+              v=d + 1.5 + 8.0 * torch.rand(shp, generator=g, device=device,
+                                           dtype=torch.float64),
+              m=randn(shp + (d,)),
+              w=a @ a.transpose(-1, -2) + 0.2 * eye)
+    x = randn(tuple(mask.shape) + (d,))
+    return (x.to(dtype), mask, log_pz1, log_trans,
+            tree_map(lambda v: v.to(dtype), niw))
+
+
+def _parity_fb(fails, name, dtype, got, want_fn, plain32_fn):
+    """Gate ``got`` against the plain version in float64 (``want_fn``);
+    for float32 also print the kernel against the plain version in
+    float32.  Returns the largest absolute error."""
+    want = want_fn()
+    errs, max_abs = _errors(got, want)
+    del want
+    if dtype == torch.float32:
+        p32 = plain32_fn()
+        k_vs_p32, _ = _errors(got, p32)
+        print(f"info {name} f32: kernel vs plain f32 "
+              f"{max(k_vs_p32.values()):.3e}", flush=True)
+        del p32
+    _gate(fails, "B2", name, dtype, errs)
+    torch.cuda.empty_cache()
+    return max_abs
+
+
+def _f64(a):
+    return a.double() if a.is_floating_point() else a
 
 
 def phase_parity_b2(fails: Failures, device) -> float:
-    """B2 against the plain version in float64 on the kernel's inputs, as
-    for B1; returns the largest absolute float32 error seen."""
+    """Both B2 entries against the plain version in float64 on the
+    kernel's inputs, as for B1, in all four FBStats fields: entry 1
+    (forward_backward_cuda) at B2_CASES (resident design) and
+    B2_STREAMED_CASES (streamed design); the fused E-step (e_step_fused,
+    whose plain version is expected_log_gauss then forward_backward) at
+    B2_CASES with D=2 and B2_FUSED_EXTRA.  Returns the largest absolute
+    float32 error seen."""
     max_abs_f32 = 0.0
-    fields = ("gamma", "xi_sum", "phi_norm")
     for dtype in (torch.float32, torch.float64):
-        for name, lanes, n, t, k, per_seq, ragged, mpl in B2_CASES:
+        for name, lanes, n, t, k, per_seq, ragged, mpl in \
+                B2_CASES + B2_STREAMED_CASES:
             args = fb_inputs(1, lanes, n, t, k, device, dtype, per_seq,
                              ragged, mpl)
+            des = fb_cuda.design(t, k, args[2].element_size())
             got = fb_cuda.forward_backward_cuda(*args)
             torch.cuda.synchronize()
-            want = fb_plain.forward_backward(
-                *[a.double() if a.is_floating_point() else a for a in args])
-            errs, max_abs = _errors(got, want, fields)
+            err = _parity_fb(
+                fails, f"entry1 {name} ({des.kind})", dtype, got,
+                lambda: fb_plain.forward_backward(*map(_f64, args)),
+                lambda: fb_plain.forward_backward(*args))
             if dtype == torch.float32:
-                max_abs_f32 = max(max_abs_f32, max_abs)
-                del want
-                p32 = fb_plain.forward_backward(*args)
-                k_vs_p32, _ = _errors(got, p32, fields)
-                print(f"info B2 {name} f32: kernel vs plain f32 "
-                      f"{max(k_vs_p32.values()):.3e}", flush=True)
-                del p32
-            del got
-            _gate(fails, "B2", name, dtype, errs)
-            torch.cuda.empty_cache()
+                max_abs_f32 = max(max_abs_f32, err)
+            del got, args
+        fused_cases = [c + (2,) for c in B2_CASES] + B2_FUSED_EXTRA
+        for name, lanes, n, t, k, per_seq, ragged, mpl, d in fused_cases:
+            x, mask, pz1, trans, niw = fused_inputs(
+                1, lanes, n, t, k, d, device, dtype, per_seq, ragged, mpl)
+            got = fb_cuda.e_step_fused(x, mask, pz1, trans,
+                                       fb_plain.emission_constants(niw))
+            torch.cuda.synchronize()
+
+            def plain_fn(cast):
+                n64 = tree_map(cast, niw)
+                return fb_plain.forward_backward(
+                    cast(pz1), cast(trans),
+                    fb_plain.expected_log_gauss(cast(x), n64), mask)
+            err = _parity_fb(fails, f"fused {name} D={d}", dtype, got,
+                             lambda: plain_fn(_f64),
+                             lambda: plain_fn(lambda a: a))
+            if dtype == torch.float32:
+                max_abs_f32 = max(max_abs_f32, err)
+            del got, x, niw
     return max_abs_f32
 
 
@@ -597,9 +717,10 @@ def phase_vbem_path(fails: Failures, device, n_per_group=4096,
     lls = torch.stack([r.ll for r in results])
     fails.check(bool(torch.all(torch.isfinite(lls))),
                 f"VBEM path: all {n_subj} ELBOs finite")
-    fails.check(launches["B2"] >= iters > 0,
-                f"VBEM path launched B2 {launches['B2']} times for {iters} "
-                f"EM iterations")
+    fails.check(launches["B2_fused"] >= iters > 0,
+                f"VBEM path launched B2's fused E-step "
+                f"{launches['B2_fused']} times (entry 1: {launches['B2']}) "
+                f"for {iters} EM iterations")
     trans = torch.stack([r.model.trans for r in results])
     diag = torch.diagonal(trans, dim1=-2, dim2=-1).mean(-1).cpu().numpy()
     side = float(np.mean((diag > 0.5) == (labels == 0)))
@@ -842,63 +963,89 @@ def timing_b1(device, n=50) -> dict:
     return out
 
 
-def vbem_iteration(bank, post, hyps, fb_fn):
-    """One VBEM iteration with the forward-backward ``fb_fn``."""
-    x, mask = vbhmm._views(bank, post.alpha.shape[:-1])
-    log_rho = fb_plain.expected_log_gauss(x, post.niw)
-    fb = fb_fn(e_log_dirichlet(post.alpha), e_log_dirichlet(post.epsilon),
-               log_rho, mask)
-    stats = vbhmm.suff_stats(bank, fb)
-    ll = vbhmm.elbo(bank, post, fb, stats, hyps)
-    return vbhmm.m_step(stats, hyps), ll
+def plain_vbem_e_step(batch, post):
+    """The VBEM E-step's plain version (what the CPU path runs):
+    expected_log_gauss, then the plain forward-backward."""
+    x, mask = vbhmm._views(batch, post.alpha.shape[:-1])
+    return fb_plain.forward_backward(
+        e_log_dirichlet(post.alpha), e_log_dirichlet(post.epsilon),
+        fb_plain.expected_log_gauss(x, post.niw), mask)
+
+
+def entry1_vbem_e_step(batch, post):
+    """The VBEM E-step through B2's entry 1 (the path before the fused
+    entry): log_rho by expected_log_gauss in PyTorch, then
+    forward_backward_cuda."""
+    x, mask = vbhmm._views(batch, post.alpha.shape[:-1])
+    return fb_cuda.forward_backward_cuda(
+        e_log_dirichlet(post.alpha), e_log_dirichlet(post.epsilon),
+        fb_plain.expected_log_gauss(x, post.niw).contiguous(), mask)
 
 
 def timing_b2(device, vbem, n=10) -> dict:
     """B2 at the full-width launch (the VBEM path's own shape: every
-    subject x restart lane of the bank, its learned-from-random-start
-    posteriors): wrapper, kernel device time and plain; one VBEM
-    iteration with the kernel and with the plain version."""
+    subject x restart lane of the bank, random-start posteriors).  The
+    E-step three ways, in the order fused, entry 1, plain, plain, entry 1,
+    fused: ``vbhmm.e_step`` (the fused entry, emission constants
+    included), expected_log_gauss followed by entry 1, and the plain
+    version; each entry's device time; each entry's bound; one VBEM
+    iteration (``vbhmm._iteration``) with each of the three E-steps."""
     bank, hyps = vbem["bank"], vbem["hyps"]
     gen = torch.Generator(device=device).manual_seed(3)
     post = vbhmm.random_init(gen, bank, 2, hyps,
                              lanes=(VB_CONFIG.numtrials,))
     x, mask = vbhmm._views(bank, post.alpha.shape[:-1])
-    args = (e_log_dirichlet(post.alpha), e_log_dirichlet(post.epsilon),
-            fb_plain.expected_log_gauss(x, post.niw).contiguous(), mask)
-    fb_runs = interleaved({"kernel": lambda: fb_cuda.forward_backward_cuda(
-        *args), "plain": lambda: fb_plain.forward_backward(*args)}, n,
-        device, warmup=1)
-    dev_ms = device_ms(lambda: fb_cuda.forward_backward_cuda(*args),
-                       DEVICE_NAMES["B2"], 5)
+    pz1, trans = e_log_dirichlet(post.alpha), e_log_dirichlet(post.epsilon)
+    emis = fb_plain.emission_constants(post.niw)
+    log_rho = fb_plain.expected_log_gauss(x, post.niw).contiguous()
+    e_steps = {"kernel": vbhmm.e_step, "entry1": entry1_vbem_e_step,
+               "plain": plain_vbem_e_step}
+    es_runs = interleaved({w: (lambda f=f: f(bank, post))
+                           for w, f in e_steps.items()}, n, device, warmup=1)
+    dev_fused = device_ms(
+        lambda: fb_cuda.e_step_fused(x, mask, pz1, trans, emis),
+        DEVICE_NAMES["B2"], 5)
+    dev_entry1 = device_ms(
+        lambda: fb_cuda.forward_backward_cuda(pz1, trans, log_rho, mask),
+        DEVICE_NAMES["B2"], 5)
+    entry1_bound = b2_bound(pz1, trans, log_rho, mask)
+    del log_rho
 
-    def stepper(f):
+    def stepper(e_step):
         state = [post]
 
         def step():
-            state[0], _ = vbem_iteration(bank, state[0], hyps, f)
+            with rebound(vbhmm, "e_step", e_step):
+                state[0] = vbhmm._iteration(bank, state[0], hyps)[0]
         return step
-    it_runs = interleaved({"kernel": stepper(fb_cuda.forward_backward_auto),
-                           "plain": stepper(fb_plain.forward_backward)},
-                          3, device, warmup=1)
-    row = {"kernel_device_ms": dev_ms, **b2_bound(*args)}
-    for which in ("kernel", "plain"):
-        row[which] = {"fb_ms": float(np.mean(fb_runs[which])) * 1e3,
+    it_runs = interleaved({w: stepper(f) for w, f in e_steps.items()}, 3,
+                          device, warmup=1)
+    row = {"kernel_device_ms": dev_fused, "entry1_device_ms": dev_entry1,
+           **b2_fused_bound(x, mask, pz1, trans, emis),
+           "entry1_bound": entry1_bound}
+    for which in e_steps:
+        row[which] = {"estep_ms": float(np.mean(es_runs[which])) * 1e3,
                       "iter_ms": float(np.mean(it_runs[which])) * 1e3,
-                      "fb_ms_runs": [v * 1e3 for v in fb_runs[which]],
+                      "estep_ms_runs": [v * 1e3 for v in es_runs[which]],
                       "iter_ms_runs": [v * 1e3 for v in it_runs[which]]}
-    lanes = tuple(args[2].shape[:-3])
-    print(f"timing B2 [full width: {lanes} lanes x 25 sequences, T=50, "
-          f"K=2, f32] kernel device {dev_ms:.4f} ms; wrapper "
-          f"{row['kernel']['fb_ms']:.4f} ms (runs "
-          f"{row['kernel']['fb_ms_runs']}); plain {row['plain']['fb_ms']:.4f}"
-          f" ms (runs {row['plain']['fb_ms_runs']}); bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {row['bytes']:.4g} "
-          f"bytes, {row['sfu_ops']:.4g} SFU ops)", flush=True)
-    print(f"timing VBEM iteration [full width]: kernel "
-          f"{row['kernel']['iter_ms']:.4f} ms (runs "
-          f"{row['kernel']['iter_ms_runs']}), plain "
-          f"{row['plain']['iter_ms']:.4f} ms (runs "
-          f"{row['plain']['iter_ms_runs']})", flush=True)
+    lanes = tuple(post.alpha.shape[:-1])
+    shape = f"{lanes} lanes x 25 sequences, T=50, K=2, D=2, f32"
+    print(f"timing B2 fused E-step [full width: {shape}] kernel device "
+          f"{dev_fused:.4f} ms; bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}: {row['bytes']:.4g} bytes, "
+          f"{row['sfu_ops']:.4g} SFU ops)", flush=True)
+    print(f"timing B2 entry 1 [full width] kernel device {dev_entry1:.4f} "
+          f"ms; bound {entry1_bound['bound_ms']:.4f} ms "
+          f"({entry1_bound['bound_by']}: {entry1_bound['bytes']:.4g} "
+          f"bytes)", flush=True)
+    for which, what in (("kernel", "e_step (fused entry)"),
+                        ("entry1", "expected_log_gauss + entry 1"),
+                        ("plain", "plain")):
+        print(f"timing VBEM E-step [full width] {what}: "
+              f"{row[which]['estep_ms']:.4f} ms (runs "
+              f"{row[which]['estep_ms_runs']}); VBEM iteration "
+              f"{row[which]['iter_ms']:.4f} ms (runs "
+              f"{row[which]['iter_ms_runs']})", flush=True)
     return row
 
 
@@ -1042,20 +1189,28 @@ def main() -> int:
     lines = []
     for key, parity, path, timing, field in (
             ("B1", "parity B1", "VBHEM path", "timing B1", "estep_ms"),
-            ("B2", "parity B2", "VBEM path", "timing B2", "fb_ms"),
+            ("B2", "parity B2", "VBEM path", "timing B2", "estep_ms"),
             ("B3", "parity B3", "VHEM path", "timing B3", "bf_ms")):
         t = results.get(timing, {})
         if key == "B1":   # the kernels line reads the main-path cell
             t = t.get(TIMING_SHAPES[-1][0], {})
         wrapper_ms = t.get("kernel", {}).get(field)
         plain_ms = t.get("plain", {}).get(field)
-        launches = results.get(path, {}).get("launches", {}).get(key)
+        counts = results.get(path, {}).get("launches", {})
+        launches = counts.get(key)
+        if key == "B2" and launches is not None:   # both entries
+            launches += counts["B2_fused"]
         lines.append(dict(
             KERNELS[key], launches=launches,
             max_abs_err=results.get(parity), ms=t.get("kernel_device_ms"),
             wrapper_ms=wrapper_ms, plain_ms=plain_ms,
             bound_ms=t.get("bound_ms"), bound_by=t.get("bound_by"),
             library_ms=None))
+        if key == "B2":   # the main path runs the fused entry; entry 1 too
+            lines[-1].update(
+                entry1_ms=t.get("entry1_device_ms"),
+                entry1_bound_ms=t.get("entry1_bound", {}).get("bound_ms"),
+                entry1_wrapper_ms=t.get("entry1", {}).get("estep_ms"))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all",
           flush=True)
     if fails.items:

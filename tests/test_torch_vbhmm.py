@@ -92,6 +92,50 @@ def test_e_step_suff_stats_elbo(one_step):
                                float(p["ll"]), rtol=RTOL)
 
 
+def test_e_step_lanes_match_jax():
+    """The port's E-step (its CPU path: expected_log_gauss, then the plain
+    forward-backward) over lanes [S, L] of a ragged bank whose x is shared
+    by each subject's restarts, against the JAX package's e_step lane by
+    lane, in all four FBStats fields."""
+    subjects = [subject(seed=s, n_seqs=6, t=15, ragged=True) for s in (21, 22)]
+    bank = tc.SeqBatch(x=torch.stack([tb.x for tb, _ in subjects]),
+                       lengths=torch.stack([tb.lengths for tb, _ in subjects]))
+    jh = jv.VBHyps.from_config(JConfig(mu0=(1.5, 1.5), w0=1.0), 2)
+    keys = jax.random.split(jax.random.key(8), 6)
+    jposts = [[jv.random_init(keys[3 * s + j], subjects[s][1], 3, jh)
+               for j in range(3)] for s in range(2)]
+    post = tree_map(lambda *a: torch.stack(a),
+                    *[tree_map(lambda *b: torch.stack(b),
+                               *[to_port(p) for p in row]) for row in jposts])
+    assert post.alpha.shape == (2, 3, 3)
+    got = tv.e_step(bank, post)
+    assert got.log_rho.shape == (2, 3, 6, 15, 3)
+    for s in range(2):
+        for j in range(3):
+            want = jv.e_step(subjects[s][1], jposts[s][j])
+            close(tree_map(lambda a: a[s, j], got), want, rtol=1e-10,
+                  atol=1e-12)
+
+
+def test_em_loops_check_lengths_once():
+    """A sequence with no steps: the E-step does not check (no host sync
+    per iteration); vbem_em, em_trace and the float64 rescoring each
+    check the lengths once and raise."""
+    tb, _ = subject(seed=23, n_seqs=4, t=10)
+    empty = tc.SeqBatch(x=tb.x, lengths=torch.tensor([10, 0, 10, 10],
+                                                     dtype=torch.int32))
+    hyps = tv.VBHyps.from_config(VBConfig(mu0=(1.5, 1.5), w0=1.0), 2,
+                                 device="cpu")
+    post = tv.random_init(torch.Generator().manual_seed(0), tb, 2, hyps)
+    tv.e_step(empty, post)
+    for run in (lambda: tv.vbem_em(empty, post, hyps, max_iter=2),
+                lambda: tv.em_trace(empty, post, hyps, n_iter=2),
+                lambda: trescore.vbem_rescore_lanes(empty, post, hyps)):
+        with pytest.raises(ValueError, match="lengths >= 1"):
+            run()
+    assert tv.vbem_em(tb, post, hyps, max_iter=2).it == 2
+
+
 @pytest.mark.parametrize("covar_type", ["full", "diag"])
 def test_m_step(one_step, covar_type):
     p = one_step

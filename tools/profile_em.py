@@ -19,11 +19,13 @@ with Sb=Sr=3, D=2, tau=10 in float32, it
 
 VBEM: at the VBEM path of chip_smoke.py (``batch.learn_bank`` on 8192
 synthetic subjects x 20 restarts, 25 sequences of T=50, D=2, K=2, float32)
-it times the stages of one iteration (``expected_log_gauss``, the
-forward-backward with kernel B2, ``suff_stats``, ``elbo``, ``m_step``), the
-whole iteration and the float64 rescoring pass the same way, and reads a
-profiler window of ``max(iters // 4, 2)`` iterations for the device
-kernels, the busy share and B2's mean device time.
+it times the stages of one iteration (the emission constants, the
+expectations of pi and A, the E-step in kernel B2's fused entry, which
+forms the emission scores on chip, ``suff_stats``, ``elbo``, ``m_step``),
+the per-iteration lane freeze of ``vbem_em`` (its ``torch.where`` over
+gamma), the whole iteration and the float64 rescoring pass the same way,
+and reads a profiler window of ``max(iters // 4, 2)`` iterations for the
+device kernels, the busy share and B2's mean device time.
 
 VHEM: at the largest launch of chip_smoke.py's VHEM path (20 restart
 lanes of Kr=3, Sr=3 on a Kb=8192 bank of 2-state HMMs, D=2, tau=10,
@@ -70,7 +72,7 @@ SHAPES = [
     ("main-path cell Kb=8192 L=8 Kr=3 Sb=Sr=3 D=2 tau=10", 8192, 8, 3, 3),
 ]
 KERNEL_NAME = "pair_estep_fused_kernel"
-FB_KERNEL_NAME = "fb_kernel"
+FB_KERNEL_NAME = "fb_resident_kernel"
 BF_KERNEL_NAME = "pair_bwd_fwd_kernel"
 
 
@@ -146,23 +148,26 @@ def profile_vbem(n, iters, trace_dir: Path, n_per_group=4096, trials=20):
     gen = torch.Generator(device=device).manual_seed(0)
     post = vbhmm.random_init(gen, bank, 2, hyps, lanes=(trials,))
     x, mask = vbhmm._views(bank, post.alpha.shape[:-1])
-    log_rho = fb_plain.expected_log_gauss(x, post.niw)
+    emis = fb_plain.emission_constants(post.niw)
     log_pz1 = e_log_dirichlet(post.alpha)
     log_trans = e_log_dirichlet(post.epsilon)
-    fb = fb_cuda.forward_backward_auto(log_pz1, log_trans, log_rho, mask)
+    fb = fb_cuda.e_step_fused(x, mask, log_pz1, log_trans, emis)
     stats = vbhmm.suff_stats(bank, fb)
+    active = torch.ones(post.alpha.shape[:-1], dtype=torch.bool,
+                        device=device)
     n_small = max(n // 10, 3)
     stages = {
-        "expected_log_gauss": lambda: fb_plain.expected_log_gauss(
-            x, post.niw),
+        "emission_constants": lambda: fb_plain.emission_constants(post.niw),
         "e_log_dirichlet (pi, A)": lambda: (e_log_dirichlet(post.alpha),
                                             e_log_dirichlet(post.epsilon)),
-        "forward_backward_auto (B2 wrapper + kernel)":
-            lambda: fb_cuda.forward_backward_auto(log_pz1, log_trans,
-                                                  log_rho, mask),
+        "e_step_fused (B2 fused entry: wrapper + kernel)":
+            lambda: fb_cuda.e_step_fused(x, mask, log_pz1, log_trans, emis),
         "suff_stats": lambda: vbhmm.suff_stats(bank, fb),
         "elbo": lambda: vbhmm.elbo(bank, post, fb, stats, hyps),
         "m_step": lambda: vbhmm.m_step(stats, hyps),
+        "lane freeze (vbem_em's torch.where over gamma)":
+            lambda: torch.where(active[..., None, None, None], fb.gamma,
+                                fb.gamma),
         "em_iteration": lambda: vbhmm._iteration(bank, post, hyps),
         "f64 rescoring (vbem_rescore_lanes)":
             lambda: rescore.vbem_rescore_lanes(bank, post, hyps),

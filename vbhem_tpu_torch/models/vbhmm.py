@@ -8,9 +8,10 @@ subjects), the posterior here carries explicit leading lane axes
 lanes: one subject's ``SeqBatch`` (x [N, T, D]) serves lanes [L], and a
 stacked bank (x [S, N, T, D]) serves lanes [S, L].  :func:`vbem_em` runs
 every lane together with a per-lane ``done`` mask and freezes a lane once
-it is done, as ``jax.vmap`` of ``lax.while_loop`` does.  The E-step's
-forward-backward is kernel B2 (``ops/fb_cuda.py``) on the card and its
-plain PyTorch version on the CPU.
+it is done, as ``jax.vmap`` of ``lax.while_loop`` does.  The E-step
+(expected log emissions and the forward-backward) is kernel B2
+(``ops/fb_cuda.py``) on the card, its fused entry where the shape allows,
+and its plain PyTorch version on the CPU.
 
 Randomness comes from an explicit ``torch.Generator``; its draws differ
 from ``jax.random``'s, so restarts are comparable only in distribution.
@@ -27,8 +28,8 @@ from ..config import VBConfig
 from ..containers import (HMMPosterior, NIW, SeqBatch, VBHMMResult,
                           resolve_device, tree_map)
 from ..hyp import unique_ll
-from ..ops.fb import FBStats, expected_log_gauss
-from ..ops.fb_cuda import forward_backward_auto
+from ..ops.fb import FBStats
+from ..ops.fb_cuda import e_step_auto
 from ..ops.gmm import GMM, fit_gmm, fit_gmm_split
 from ..utils.numeric import (e_log_det_lambda, e_log_dirichlet, inv_psd,
                              lane_contract, log_dirichlet_const,
@@ -92,16 +93,24 @@ def _views(batch: SeqBatch, lanes) -> tuple:
 # E-step, statistics, M-step, bound
 # ---------------------------------------------------------------------------
 
+def check_lengths(batch: SeqBatch):
+    """Raise unless every sequence has at least one step: the E-step's
+    recursion starts at step 0 and does not check it itself.  One host
+    sync; the EM loops call it once, not once per E-step."""
+    if not bool(torch.all(batch.lengths >= 1)):
+        raise ValueError("every sequence must have at least one step "
+                         "(lengths >= 1): an empty sequence has no forward "
+                         "recursion")
+
+
 def e_step(batch: SeqBatch, post: HMMPosterior) -> FBStats:
     """Expected log emissions and the scaled forward-backward of every
-    lane (`vbhmm_fb.m`): kernel B2 on the card, the plain version on the
-    CPU."""
+    lane (`vbhmm_fb.m`): kernel B2 on the card (its fused entry where the
+    shape allows), the plain version on the CPU.  Every sequence must have
+    a step (see :func:`check_lengths`)."""
     x, mask = _views(batch, post.alpha.shape[:-1])
-    log_rho = expected_log_gauss(x, post.niw)
-    log_pz1 = e_log_dirichlet(post.alpha)
-    log_trans = e_log_dirichlet(post.epsilon)
-    return forward_backward_auto(log_pz1, log_trans, log_rho.contiguous(),
-                                 mask)
+    return e_step_auto(x, mask, e_log_dirichlet(post.alpha),
+                       e_log_dirichlet(post.epsilon), post.niw)
 
 
 def suff_stats(batch: SeqBatch, fb: FBStats) -> SuffStats:
@@ -265,6 +274,7 @@ def vbem_em(batch: SeqBatch, init_post: HMMPosterior, hyps: VBHyps,
     A lane is done once it converged, went unstable or reached
     ``max_iter``; from then on it is frozen, as under ``jax.vmap`` of
     ``lax.while_loop``."""
+    check_lengths(batch)
     dtype = batch.x.dtype
     dev = batch.x.device
     lanes = init_post.alpha.shape[:-1]
@@ -299,6 +309,7 @@ def em_trace(batch: SeqBatch, init_post: HMMPosterior, hyps: VBHyps,
              n_iter: int = 50):
     """Run exactly ``n_iter`` VBEM iterations recording the ELBO of each
     (`vbhmm_em.m:287-301`).  Returns (final posterior, ll [n_iter, ...])."""
+    check_lengths(batch)
     post, lls = init_post, []
     for _ in range(n_iter):
         post, ll, _, _ = _iteration(batch, post, hyps)

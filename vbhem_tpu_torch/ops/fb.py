@@ -2,11 +2,13 @@
 PyTorch version, the counterpart of :mod:`vbhem_tpu.ops.fb`.
 
 This is the path for CPU tensors and the oracle of the hand-written CUDA
-kernel ``csrc/fb.cu`` (see :mod:`.fb_cuda`).  It keeps the reference's
-numerical conventions (`vbhmm_fb.m:289-377`): emissions rescaled per step
-by ``max_k log_rho``, the forward pass renormalized by ``c_t``, a padded
-step carrying alpha through with c = 1, and beta reset to ones before a
-padded successor.
+kernel ``csrc/fb.cuh`` (see :mod:`.fb_cuda`): of its first entry
+:func:`forward_backward`, and of its fused E-step
+:func:`expected_log_gauss` followed by :func:`forward_backward`.  It
+keeps the reference's numerical conventions (`vbhmm_fb.m:289-377`):
+emissions rescaled per step by ``max_k log_rho``, the forward pass
+renormalized by ``c_t``, a padded step carrying alpha through with c = 1,
+and beta reset to ones before a padded successor.
 
 Every function accepts leading lane axes (subjects x restarts):
 ``log_rho [..., N, T, K]`` with a mask ``[..., N, T]`` that broadcasts
@@ -48,6 +50,20 @@ def expected_log_gauss(x: torch.Tensor, niw: NIW) -> torch.Tensor:
     log_lam = e_log_det_lambda(niw.v, niw.w)                 # [..., K]
     cd = 0.5 * d * math.log(2.0 * math.pi)
     return 0.5 * log_lam[..., None, None, :] - 0.5 * delta - cd
+
+
+def emission_constants(niw: NIW) -> torch.Tensor:
+    """The per-state constants of :func:`expected_log_gauss` that the fused
+    E-step of kernel B2 reads: [..., K, 1 + D + D*D] holding, per state,
+    c_k = 0.5 E[log|Lambda_k|] - 0.5 D / beta_k - (D/2) log(2 pi), m_k and
+    P_k = v_k W_k (row-major), so that
+
+        log_rho_k(x) = c_k - 0.5 (x - m_k)^T P_k (x - m_k)."""
+    d = niw.m.shape[-1]
+    c = (0.5 * e_log_det_lambda(niw.v, niw.w) - 0.5 * d / niw.beta
+         - 0.5 * d * math.log(2.0 * math.pi))
+    p = niw.v[..., None, None] * niw.w
+    return torch.cat([c[..., None], niw.m, p.flatten(-2)], dim=-1)
 
 
 def _scores(log_pz1: torch.Tensor, log_trans: torch.Tensor, log_rho_dim: int):
