@@ -15,12 +15,17 @@ Phases (any failure exits non-zero and prints no result line):
      forward-backward (both of its entries: the forward-backward of given
      log_rho, in the resident and the streamed design, and the fused
      E-step that forms log_rho from x in the kernel), B3 the VHEM / DIC
-     pair recursion;
+     pair recursion; B1 and B3 in each of their designs (the recursion's
+     state resident or checkpointed in shared memory, or in a
+     device-memory scratch), at shapes that pick each and with each
+     forced at the main paths' shapes, and on inputs that fire the
+     recursion's underflow guard (masked reduced states, -inf log_a);
   3. VBHEM path: ``vbhem.cluster`` over (K, S) in {1,2,3} x {2,3} on a
      planted bank of 8192 base HMMs with 8 restart trials per cell; the
-     ELBOs must be finite, every EM iteration must have launched B1, and
-     the (K=2, S=2) labels must recover the planted groups (Rand index
-     1.0); plus a 50-iteration ``em_trace`` whose ELBO must not decrease;
+     ELBOs must be finite, every EM iteration must have launched B1, in an
+     on-chip design, and the (K=2, S=2) labels must recover the planted
+     groups (Rand index 1.0); plus a 50-iteration ``em_trace`` whose ELBO
+     must not decrease;
   4. VBEM path: ``batch.learn_bank`` on the synthetic protocol's data at
      8192 subjects (25 sequences of T=50, D=2), K=2, 20 restarts: every
      ELBO finite, B2's fused E-step launched on every EM iteration, the
@@ -45,7 +50,8 @@ Phases (any failure exits non-zero and prints no result line):
      its own inputs, with phase 2's tolerances; both tables and
      selections printed;
   8. timing (informational): each kernel's device time, its wrapper's
-     time and its plain version's time at its main-path shape, and one EM
+     time and its plain version's time at its main-path shape (B1 also at
+     the bench shape and the pipeline's largest launch), and one EM
      iteration of each engine (VBHEM, VBEM, VHEM) with the kernel and
      with the plain version (the engine's own iteration, its kernel
      wrapper rebound to the plain version for the plain runs); for B2
@@ -53,8 +59,8 @@ Phases (any failure exits non-zero and prints no result line):
      followed by entry 1.
 
 B3 is checked in phase 2 like B1 and B2.  Each of phases 3-7 sets every
-kernel's launch count to 0 just before it runs its path and reads the
-counts just after.  Prints a JSON line
+kernel's launch count (B1's and B3's also by design) to 0 just before it
+runs its path and reads the counts just after.  Prints a JSON line
 describing each kernel, the ``nvidia-smi`` name and power-limit line, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, before any
 result, when no CUDA device is available.  Imports neither JAX nor the
@@ -156,20 +162,46 @@ def rebound(module, name, fn):
 def reset_counts():
     for mod, attr in COUNTERS.values():
         setattr(mod, attr, 0)
+    for per in pair_estep_cuda.DESIGN_LAUNCHES.values():
+        for kind in per:
+            per[kind] = 0
 
 
 def read_counts() -> dict:
-    return {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
+    """Every counter; B1's and B3's launches by design as 'B1_resident'
+    and so on."""
+    counts = {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
+    for kernel, per in pair_estep_cuda.DESIGN_LAUNCHES.items():
+        for kind, n in per.items():
+            counts[f"{kernel}_{kind}"] = n
+    return counts
+
+
+def check_on_chip(fails, what, launches, kernel):
+    """Every launch of ``kernel`` in ``launches`` kept the recursion's
+    state on chip (resident or checkpointed): none took the scratch."""
+    on_chip = (launches[f"{kernel}_resident"]
+               + launches[f"{kernel}_checkpointed"])
+    fails.check(on_chip == launches[kernel] > 0
+                and launches[f"{kernel}_scratch"] == 0,
+                f"{what}: {kernel}'s {launches[kernel]} launches all on "
+                f"chip (resident {launches[f'{kernel}_resident']}, "
+                f"checkpointed {launches[f'{kernel}_checkpointed']}, "
+                f"scratch {launches[f'{kernel}_scratch']})")
 
 
 # ---------------------------------------------------------------------------
 # bounds: the least time the card could take for a kernel's work
 # ---------------------------------------------------------------------------
 
+def sm_count() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def bound(n_bytes: float, n_sfu: float, n_flop: float) -> dict:
     """The larger of the bytes time and the operations time (special
     functions on the SFUs, the rest at the float32 rate)."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = sm_count()
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = max(n_sfu / (sms * SFU_PER_SM_PER_CLOCK * BOOST_HZ),
                 n_flop / F32_FLOP_PER_S)
@@ -178,42 +210,69 @@ def bound(n_bytes: float, n_sfu: float, n_flop: float) -> dict:
             "bytes": n_bytes, "sfu_ops": n_sfu, "flops": n_flop}
 
 
+def pair_sfu(pairs, sb, sr, tau) -> int:
+    """The special functions the pair recursion needs: per backward step
+    Sb*Sr exp (w = exp(ell + carry - max), after which the log-sum-exps
+    over the reduced state are sums of A w with A = exp(log_a) formed once
+    per reduced model) and Sr*Sb log; the termination Sb*Sr exp and Sb
+    log; none in the forward pass, whose Theta = A w / S needs only the
+    stored w and sums."""
+    return pairs * ((tau - 1) * 2 * sb * sr + sb * (sr + 1))
+
+
+def pair_sfu_before(pairs, sb, sr, tau) -> int:
+    """The earlier count: Sr*Sb*Sr exp and Sr*Sb log per backward step,
+    Sb*(2 Sr + 1) for the termination; printed beside the recount."""
+    return pairs * ((tau - 1) * (sr * sr * sb + sr * sb) + sb * (2 * sr + 1))
+
+
+def _with_count_before(b, n_bytes, pairs, sb, sr, tau, flop) -> dict:
+    before = bound(n_bytes, pair_sfu_before(pairs, sb, sr, tau), flop)
+    return {**b, "bound_ms_before": before["bound_ms"],
+            "sfu_ops_before": before["sfu_ops"]}
+
+
 def b1_bound(kb, lkr, sb, sr, d, tau, itemsize) -> dict:
-    """B1 per (base, reduced) pair, counting what the function needs:
-    per backward step Sr*Sb*Sr exp (each gives one Theta entry up to a
-    per-(r', b) factor, so the forward pass needs no more) and Sr*Sb log;
-    the termination Sb*(2 Sr) exp and Sb log.  The kernel's forward pass
-    rebuilds Theta with another Sr*Sb*Sr exp per step instead of storing
-    it; that work, and the carry scratch it reads back (``scratch_bytes``,
-    written and read once), are the kernel's choice and not counted.
-    Bytes: the base bank and the reduced models read once, the four
-    outputs written once."""
+    """B1 per (base, reduced) pair, counting what the function needs: the
+    special functions of :func:`pair_sfu` and the recursion's and E3logN's
+    flops.  Bytes: the base bank and the reduced models read once, the
+    four outputs written once; the per-step state is the kernel's choice
+    and not counted."""
     pairs = kb * lkr
-    sfu = pairs * ((tau - 1) * (sr * sr * sb + sr * sb) + sb * (2 * sr + 1))
     flop = pairs * ((tau - 1) * (5 * sr * sr * sb + 4 * sr * sb * sb)
                     + sb * sr * (4 * d * d + 4))
     n_bytes = itemsize * (kb * (sb + sb * sb + sb * d + sb * d * d)
                           + lkr * sr * (sr + d + d * d + 4)
                           + pairs * (1 + sr + sr * sr + sr * sb))
-    return {**bound(n_bytes, sfu, flop),
-            "scratch_bytes": 2 * itemsize * (tau - 1) * sb * sr * pairs}
+    return _with_count_before(
+        bound(n_bytes, pair_sfu(pairs, sb, sr, tau), flop), n_bytes, pairs,
+        sb, sr, tau, flop)
 
 
 def b3_bound(kb, lkr, sb, sr, tau, itemsize) -> dict:
     """B3 per (base, reduced) pair: B1's special functions and recursion
     flops (no E3logN).  Bytes: ell [L*Kr, Sb, Sr, Kb] read once, the base
     prior and transitions and the reduced log_pi and log_a read once, the
-    four outputs written once.  The carry scratch, as for B1, is the
-    kernel's choice and not counted."""
+    four outputs written once."""
     pairs = kb * lkr
-    sfu = pairs * ((tau - 1) * (sr * sr * sb + sr * sb) + sb * (2 * sr + 1))
     flop = pairs * (tau - 1) * (5 * sr * sr * sb + 4 * sr * sb * sb)
     n_bytes = itemsize * (kb * (sb + sb * sb) + lkr * sr * (1 + sr)
                           + pairs * sb * sr
                           + pairs * (1 + sr + sr * sr + sr * sb))
-    return {**bound(n_bytes, sfu, flop),
-            "ell_bytes": itemsize * pairs * sb * sr,
-            "scratch_bytes": 2 * itemsize * (tau - 1) * sb * sr * pairs}
+    return {**_with_count_before(
+        bound(n_bytes, pair_sfu(pairs, sb, sr, tau), flop), n_bytes, pairs,
+        sb, sr, tau, flop), "ell_bytes": itemsize * pairs * sb * sr}
+
+
+def design_note(des, pairs, sb, sr, tau, itemsize) -> str:
+    """The design a launch takes, and the scratch it allocates (only the
+    scratch design has one)."""
+    note = f"design {des.kind} ({des.threads} threads, segment {des.seg}, " \
+           f"{des.smem_bytes} B of shared memory a block)"
+    if des.kind == "scratch":
+        note += (f"; its scratch {itemsize * (tau - 1) * sb * sr * pairs:.4g}"
+                 f" bytes, written and read once")
+    return note
 
 
 def mask_bytes(m8) -> int:
@@ -281,24 +340,30 @@ def _time(fn, n, device) -> float:
     return start.elapsed_time(end) / 1e3 / n
 
 
-def device_ms(fn, kernel_name, n) -> float:
+def device_ms(fn, kernel_name, n, attempts=3) -> float:
     """Mean device time (ms) of the kernels named ``kernel_name`` over
-    ``n`` calls of ``fn``, read from a torch.profiler trace."""
+    ``n`` calls of ``fn``, read from a torch.profiler trace; a trace that
+    holds none of them (the profiler drops a window now and then) is taken
+    again, up to ``attempts`` times."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(trace))
-        events = json.loads(trace.read_text())["traceEvents"]
-    durs = [float(e["dur"]) for e in events
-            if e.get("cat") == "kernel" and kernel_name in e.get("name", "")]
-    return float(np.mean(durs)) / 1e3 if durs else float("nan")
+    for _ in range(attempts):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(trace))
+            events = json.loads(trace.read_text())["traceEvents"]
+        durs = [float(e["dur"]) for e in events
+                if e.get("cat") == "kernel"
+                and kernel_name in e.get("name", "")]
+        if durs:
+            return float(np.mean(durs)) / 1e3
+    return float("nan")
 
 
 def interleaved(fns: dict, n, device, warmup=2) -> dict:
@@ -338,23 +403,77 @@ def plain_e_step(base, post, exps, tau):
 
 
 B1_CASES = [
-    # name, kb, kr, sb, sr, d, tau, lanes, ragged
-    ("kb256_tau10", 256, 4, 3, 3, 2, 10, 1, False),
-    ("tau1", 256, 4, 3, 3, 2, 1, 1, False),
-    ("sb2_sr2_tau1", 256, 4, 2, 2, 2, 1, 1, False),
-    ("ragged_sb", 256, 4, 3, 3, 2, 10, 1, True),
-    ("d3", 256, 4, 3, 3, 3, 10, 1, False),
-    ("sr1", 256, 4, 3, 1, 2, 10, 1, False),
-    ("sr2", 256, 4, 3, 2, 2, 10, 1, False),
-    ("lanes3", 256, 4, 3, 3, 2, 10, 3, False),
-    ("bench_shape", 8192, 8, 3, 3, 2, 10, 1, False),
+    # name, kb, kr, sb, sr, d, tau, lanes, ragged, masking, forced design
+    ("kb256_tau10", 256, 4, 3, 3, 2, 10, 1, False, None, None),
+    ("tau1", 256, 4, 3, 3, 2, 1, 1, False, None, None),
+    ("sb2_sr2_tau1", 256, 4, 2, 2, 2, 1, 1, False, None, None),
+    ("ragged_sb", 256, 4, 3, 3, 2, 10, 1, True, None, None),
+    ("d3", 256, 4, 3, 3, 3, 10, 1, False, None, None),
+    ("sr1", 256, 4, 3, 1, 2, 10, 1, False, None, None),
+    ("sr2", 256, 4, 3, 2, 2, 10, 1, False, None, None),
+    ("lanes3", 256, 4, 3, 3, 2, 10, 3, False, None, None),
+    # the underflow guard: a reduced state masked as the masked grid
+    # masks it (-1e30), its E3logN 1000 nats above the others'
+    ("masked_state_ragged", 256, 4, 3, 3, 2, 10, 1, True, "state", None),
+    ("masked_column_tau50", 256, 4, 2, 2, 2, 50, 1, False, "column", None),
+    ("masked_state_checkpointed", 256, 4, 3, 3, 2, 50, 1, True, "state",
+     "checkpointed"),
+    ("masked_state_scratch", 256, 4, 3, 3, 2, 10, 1, True, "state",
+     "scratch"),
+    # past the resident design: shapes that pick the checkpointed design
+    # and the scratch (the generic body, Sb = Sr = 8)
+    ("tau200", 8192, 2, 2, 2, 2, 200, 2, False, None, None),
+    ("s8_tau200", 256, 2, 8, 8, 2, 200, 1, False, None, None),
+    ("bench_shape", 8192, 8, 3, 3, 2, 10, 1, False, None, None),
     # the launches of phase 3's largest cells: 8 restart lanes of Kr=3
-    ("main_cell", 8192, 3, 3, 3, 2, 10, 8, False),
-    ("main_cell_sr2", 8192, 3, 3, 2, 2, 10, 8, False),
+    ("main_cell", 8192, 3, 3, 3, 2, 10, 8, False, None, None),
+    ("main_cell_sr2", 8192, 3, 3, 2, 2, 10, 8, False, None, None),
+    ("main_cell_checkpointed", 8192, 3, 3, 3, 2, 10, 8, False, None,
+     "checkpointed"),
+    ("main_cell_scratch", 8192, 3, 3, 3, 2, 10, 8, False, None, "scratch"),
     # the launches of phase 5: a learned bank of 2-state HMMs, tau=50
-    ("pipeline_cell", 8192, 3, 2, 2, 2, 50, 8, False),
-    ("pipeline_cell_64", 8192, 2, 2, 2, 2, 50, 64, False),
+    ("pipeline_cell", 8192, 3, 2, 2, 2, 50, 8, False, None, None),
+    ("pipeline_cell_64", 8192, 2, 2, 2, 2, 50, 64, False, None, None),
+    ("pipeline_cell_64_resident", 8192, 2, 2, 2, 2, 50, 64, False, None,
+     "resident"),
+    ("pipeline_cell_64_checkpointed", 8192, 2, 2, 2, 2, 50, 64, False, None,
+     "checkpointed"),
+    ("pipeline_cell_64_scratch", 8192, 2, 2, 2, 2, 50, 64, False, None,
+     "scratch"),
 ]
+
+
+def masked(args, what):
+    """B1's arguments with reduced state Sr-1 masked: log_pi and its
+    log_a column (with what='state' also its row) -1e30, and its E3logN
+    raised by 1000 nats (E log|Lambda| by 2000), so that the argmax of
+    ell + carry sits where exp(log_a) is 0: the case the recursion's
+    underflow guard takes to the log domain."""
+    args = [a.clone() for a in args]
+    log_pi, log_a, log_lam = args[4], args[5], args[10]
+    log_pi[..., -1] = -1e30
+    log_a[..., :, -1] = -1e30
+    if what == "state":
+        log_a[..., -1, :] = -1e30
+    log_lam[..., -1] += 2000.0
+    return tuple(args)
+
+
+def forced_design(kind, sb, sr, tau, dtype):
+    """None (the wrapper's choice) or design ``kind`` at this shape."""
+    if kind is None:
+        return None
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return pair_estep_cuda.design_of(kind, sb, sr, tau, itemsize)
+
+
+def design_name(des, sb, sr, tau, dtype, pairs) -> str:
+    """The design a launch takes: ``des`` or the wrapper's choice."""
+    if des is None:
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        des = pair_estep_cuda.design(sb, sr, tau, itemsize, pairs,
+                                     sm_count())
+    return f"{des.kind} t={des.threads} seg={des.seg}"
 
 
 def _plain_pair(args, tau):
@@ -394,7 +513,8 @@ def phase_parity_b1(fails: Failures, device) -> float:
     error."""
     max_abs_f32 = 0.0
     for dtype in (torch.float32, torch.float64):
-        for name, kb, kr, sb, sr, d, tau, lanes, ragged in B1_CASES:
+        for (name, kb, kr, sb, sr, d, tau, lanes, ragged, masking,
+             kind) in B1_CASES:
             rng = np.random.default_rng(7)
             base = random_bank(rng, kb, sb, d, device, dtype, ragged)
             cfg = VBHEMConfig(m0=(0.0,) * d, w0=1.0, nv=100, tau=tau)
@@ -402,7 +522,13 @@ def phase_parity_b1(fails: Failures, device) -> float:
             gen = torch.Generator(device="cpu").manual_seed(11)
             post = random_posts(gen, base, hyps, lanes, kr, sr, cfg.nv)
             args = kernel_args(base, post)
-            got = pair_estep_cuda.pair_bwd_fwd_fused_cuda(*args, tau)
+            if masking:
+                args = masked(args, masking)
+            des = forced_design(kind, sb, sr, tau, dtype)
+            pairs = kb * lanes * kr
+            name += f" [{design_name(des, sb, sr, tau, dtype, pairs)}]"
+            got = pair_estep_cuda.pair_bwd_fwd_fused_cuda(*args, tau,
+                                                          des=des)
             want = _plain_pair(tuple(a.double() for a in args), tau)
             torch.cuda.synchronize()
             errs, max_abs = _errors(got, want)
@@ -570,28 +696,49 @@ def phase_parity_b2(fails: Failures, device) -> float:
 
 VHEM_FULL = (20, 8192, 3, 2, 3, 10)   # lanes, Kb, Kr, Sb, Sr, tau
 B3_CASES = [
-    # name, lanes, kb, kr, sb, sr, tau, ragged, zero transitions
-    ("tau1", 1, 256, 3, 2, 3, 1, False, False),
-    ("tau2", 1, 256, 3, 2, 3, 2, False, False),
-    ("tau10", 1, 256, 3, 2, 3, 10, False, False),
-    ("tau50", 1, 256, 3, 2, 3, 50, False, False),
-    ("ragged_sb", 1, 256, 3, 3, 3, 10, True, False),
-    ("sr1", 1, 256, 3, 2, 1, 10, False, False),
-    ("sr2", 1, 256, 3, 2, 2, 10, False, False),
-    ("log_a_neg_inf", 1, 256, 3, 2, 3, 10, False, True),
-    ("lanes3", 3, 256, 3, 2, 3, 10, False, False),
-    ("vhem_full_width", *VHEM_FULL, False, False),
+    # name, lanes, kb, kr, sb, sr, tau, ragged, inputs, forced design
+    ("tau1", 1, 256, 3, 2, 3, 1, False, None, None),
+    ("tau2", 1, 256, 3, 2, 3, 2, False, None, None),
+    ("tau10", 1, 256, 3, 2, 3, 10, False, None, None),
+    ("tau50", 1, 256, 3, 2, 3, 50, False, None, None),
+    ("ragged_sb", 1, 256, 3, 3, 3, 10, True, None, None),
+    ("sr1", 1, 256, 3, 2, 1, 10, False, None, None),
+    ("sr2", 1, 256, 3, 2, 2, 10, False, None, None),
+    ("log_a_neg_inf", 1, 256, 3, 2, 3, 10, False, "zeros", None),
+    ("lanes3", 3, 256, 3, 2, 3, 10, False, None, None),
+    # the underflow guard: -inf log_a or a -1e30 masked state where the
+    # argmax of ell + carry sits, 1000 nats above the rest
+    ("log_a_neg_inf_spread", 1, 256, 3, 2, 3, 10, False, "zeros_spread",
+     None),
+    ("log_a_neg_inf_spread_tau50", 1, 256, 3, 2, 3, 50, False,
+     "zeros_spread", "checkpointed"),
+    ("masked_state_ragged", 1, 256, 3, 3, 3, 10, True, "masked", None),
+    ("masked_state_scratch", 1, 256, 3, 3, 3, 10, True, "masked",
+     "scratch"),
+    # past the resident design: the checkpointed design and the scratch
+    # (the generic body, Sb = Sr = 8)
+    ("tau200", 2, 8192, 2, 2, 2, 200, False, None, None),
+    ("s8_tau200", 1, 256, 2, 8, 8, 200, False, None, None),
+    ("vhem_full_width", *VHEM_FULL, False, None, None),
+    ("vhem_full_width_checkpointed", *VHEM_FULL, False, None,
+     "checkpointed"),
+    ("vhem_full_width_scratch", *VHEM_FULL, False, None, "scratch"),
     # phase 7's launch: the (2, 2) instantiation at tau=50
-    ("dic_cell", 1, 8192, 3, 2, 2, 50, False, False),
+    ("dic_cell", 1, 8192, 3, 2, 2, 50, False, None, None),
+    ("dic_cell_resident", 1, 8192, 3, 2, 2, 50, False, None, "resident"),
+    ("dic_cell_scratch", 1, 8192, 3, 2, 2, 50, False, None, "scratch"),
 ]
 
 
 def b3_inputs(seed, lanes, kb, kr, sb, sr, device, dtype, ragged=False,
-              zeros=False):
+              kind=None):
     """B3's arguments as the VHEM E-step forms them: a random bank, a
     random point-estimate reduced bank per lane, the point E3logN, and
-    the logs of the reduced prior and transitions.  With ``zeros`` some
-    transitions are exactly 0, so log_a holds -inf entries."""
+    the logs of the reduced prior and transitions.  ``kind`` 'zeros':
+    some transitions are exactly 0, so log_a holds -inf entries (into
+    column Sr-1); 'zeros_spread': also state Sr-1's E3logN 1000 nats above
+    the others'; 'masked': state Sr-1 masked (log_pi and its log_a row and
+    column -1e30) and its E3logN 1000 nats above the others'."""
     rng = np.random.default_rng(seed)
     base = random_bank(rng, kb, sb, 2, device, dtype, ragged)
 
@@ -605,12 +752,18 @@ def b3_inputs(seed, lanes, kb, kr, sb, sr, device, dtype, ragged=False,
                                        t(rng.normal(size=shp + (2,)) * 3.0),
                                        cov_r)
     trans = rng.dirichlet(np.ones(sr), shp)
-    if zeros and sr > 1:
+    if kind in ("zeros", "zeros_spread") and sr > 1:
         trans[..., 0, -1] = 0.0
         trans = trans / trans.sum(-1, keepdims=True)
-    return (base.hmm.prior, base.hmm.trans,
-            torch.log(t(rng.dirichlet(np.ones(sr), shp[:-1]))),
-            torch.log(t(trans)), ell)
+    log_pi = torch.log(t(rng.dirichlet(np.ones(sr), shp[:-1])))
+    log_a = torch.log(t(trans))
+    if kind in ("zeros_spread", "masked"):
+        ell[..., -1] += 1000.0
+    if kind == "masked":
+        log_pi[..., -1] = -1e30
+        log_a[..., :, -1] = -1e30
+        log_a[..., -1, :] = -1e30
+    return base.hmm.prior, base.hmm.trans, log_pi, log_a, ell
 
 
 def phase_parity_b3(fails: Failures, device) -> float:
@@ -618,10 +771,14 @@ def phase_parity_b3(fails: Failures, device) -> float:
     for B1; returns the largest absolute float32 error seen."""
     max_abs_f32 = 0.0
     for dtype in (torch.float32, torch.float64):
-        for name, lanes, kb, kr, sb, sr, tau, ragged, zeros in B3_CASES:
+        for (name, lanes, kb, kr, sb, sr, tau, ragged, inputs,
+             kind) in B3_CASES:
             args = b3_inputs(5, lanes, kb, kr, sb, sr, device, dtype, ragged,
-                             zeros)
-            got = pair_estep_cuda.pair_bwd_fwd_cuda(*args, tau)
+                             inputs)
+            des = forced_design(kind, sb, sr, tau, dtype)
+            pairs = kb * lanes * kr
+            name += f" [{design_name(des, sb, sr, tau, dtype, pairs)}]"
+            got = pair_estep_cuda.pair_bwd_fwd_cuda(*args, tau, des=des)
             torch.cuda.synchronize()
             want = plain.pair_bwd_fwd(*[a.double() for a in args], tau)
             errs, max_abs = _errors(got, want)
@@ -666,6 +823,7 @@ def phase_vbhem_path(fails: Failures, device, kb=8192, trials=8,
     fails.check(launches["B1"] >= iters > 0,
                 f"VBHEM path launched B1 {launches['B1']} times for "
                 f"{iters} EM iterations")
+    check_on_chip(fails, "VBHEM path", launches, "B1")
     r22 = info["model_all"][(2, 2)]
     ri = rand_index(r22.label.cpu().numpy(), labels)
     fails.check(ri == 1.0, f"(K=2, S=2) labels vs planted groups: "
@@ -781,6 +939,7 @@ def phase_pipeline(fails: Failures, device, vbem) -> dict:
     fails.check(launches["B1"] >= iters > 0,
                 f"pipeline launched B1 {launches['B1']} times for {iters} "
                 f"EM iterations")
+    check_on_chip(fails, "pipeline", launches, "B1")
     fails.check(bool(np.all(np.isfinite(info["model_ll"]))),
                 "pipeline ELBOs finite")
     ri = rand_index(info["model_all"][(2, 2)].label.cpu().numpy(), labels)
@@ -834,6 +993,7 @@ def phase_vhem_path(fails: Failures, device, vbem) -> dict:
     fails.check(launches["B3"] >= iters > 0,
                 f"VHEM path launched B3 {launches['B3']} times for {iters} "
                 f"EM iterations")
+    check_on_chip(fails, "VHEM path", launches, "B3")
     ri = rand_index(out["cells"][(2, 2)].label.cpu().numpy(), labels)
     fails.check(ri == 1.0, f"VHEM (K=2, S=2) labels vs planted groups: "
                            f"Rand index {ri}")
@@ -901,23 +1061,28 @@ def em_iteration(base, post, hyps, tilde_n, tau, pair_fn):
     return vbhem.m_step(stats, hyps), ll
 
 
+MAIN_CELL = "main-path cell Kb=8192 L=8 Kr=3 Sb=Sr=3 D=2 tau=10"
 TIMING_SHAPES = [
-    # name, kb, lanes, kr, sr
-    ("bench Kb=8192 L=1 Kr=8 Sb=Sr=3 D=2 tau=10", 8192, 1, 8, 3),
-    ("main-path cell Kb=8192 L=8 Kr=3 Sb=Sr=3 D=2 tau=10", 8192, 8, 3, 3),
+    # name, kb, lanes, kr, sb, sr, tau, timed calls
+    ("bench Kb=8192 L=1 Kr=8 Sb=Sr=3 D=2 tau=10", 8192, 1, 8, 3, 3, 10, 50),
+    # the pipeline's largest launch (phase 5: a learned bank of 2-state
+    # HMMs, 64 restart lanes of Kr=3, tau=50)
+    ("pipeline Kb=8192 L=64 Kr=3 Sb=Sr=2 D=2 tau=50", 8192, 64, 3, 2, 2, 50,
+     10),
+    (MAIN_CELL, 8192, 8, 3, 3, 3, 10, 50),
 ]
 
 
-def timing_b1(device, n=50) -> dict:
+def timing_b1(device) -> dict:
     """B1: E-step (wrapper and kernel) and EM iteration times, kernel and
     plain, in the order kernel, plain, plain, kernel; the kernel's device
-    time by the profiler; the bound.  The last shape is the kernels
-    line's."""
+    time by the profiler; the bound; the design the wrapper takes.
+    MAIN_CELL is the kernels line's shape."""
     out = {}
-    tau, d = 10, 2
-    for name, kb, lanes, kr, sr in TIMING_SHAPES:
+    d = 2
+    for name, kb, lanes, kr, sb, sr, tau, n in TIMING_SHAPES:
         rng = np.random.default_rng(0)
-        base = random_bank(rng, kb, 3, d, device, torch.float32)
+        base = random_bank(rng, kb, sb, d, device, torch.float32)
         cfg = VBHEMConfig(m0=(0.0,) * d, w0=1.0, nv=100, tau=tau)
         hyps = vbhem.VBHEMHyps.from_config(cfg, d, torch.float32, device)
         gen = torch.Generator(device="cpu").manual_seed(1)
@@ -940,8 +1105,9 @@ def timing_b1(device, n=50) -> dict:
         dev_ms = device_ms(lambda: vbhem.e_step(base, post, exps, tau),
                            DEVICE_NAMES["B1"], 20)
         pairs = kb * lanes * kr
-        row = {"kernel_device_ms": dev_ms,
-               **b1_bound(kb, lanes * kr, 3, sr, d, tau, 4)}
+        des = pair_estep_cuda.design(sb, sr, tau, 4, pairs, sm_count())
+        row = {"kernel_device_ms": dev_ms, "design": des._asdict(),
+               **b1_bound(kb, lanes * kr, sb, sr, d, tau, 4)}
         for which in ("kernel", "plain"):
             est = float(np.mean(estep[which])) * 1e3
             itr = float(np.mean(iters[which])) * 1e3
@@ -957,8 +1123,9 @@ def timing_b1(device, n=50) -> dict:
         print(f"timing B1 [{name}] kernel device {dev_ms:.4f} ms; bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
               f"{row['sfu_ops']:.4g} SFU ops, {row['bytes']:.4g} bytes; "
-              f"the kernel's carry scratch adds {row['scratch_bytes']:.4g} "
-              f"bytes)", flush=True)
+              f"in the earlier count {row['bound_ms_before']:.4f} ms, "
+              f"{row['sfu_ops_before']:.4g} SFU ops); "
+              f"{design_note(des, pairs, sb, sr, tau, 4)}", flush=True)
         out[name] = row
     return out
 
@@ -1097,7 +1264,10 @@ def timing_b3(device, vbem, n=50) -> dict:
            "log_z_max_abs": float(torch.abs(z32 - z64).max()),
            "log_z_factor": float(n_i.max()) / inf_norm}
 
+    des = pair_estep_cuda.design(sb, sr, tau, 4, kb * lanes * kr,
+                                 sm_count())
     row = {"kernel_device_ms": dev_ms, "f32_vs_f64": gap,
+           "design": des._asdict(),
            **b3_bound(kb, lanes * kr, sb, sr, tau, 4)}
     for which in ("kernel", "plain"):
         row[which] = {"bf_ms": float(np.mean(bf_runs[which])) * 1e3,
@@ -1111,7 +1281,9 @@ def timing_b3(device, vbem, n=50) -> dict:
           f"{row['plain']['bf_ms_runs']}); bound {row['bound_ms']:.4f} ms "
           f"({row['bound_by']}: {row['sfu_ops']:.4g} SFU ops, "
           f"{row['bytes']:.4g} bytes of which ell {row['ell_bytes']:.4g}; "
-          f"the carry scratch adds {row['scratch_bytes']:.4g} bytes)",
+          f"in the earlier count {row['bound_ms_before']:.4f} ms, "
+          f"{row['sfu_ops_before']:.4g} SFU ops); "
+          f"{design_note(des, kb * lanes * kr, sb, sr, tau, 4)}",
           flush=True)
     print(f"timing VHEM iteration [full width]: kernel "
           f"{row['kernel']['iter_ms']:.4f} ms (runs "
@@ -1193,7 +1365,7 @@ def main() -> int:
             ("B3", "parity B3", "VHEM path", "timing B3", "bf_ms")):
         t = results.get(timing, {})
         if key == "B1":   # the kernels line reads the main-path cell
-            t = t.get(TIMING_SHAPES[-1][0], {})
+            t = t.get(MAIN_CELL, {})
         wrapper_ms = t.get("kernel", {}).get(field)
         plain_ms = t.get("plain", {}).get(field)
         counts = results.get(path, {}).get("launches", {})
@@ -1206,6 +1378,9 @@ def main() -> int:
             wrapper_ms=wrapper_ms, plain_ms=plain_ms,
             bound_ms=t.get("bound_ms"), bound_by=t.get("bound_by"),
             library_ms=None))
+        if key in ("B1", "B3"):   # the main path's launches by design
+            lines[-1]["designs"] = {kind: counts.get(f"{key}_{kind}")
+                                    for kind in pair_estep_cuda.DESIGNS}
         if key == "B2":   # the main path runs the fused entry; entry 1 too
             lines[-1].update(
                 entry1_ms=t.get("entry1_device_ms"),

@@ -18,6 +18,7 @@ import torch
 from scipy.special import digamma
 
 from tests.test_pair_estep import oracle_pair
+from tests.test_torch_pair_recursion import scaled_pair_transliteration
 from vbhem_tpu.ops import pair_estep as jpe
 from vbhem_tpu.ops import pair_estep_pallas as jpp
 from vbhem_tpu_torch.ops import _build
@@ -268,62 +269,27 @@ def test_library_path_keys_on_sources(monkeypatch, tmp_path):
     assert _build.sources() == [src]
 
 
-def kernel_pair_transliteration(prior, trans, log_pi, log_a, ell, tau):
-    """``csrc/pair_estep_fused.cu`` for one pair, in numpy: the backward
-    carry rebased per base state (its shift kept apart), the stored
-    carries feeding the forward pass's softmaxes."""
-    sb, sr = ell.shape
-
-    def lse(v):
-        m = v.max()
-        m = m if np.isfinite(m) else 0.0
-        return m + np.log(np.exp(v - m).sum())
-
-    llo, sh, carries = np.zeros((sb, sr)), np.zeros(sb), []
-    for _ in range(tau - 1):
-        carries.append(llo.copy())
-        lse_v = np.array([[lse(log_a[rp] + ell[c] + llo[c])
-                           for c in range(sb)] for rp in range(sr)])
-        acc = trans @ lse_v.T                                 # [b, rp]
-        m = acc.max(axis=1)
-        sh = trans @ sh + m
-        llo = acc - m[:, None]
-    x = log_pi[None, :] + ell + llo
-    lse1 = np.array([lse(x[b]) for b in range(sb)])
-    ll = float(prior @ (lse1 + sh))
-    nu = (prior[:, None] * np.exp(x - lse1[:, None])).T       # [r, b]
-    nu1, stn, sxi = nu.sum(1), nu.copy(), np.zeros((sr, sr))
-    for lk in reversed(carries):
-        nn = np.zeros((sr, sb))
-        for rp in range(sr):
-            for c in range(sb):
-                foo = nu[rp] @ trans[:, c]
-                z = log_a[rp] + ell[c] + lk[c]
-                p = np.exp(z - lse(z))
-                sxi[rp] += foo * p
-                nn[:, c] += foo * p
-        nu = nn
-        stn += nn
-    return ll, nu1, sxi, stn
-
-
 @pytest.mark.parametrize("tau,sr", [(1, 3), (2, 2), (10, 3), (50, 2)])
 def test_kernel_rebased_carry_matches_loop_oracle(tau, sr):
-    """The rebased recursion of the CUDA kernel, which cannot run here,
-    against the explicit-loop oracle of tests/test_pair_estep.py."""
+    """The rebased, scaled recursion of the CUDA kernels, which cannot run
+    here (tests/test_torch_pair_recursion.py transliterates it), on B1's
+    E3logN, against the explicit-loop oracle of tests/test_pair_estep.py,
+    keeping every step's state and in segments of 3 steps."""
     case = make_case(9, kb=3, kr=2, sb=3, sr=sr, ragged=True)
     t = port(case)
     ell = tpe.expected_pair_ll_variational(*t[2:4], *t[6:]).numpy()
     prior, trans, log_pi, log_a = case[0], case[1], case[4], case[5]
     for i in range(3):
         for j in range(2):
-            got = kernel_pair_transliteration(prior[i], trans[i], log_pi[j],
-                                              log_a[j], ell[i, j], tau)
             want = oracle_pair(prior[i], trans[i], log_pi[j], log_a[j],
                                ell[i, j], tau)
-            np.testing.assert_allclose(got[0], want[0], rtol=1e-12)
-            for g, w in zip(got[1:], want[1:]):
-                np.testing.assert_allclose(g, w, rtol=1e-10, atol=1e-13)
+            for seg in (None, 3):
+                got = scaled_pair_transliteration(
+                    prior[i], trans[i], log_pi[j], log_a[j], ell[i, j], tau,
+                    seg=seg)
+                np.testing.assert_allclose(got[0], want[0], rtol=1e-12)
+                for g, w in zip(got[1:4], want[1:]):
+                    np.testing.assert_allclose(g, w, rtol=1e-10, atol=1e-13)
 
 
 # ---------------------------------------------------------------------------
@@ -436,7 +402,8 @@ def test_b3_kernel_indexing_matches_loop_oracle(tau, name):
     """Kernel B3, which cannot run here, in NumPy: each pair reads its
     ell[b][r] from the wrapper's [L*Kr, Sb, Sr, Kb] buffer at
     ((j*Sb + b)*Sr + r)*Kb + i, runs the rebased recursion (the shared
-    pair_recursion.cuh, transliterated above), and writes the kernel's
+    pair_recursion.cuh, transliterated in test_torch_pair_recursion.py),
+    and writes the kernel's
     Kb-last outputs, which the wrapper unfolds.  Held to the loop oracle
     per pair and to the plain version through the unfold."""
     kw = dict(BF_CASES[name]["kw"], kb=5, kr=2, lanes=(2,))
@@ -451,11 +418,11 @@ def test_b3_kernel_indexing_matches_loop_oracle(tau, name):
         for i in range(kb):
             e = np.array([[ell_t[((j * sb + b) * sr + r) * kb + i]
                            for r in range(sr)] for b in range(sb)])
-            got = kernel_pair_transliteration(prior[i], trans[i], pi_f[j],
+            got = scaled_pair_transliteration(prior[i], trans[i], pi_f[j],
                                               a_f[j], e, tau)
             want = oracle_pair(prior[i], trans[i], pi_f[j], a_f[j], e, tau)
             np.testing.assert_allclose(got[0], want[0], rtol=1e-12)
-            for g, w in zip(got[1:], want[1:]):
+            for g, w in zip(got[1:4], want[1:]):
                 np.testing.assert_allclose(g, w, rtol=1e-10, atol=1e-13)
             outs[0][j, i] = got[0]
             outs[1][j, :, i], outs[2][j, :, :, i] = got[1], got[2]

@@ -11,23 +11,24 @@
 //
 // What bounds it on this card: at the VHEM path's shapes the inputs (ell,
 // Sb*Sr values per pair) and outputs (1 + Sr + Sr^2 + Sr*Sb per pair) take
-// less time to move than the transcendentals of the log-sum-exps take to
-// compute (per pair and step Sr*Sb*Sr exp and Sr*Sb log), so operations
-// bound it, as they bound B1.  The design is B1's:
-//   * one thread per (lane*Kr + j, i) pair, i fastest across a block of 128;
-//     ell comes laid out [L*Kr, Sb, Sr, Kb], so its loads coalesce like the
+// less time to move than the recursion's instructions take to issue (per
+// pair and step Sb*Sr exp, Sr*Sb log, Sr*Sb reciprocals and the FMAs
+// around them), and each thread's serial chain of steps needs enough pairs
+// in flight per SM to hide its latency.  The design is B1's:
+//   * one thread per (lane*Kr + j, i) pair, i fastest across a block; ell
+//     comes laid out [L*Kr, Sb, Sr, Kb], so its loads coalesce like the
 //     base parameters' (the wrapper receives ell as a view of that buffer
 //     from `expected_pair_ll_point` and copies nothing);
-//   * grid (ceil(Kb / 128), L*Kr): a block stages its reduced model's
-//     log_pi and log_a in shared memory;
-//   * the backward carry goes to B1's global scratch [tau-1, Sb*Sr, L*Kr,
-//     Kb] and the forward pass rebuilds Theta from it: itemsize * (tau-1) *
-//     Sb * Sr per pair written and read back once, 106 MB each way in f32
-//     at L=20, Kb=8192, Kr=3, Sb=2, Sr=3, tau=10 (more than L2 holds);
+//   * grid (ceil(Kb / threads), L*Kr): a block stages its reduced model's
+//     log_pi, log_a and exp(log_a) in shared memory;
+//   * the per-step state of the recursion stays on chip, in the resident or
+//     checkpointed design the wrapper picks from the shape, and goes to a
+//     device-memory scratch only where no block holds it
+//     (pair_recursion.cuh);
 //   * the VHEM path's bank has Sb=2 and its grid Sr in 1..3: (Sb, Sr) =
 //     (2, 1), (2, 2), (2, 3) are compile-time specializations; every other
 //     shape in Sb, Sr <= 8 runs a generic instantiation.
-// Templated on float and double; no tensor cores, TMA or tuning yet.
+// Templated on float and double.
 
 #include "pair_recursion.cuh"
 
@@ -35,8 +36,8 @@ namespace {
 
 using namespace vbhem_pair;
 
-template <typename T, int SB_, int SR_>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int SB_, int SR_, int kDesign>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks<T>)
 pair_bwd_fwd_kernel(const T* __restrict__ ell_in,  // [LKr, Sb, Sr, Kb]
                     const T* __restrict__ prior,   // [Sb, Kb]
                     const T* __restrict__ trans,   // [Sb, Sb, Kb]
@@ -46,20 +47,17 @@ pair_bwd_fwd_kernel(const T* __restrict__ ell_in,  // [LKr, Sb, Sr, Kb]
                     T* __restrict__ nu1_out,       // [LKr, Sr, Kb]
                     T* __restrict__ sxi_out,       // [LKr, Sr, Sr, Kb]
                     T* __restrict__ stn_out,       // [LKr, Sr, Sb, Kb]
-                    T* __restrict__ carry,         // [tau-1, Sb*Sr, LKr, Kb]
-                    int kb, int lkr, int sb_rt, int sr_rt, int tau) {
+                    T* __restrict__ scratch,       // kScratch only:
+                                                   // [tau-1, Sb*Sr, LKr, Kb]
+                    int kb, int lkr, int sb_rt, int sr_rt, int tau, int seg) {
   constexpr int MSB = Cap<SB_>::value;
   constexpr int MSR = Cap<SR_>::value;
   const int sb = SB_ > 0 ? SB_ : sb_rt;
   const int sr = SR_ > 0 ? SR_ : sr_rt;
 
-  __shared__ T s_log_pi[MSR];
-  __shared__ T s_log_a[MSR * MSR];
+  __shared__ Reduced<T, SR_> red;
   const int j = blockIdx.y;
-  for (int q = threadIdx.x; q < sr; q += blockDim.x)
-    s_log_pi[q] = log_pi[j * sr + q];
-  for (int q = threadIdx.x; q < sr * sr; q += blockDim.x)
-    s_log_a[q] = log_a[(size_t)j * sr * sr + q];
+  stage_reduced(red, log_pi, log_a, j, sr);
   __syncthreads();
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -79,63 +77,78 @@ pair_bwd_fwd_kernel(const T* __restrict__ ell_in,  // [LKr, Sb, Sr, Kb]
       ell[b][r] = ell_in[(static_cast<size_t>(j * sb + b) * sr + r) * skb + i];
   }
 
-  pair_recursion<T, SB_, SR_>(pr, tr, ell, s_log_pi, s_log_a, carry, ll_out,
-                              nu1_out, sxi_out, stn_out, j, i, kb, lkr, sb_rt,
-                              sr_rt, tau);
+  size_t stride;
+  T* st = state_base<T, kDesign>(scratch, static_cast<size_t>(j) * skb + i,
+                                 static_cast<size_t>(lkr) * skb, stride);
+  pair_recursion<T, SB_, SR_, kDesign>(pr, tr, ell, red, st, stride, seg,
+                                       ll_out, nu1_out, sxi_out, stn_out, j,
+                                       i, kb, sb_rt, sr_rt, tau);
+}
+
+struct Args {
+  const void *ell, *prior, *trans, *log_pi, *log_a;
+  void *ll_out, *nu1_out, *sxi_out, *stn_out, *scratch;
+  int kb, lkr, sb, sr, tau, design, threads, seg, smem;
+  cudaStream_t stream;
+};
+
+template <typename T, int SB_, int SR_, int kDesign>
+int launch_one(const Args& a) {
+  auto* kernel = pair_bwd_fwd_kernel<T, SB_, SR_, kDesign>;
+  const int err = prepare_launch(kernel, a.design, a.threads, a.seg, a.smem,
+                                 a.sb, a.sr, a.tau, sizeof(T),
+                                 a.scratch != nullptr);
+  if (err != 0) return err;
+  const dim3 grid((a.kb + a.threads - 1) / a.threads, a.lkr);
+  kernel<<<grid, a.threads, a.smem, a.stream>>>(
+      static_cast<const T*>(a.ell), static_cast<const T*>(a.prior),
+      static_cast<const T*>(a.trans), static_cast<const T*>(a.log_pi),
+      static_cast<const T*>(a.log_a), static_cast<T*>(a.ll_out),
+      static_cast<T*>(a.nu1_out), static_cast<T*>(a.sxi_out),
+      static_cast<T*>(a.stn_out), static_cast<T*>(a.scratch), a.kb, a.lkr,
+      a.sb, a.sr, a.tau, a.seg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int SB_, int SR_>
+int launch_shape(const Args& a) {
+  switch (a.design) {
+    case kResident: return launch_one<T, SB_, SR_, kResident>(a);
+    case kCheckpointed: return launch_one<T, SB_, SR_, kCheckpointed>(a);
+    case kScratch: return launch_one<T, SB_, SR_, kScratch>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <typename T>
-int launch(const void* ell, const void* prior, const void* trans,
-           const void* log_pi, const void* log_a, void* ll_out, void* nu1_out,
-           void* sxi_out, void* stn_out, void* carry, int kb, int lkr, int sb,
-           int sr, int tau, void* stream) {
-  const dim3 grid((kb + kThreads - 1) / kThreads, lkr);
-  const dim3 block(kThreads);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define VBHEM_ARGS                                                            \
-  static_cast<const T*>(ell), static_cast<const T*>(prior),                   \
-      static_cast<const T*>(trans), static_cast<const T*>(log_pi),            \
-      static_cast<const T*>(log_a), static_cast<T*>(ll_out),                  \
-      static_cast<T*>(nu1_out), static_cast<T*>(sxi_out),                     \
-      static_cast<T*>(stn_out), static_cast<T*>(carry), kb, lkr, sb, sr, tau
-  if (sb == 2 && sr == 1)
-    pair_bwd_fwd_kernel<T, 2, 1><<<grid, block, 0, st>>>(VBHEM_ARGS);
-  else if (sb == 2 && sr == 2)
-    pair_bwd_fwd_kernel<T, 2, 2><<<grid, block, 0, st>>>(VBHEM_ARGS);
-  else if (sb == 2 && sr == 3)
-    pair_bwd_fwd_kernel<T, 2, 3><<<grid, block, 0, st>>>(VBHEM_ARGS);
-  else
-    pair_bwd_fwd_kernel<T, 0, 0><<<grid, block, 0, st>>>(VBHEM_ARGS);
-#undef VBHEM_ARGS
-  return static_cast<int>(cudaGetLastError());
+int launch(const Args& a) {
+  if (a.sb == 2 && a.sr == 1) return launch_shape<T, 2, 1>(a);
+  if (a.sb == 2 && a.sr == 2) return launch_shape<T, 2, 2>(a);
+  if (a.sb == 2 && a.sr == 3) return launch_shape<T, 2, 3>(a);
+  return launch_shape<T, 0, 0>(a);
 }
 
 }  // namespace
 
 // Plain C interface for ctypes.  The caller validates shapes, dtypes,
 // contiguity and ranges (Sb, Sr in 1..8, tau >= 1, L*Kr <= 65535), lays
-// ell out as [L*Kr, Sb, Sr, Kb] and the base bank with Kb last, and
-// allocates every output and the carry scratch.  Returns the cudaError_t
-// of the launch (0 = launched).
-extern "C" int vbhem_pair_bwd_fwd_f32(const void* ell, const void* prior,
-                                      const void* trans, const void* log_pi,
-                                      const void* log_a, void* ll_out,
-                                      void* nu1_out, void* sxi_out,
-                                      void* stn_out, void* carry, int kb,
-                                      int lkr, int sb, int sr, int tau,
-                                      void* stream) {
-  return launch<float>(ell, prior, trans, log_pi, log_a, ll_out, nu1_out,
-                       sxi_out, stn_out, carry, kb, lkr, sb, sr, tau, stream);
-}
+// ell out as [L*Kr, Sb, Sr, Kb] and the base bank with Kb last, chooses
+// the design, block size and shared memory as for B1
+// (vbhem_pair_estep_fused_*), and allocates every output and, for the
+// scratch design only, the scratch.  Returns the cudaError_t of the launch
+// (0 = launched).
+#define VBHEM_BWD_FWD_ENTRY(NAME, T)                                          \
+  extern "C" int NAME(const void* ell, const void* prior, const void* trans,  \
+                      const void* log_pi, const void* log_a, void* ll_out,    \
+                      void* nu1_out, void* sxi_out, void* stn_out,            \
+                      void* scratch, int kb, int lkr, int sb, int sr,         \
+                      int tau, int design, int threads, int seg, int smem,    \
+                      void* stream) {                                         \
+    const Args a{ell, prior, trans, log_pi, log_a, ll_out, nu1_out, sxi_out,  \
+                 stn_out, scratch, kb, lkr, sb, sr, tau, design, threads,     \
+                 seg, smem, static_cast<cudaStream_t>(stream)};               \
+    return launch<T>(a);                                                      \
+  }
 
-extern "C" int vbhem_pair_bwd_fwd_f64(const void* ell, const void* prior,
-                                      const void* trans, const void* log_pi,
-                                      const void* log_a, void* ll_out,
-                                      void* nu1_out, void* sxi_out,
-                                      void* stn_out, void* carry, int kb,
-                                      int lkr, int sb, int sr, int tau,
-                                      void* stream) {
-  return launch<double>(ell, prior, trans, log_pi, log_a, ll_out, nu1_out,
-                        sxi_out, stn_out, carry, kb, lkr, sb, sr, tau,
-                        stream);
-}
+VBHEM_BWD_FWD_ENTRY(vbhem_pair_bwd_fwd_f32, float)
+VBHEM_BWD_FWD_ENTRY(vbhem_pair_bwd_fwd_f64, double)

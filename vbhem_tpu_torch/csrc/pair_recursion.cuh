@@ -1,24 +1,63 @@
 // The pair recursion shared by kernels B1 (pair_estep_fused.cu) and B3
 // (pair_bwd_fwd.cu): for one (base HMM i, reduced HMM j) pair, given the
-// expected emission matrix ell[b][r], the tau-1 backward steps with a
-// log-sum-exp over the reduced state, the termination
-// ll_elbo = sum_b prior_b lse_b, and the forward pass that accumulates
-// nu_1, sum_xi and sum_t_nu.  It replaces `_recursion` of the TPU kernels
-// (vbhem_tpu/ops/pair_estep_pallas.py); the plain PyTorch version is
-// `pair_bwd_fwd` in vbhem_tpu_torch/ops/pair_estep.py.
+// expected emission matrix ell[b][r], the tau-1 backward steps, the
+// termination ll_elbo = sum_b prior_b lse_b, and the forward pass that
+// accumulates nu_1, sum_xi and sum_t_nu.  It replaces `_recursion` of the
+// TPU kernels (vbhem_tpu/ops/pair_estep_pallas.py); the plain PyTorch
+// version is `pair_bwd_fwd` in vbhem_tpu_torch/ops/pair_estep.py.
 //
 // The two kernels differ only in where ell comes from: B1 computes it in
 // registers from the base moments and the reduced NIW posterior, B3 loads
 // it from memory.  Both run one thread per pair and call this function
 // with the pair's base parameters and ell in registers and the reduced
-// model's log_pi / log_a in shared memory.
+// model j staged once per block in shared memory (`Reduced`).
 //
-// The backward carry is kept rebased per base state at every step (its
-// shift kept apart in registers), so the softmaxes read numbers near
-// their spread, not near the carry's magnitude, which grows with tau.
-// The backward pass stores only its carry [Sb, Sr] per step (not Theta
-// [Sr, Sb, Sr]) to a global scratch [tau-1, Sb*Sr, L*Kr, Kb]; the forward
-// pass rebuilds Theta from it.
+// What bounds it on this card: not bytes, and not the special functions
+// alone.  A step takes Sb*Sr exps and Sr*Sb logs but, at Sb = Sr = 3, about
+// 380 instructions (SASS of the float32 body), most of them FMAs, and each
+// thread's steps form one serial chain; so instruction issue and the
+// chains' latency, which the pairs in flight per SM hide, set the time
+// (PERF.md: 20-27% of the special-function bound).  The design:
+//   * the scaled step.  With A[rp][rc] = exp(log_a[rp][rc] - amax[rp])
+//     staged once per block and w[c][rc] = exp(z[c][rc] - m_c) for
+//     z = ell + carry, m_c = max_rc z, a backward step forms
+//       lse[rp][c] = m_c + amax[rp] + log S[rp][c],
+//       S[rp][c]   = sum_rc A[rp][rc] w[c][rc],
+//     so it takes Sb*Sr exps and Sr*Sb logs; the rest is FMAs.  In float32
+//     the exps, logs and reciprocals are the hardware's approximations
+//     (ex2, lg2, rcp); in float64 the correctly rounded functions;
+//   * the carry is rebased at every step: the part of LL_new[b][rp] that
+//     is constant in rp, sum_c trans[b][c] (m_c + shift[c]), is kept apart
+//     in registers, so the carry stays near the spread of one step and the
+//     exps read numbers near the spread of ell, not near the carry's
+//     magnitude, which grows with tau;
+//   * the per-step state the forward pass needs, w [Sb, Sr], is kept, not
+//     the carry: the forward pass forms
+//       Theta[rp][c][rc] = A[rp][rc] w[c][rc] / S[rp][c]
+//     with S recomputed by FMAs and one reciprocal each, and no exp, a
+//     step ahead of the step that uses them;
+//   * an underflow guard.  Where S[rp][c] falls below under_floor (every rc
+//     with a non-negligible w has A ~ 0: a -1e30 masked state or a -inf
+//     log_a entry at the argmax of z, with a spread of z of tens of nats
+//     or more), S has lost the sum the log domain keeps, so that column c
+//     is computed in the log domain instead (a branch, rarely taken), and
+//     its state is stored as log w - 1 (< 0, where w >= 0), so the forward
+//     pass knows to rebuild that column's Theta with exps.  No log(0)
+//     reaches the sum_c trans * lse, where a zero row of a ragged base
+//     HMM's trans would turn it into NaN;
+//   * where the state lives is the design (`kResident`, `kCheckpointed`,
+//     `kScratch`), chosen by the wrapper from the shape: all tau-1 steps
+//     in dynamic shared memory; in shared memory as segments of `seg`
+//     steps with the carry kept at every segment start, the backward pass
+//     recomputing a segment's w from its checkpoint before the forward
+//     pass walks it; or all steps in a device-memory scratch
+//     [tau-1, Sb*Sr, L*Kr, Kb] for states that no block holds at a useful
+//     number of pairs per SM, and for launches whose scratch stays in L2;
+//     shared memory is laid out value-major, [slot][Sb*Sr][thread], so a
+//     warp's stores and loads fall on consecutive words;
+//   * float32 bodies are held to 5 blocks of 128 threads per SM
+//     (`__launch_bounds__`), which lets the Sb = Sr = 3 bodies run 640
+//     pairs per SM instead of 512 (measured 5% faster; 6 blocks spill).
 
 #pragma once
 
@@ -30,12 +69,53 @@
 namespace vbhem_pair {
 
 constexpr int kMaxS = 8;
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 128;
+constexpr int kMaxSmem = 232448;   // shared memory one block may use
 
+// The least blocks of kMaxThreads an SM must hold, which caps the
+// registers ptxas may give a thread (`__launch_bounds__`), in float32;
+// float64 bodies take what they need.  tools/time_pair.py --min-blocks
+// builds and times other values.
+#ifndef VBHEM_PAIR_MIN_BLOCKS_F32
+#define VBHEM_PAIR_MIN_BLOCKS_F32 5
+#endif
+template <typename T>
+constexpr int kMinBlocks = sizeof(T) == 4 ? VBHEM_PAIR_MIN_BLOCKS_F32 : 1;
+
+// where the per-step state lives (ops/pair_estep_cuda.py: DESIGNS)
+constexpr int kResident = 0;
+constexpr int kCheckpointed = 1;
+constexpr int kScratch = 2;
+
+extern __shared__ __align__(16) unsigned char pair_smem[];
+
+// Accurate special functions, for what runs once per block.
 __device__ __forceinline__ float dexp(float x) { return expf(x); }
 __device__ __forceinline__ double dexp(double x) { return exp(x); }
-__device__ __forceinline__ float dlog(float x) { return logf(x); }
-__device__ __forceinline__ double dlog(double x) { return log(x); }
+
+// The recursion's special functions: in float32 the hardware's
+// approximations, a multiply and one SFU instruction each, flushing
+// subnormal results to zero (the intrinsics __expf, __logf and __fdividef
+// spend three or four more instructions each keeping them); in float64
+// the correctly rounded ones.
+__device__ __forceinline__ float rexp(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+__device__ __forceinline__ double rexp(double x) { return exp(x); }
+__device__ __forceinline__ float rlog(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y * 0.6931471805599453f;
+}
+__device__ __forceinline__ double rlog(double x) { return log(x); }
+__device__ __forceinline__ float rrcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ double rrcp(double x) { return 1.0 / x; }
 
 __device__ __forceinline__ float dmax(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double dmax(double a, double b) { return fmax(a, b); }
@@ -55,6 +135,16 @@ __device__ __forceinline__ float neg_inf<float>() { return -CUDART_INF_F; }
 template <>
 __device__ __forceinline__ double neg_inf<double>() { return -CUDART_INF; }
 
+// The underflow guard's floor on S = sum_rc A w (A <= 1, w <= 1, the
+// largest w is 1).  Above it the terms an exp flushed to zero (each below
+// the type's smallest normal) change S by less than 2^-59 of itself.
+template <typename T>
+__device__ __forceinline__ T under_floor();
+template <>
+__device__ __forceinline__ float under_floor<float>() { return 0x1p-64f; }
+template <>
+__device__ __forceinline__ double under_floor<double>() { return 0x1p-512; }
+
 // Array extent for a state count: the compile-time count of a specialized
 // instantiation, else the largest count the kernels take.
 template <int S_>
@@ -62,34 +152,342 @@ struct Cap {
   static constexpr int value = S_ > 0 ? S_ : kMaxS;
 };
 
+// Reduced model j as a block stages it in shared memory.
+template <typename T, int SR_>
+struct Reduced {
+  static constexpr int M = Cap<SR_>::value;
+  T log_pi[M];
+  T log_a[M * M];
+  T a[M * M];   // exp(log_a[rp][rc] - amax[rp]), each row's largest 1
+  T amax[M];    // finite-or-zero max of row rp of log_a
+};
+
+// Stage reduced model j (log_pi [L*Kr, Sr], log_a [L*Kr, Sr, Sr]); the
+// caller synchronizes the block afterwards.
+template <typename T, int SR_>
+__device__ __forceinline__ void stage_reduced(Reduced<T, SR_>& red,
+                                              const T* __restrict__ log_pi,
+                                              const T* __restrict__ log_a,
+                                              int j, int sr) {
+  for (int q = threadIdx.x; q < sr; q += blockDim.x) {
+    red.log_pi[q] = log_pi[static_cast<size_t>(j) * sr + q];
+    const T* row = log_a + (static_cast<size_t>(j) * sr + q) * sr;
+    T mx = neg_inf<T>();
+    for (int rc = 0; rc < sr; ++rc) mx = dmax(mx, row[rc]);
+    mx = finite_or_zero(mx);
+    red.amax[q] = mx;
+    for (int rc = 0; rc < sr; ++rc) {
+      red.log_a[q * sr + rc] = row[rc];
+      red.a[q * sr + rc] = dexp(row[rc] - mx);
+    }
+  }
+}
+
+// This thread's state: slot 0 of the design's storage and the distance
+// between two consecutive values (a block's threads in shared memory, the
+// L*Kr*Kb pairs in the scratch).
+template <typename T, int kDesign>
+__device__ __forceinline__ T* state_base(T* scratch, size_t pix,
+                                         size_t plane, size_t& stride) {
+  if constexpr (kDesign == kScratch) {
+    stride = plane;
+    return scratch + pix;
+  } else {
+    stride = blockDim.x;
+    return reinterpret_cast<T*>(pair_smem) + threadIdx.x;
+  }
+}
+
+// One backward step: from the rebased carry llo [Sb, Sr] (and, with
+// kShift, its shifts sh [Sb]) to the next, storing w (or, in a guarded
+// column, log w - 1) at `slot`.
+template <typename T, int SB_, int SR_, bool kShift>
+__device__ __forceinline__ void backward_step(
+    const T (&ell)[Cap<SB_>::value][Cap<SR_>::value],
+    const T (&tr)[Cap<SB_>::value][Cap<SB_>::value],
+    T (&llo)[Cap<SB_>::value][Cap<SR_>::value], T (&sh)[Cap<SB_>::value],
+    const Reduced<T, SR_>& red, T* __restrict__ slot, size_t stride, int sb,
+    int sr) {
+  constexpr int MSB = Cap<SB_>::value;
+  constexpr int MSR = Cap<SR_>::value;
+  T w[MSB][MSR];
+  T mc[MSB];
+#pragma unroll
+  for (int c = 0; c < sb; ++c) {
+    T mx = neg_inf<T>();
+#pragma unroll
+    for (int rc = 0; rc < sr; ++rc) {
+      w[c][rc] = ell[c][rc] + llo[c][rc];
+      mx = dmax(mx, w[c][rc]);
+    }
+    mx = finite_or_zero(mx);
+    mc[c] = mx;
+#pragma unroll
+    for (int rc = 0; rc < sr; ++rc) {
+      w[c][rc] = rexp(w[c][rc] - mx);
+      slot[(c * sr + rc) * stride] = w[c][rc];
+    }
+  }
+  // lse[rp][c] = m_c + amax[rp] + log sum_rc A[rp][rc] w[c][rc]
+  T lse[MSR][MSB];
+  T smin = static_cast<T>(1);   // any start above the floor
+#pragma unroll
+  for (int rp = 0; rp < sr; ++rp) {
+#pragma unroll
+    for (int c = 0; c < sb; ++c) {
+      T s = 0;
+#pragma unroll
+      for (int rc = 0; rc < sr; ++rc) s += red.a[rp * sr + rc] * w[c][rc];
+      smin = s < smin ? s : smin;
+      lse[rp][c] = s;
+    }
+  }
+  // lse less its part m_c, which is constant in rp
+#pragma unroll
+  for (int rp = 0; rp < sr; ++rp)
+#pragma unroll
+    for (int c = 0; c < sb; ++c)
+      lse[rp][c] = red.amax[rp] + rlog(lse[rp][c]);
+  if (smin < under_floor<T>()) {   // the guard, rarely taken
+#pragma unroll
+    for (int c = 0; c < sb; ++c) {
+      bool low = false;
+#pragma unroll
+      for (int rp = 0; rp < sr; ++rp) {
+        T s = 0;
+#pragma unroll
+        for (int rc = 0; rc < sr; ++rc) s += red.a[rp * sr + rc] * w[c][rc];
+        low = low || s < under_floor<T>();
+      }
+      if (!low) continue;
+      // column c in the log domain
+#pragma unroll
+      for (int rp = 0; rp < sr; ++rp) {
+        T x[MSR];
+        T mx = neg_inf<T>();
+#pragma unroll
+        for (int rc = 0; rc < sr; ++rc) {
+          x[rc] = red.log_a[rp * sr + rc] + (ell[c][rc] + llo[c][rc]);
+          mx = dmax(mx, x[rc]);
+        }
+        mx = finite_or_zero(mx);
+        T s = 0;
+#pragma unroll
+        for (int rc = 0; rc < sr; ++rc) s += rexp(x[rc] - mx);
+        lse[rp][c] = (rlog(s) + mx) - mc[c];
+      }
+#pragma unroll
+      for (int rc = 0; rc < sr; ++rc)
+        slot[(c * sr + rc) * stride] =
+            ((ell[c][rc] + llo[c][rc]) - mc[c]) - static_cast<T>(1);
+    }
+  }
+  // LL_new[b][rp] = sum_c trans[b][c] (lse[rp][c] + m_c + sh[c]): the
+  // carry keeps sum_c trans[b][c] lse[rp][c], the shift the rest
+  T base[MSB];
+  if constexpr (kShift) {
+#pragma unroll
+    for (int c = 0; c < sb; ++c) base[c] = mc[c] + sh[c];
+  }
+#pragma unroll
+  for (int b = 0; b < sb; ++b) {
+#pragma unroll
+    for (int rp = 0; rp < sr; ++rp) {
+      T acc = 0;
+#pragma unroll
+      for (int c = 0; c < sb; ++c) acc += tr[b][c] * lse[rp][c];
+      llo[b][rp] = acc;
+    }
+    if constexpr (kShift) {
+      T shift = 0;
+#pragma unroll
+      for (int c = 0; c < sb; ++c) shift += tr[b][c] * base[c];
+      sh[b] = shift;
+    }
+  }
+}
+
+// One stored step as the forward pass reads it: w [Sb, Sr] and, for every
+// (rp, c), 1 / S[rp][c]; `logged` where a guarded column holds log w - 1
+// instead (its S and reciprocals then mean nothing).
+template <typename T, int SB_, int SR_>
+struct Step {
+  T w[Cap<SB_>::value][Cap<SR_>::value];
+  T inv[Cap<SR_>::value][Cap<SB_>::value];
+  bool logged;
+};
+
+template <typename T, int SB_, int SR_>
+__device__ __forceinline__ void load_step(Step<T, SB_, SR_>& st,
+                                          const Reduced<T, SR_>& red,
+                                          const T* __restrict__ slot,
+                                          size_t stride, int sb, int sr) {
+  T wmin = static_cast<T>(0);
+#pragma unroll
+  for (int c = 0; c < sb; ++c) {
+#pragma unroll
+    for (int rc = 0; rc < sr; ++rc) st.w[c][rc] = slot[(c * sr + rc) * stride];
+    wmin = st.w[c][0] < wmin ? st.w[c][0] : wmin;
+  }
+  st.logged = wmin < static_cast<T>(0);
+#pragma unroll
+  for (int rp = 0; rp < sr; ++rp)
+#pragma unroll
+    for (int c = 0; c < sb; ++c) {
+      T s = 0;
+#pragma unroll
+      for (int rc = 0; rc < sr; ++rc) s += red.a[rp * sr + rc] * st.w[c][rc];
+      st.inv[rp][c] = rrcp(s);
+    }
+}
+
+// One forward step on a stored step: xi[rp][c][rc] = foo[rp][c]
+// Theta[rp][c][rc] with foo = nu trans, summed into the next nu and into
+// sum_xi, which gathers A[rp][rc] hsum[rp][rc] + sxi_log[rp][rc]: hsum
+// from the common case (its A applied once, after the last step), sxi_log
+// from guarded steps.
+template <typename T, int SB_, int SR_>
+__device__ __forceinline__ void forward_step(
+    const T (&tr)[Cap<SB_>::value][Cap<SB_>::value],
+    T (&nu)[Cap<SR_>::value][Cap<SB_>::value],
+    T (&stn)[Cap<SR_>::value][Cap<SB_>::value],
+    T (&hsum)[Cap<SR_>::value][Cap<SR_>::value],
+    T (&sxi_log)[Cap<SR_>::value][Cap<SR_>::value],
+    const Reduced<T, SR_>& red, const Step<T, SB_, SR_>& st, int sb,
+    int sr) {
+  constexpr int MSB = Cap<SB_>::value;
+  constexpr int MSR = Cap<SR_>::value;
+  T foo[MSR][MSB];
+#pragma unroll
+  for (int rp = 0; rp < sr; ++rp)
+#pragma unroll
+    for (int c = 0; c < sb; ++c) {
+      T f = 0;
+#pragma unroll
+      for (int b = 0; b < sb; ++b) f += nu[rp][b] * tr[b][c];
+      foo[rp][c] = f;
+    }
+  // Theta = A w / S: with g = foo / S, the next nu is
+  // nn[rc][c] = w[c][rc] sum_rp g[rp][c] A[rp][rc], and sum_xi gains
+  // A[rp][rc] h[rp][rc] with h[rp][rc] = sum_c g[rp][c] w[c][rc]
+  T nn[MSR][MSB];
+  T h[MSR][MSR];
+  T g[MSR][MSB];
+#pragma unroll
+  for (int rp = 0; rp < sr; ++rp)
+#pragma unroll
+    for (int c = 0; c < sb; ++c) g[rp][c] = foo[rp][c] * st.inv[rp][c];
+#pragma unroll
+  for (int c = 0; c < sb; ++c)
+#pragma unroll
+    for (int rc = 0; rc < sr; ++rc) {
+      T t = 0;
+#pragma unroll
+      for (int rp = 0; rp < sr; ++rp) t += g[rp][c] * red.a[rp * sr + rc];
+      nn[rc][c] = st.w[c][rc] * t;
+    }
+#pragma unroll
+  for (int rp = 0; rp < sr; ++rp)
+#pragma unroll
+    for (int rc = 0; rc < sr; ++rc) {
+      T acc = hsum[rp][rc];
+#pragma unroll
+      for (int c = 0; c < sb; ++c) acc += g[rp][c] * st.w[c][rc];
+      h[rp][rc] = acc;
+    }
+  if (st.logged) {   // a guarded column: this step again, column by column
+#pragma unroll
+    for (int rp = 0; rp < sr; ++rp)
+#pragma unroll
+      for (int rc = 0; rc < sr; ++rc) h[rp][rc] = hsum[rp][rc];
+#pragma unroll
+    for (int c = 0; c < sb; ++c) {
+#pragma unroll
+      for (int rc = 0; rc < sr; ++rc) nn[rc][c] = 0;
+#pragma unroll
+      for (int rp = 0; rp < sr; ++rp) {
+        T x[MSR];
+        T s = 0;
+        if (st.w[c][0] < static_cast<T>(0)) {   // w holds log w - 1
+          T mx = neg_inf<T>();
+#pragma unroll
+          for (int rc = 0; rc < sr; ++rc) {
+            x[rc] = red.log_a[rp * sr + rc] + st.w[c][rc];
+            mx = dmax(mx, x[rc]);
+          }
+          mx = finite_or_zero(mx);
+#pragma unroll
+          for (int rc = 0; rc < sr; ++rc) {
+            x[rc] = rexp(x[rc] - mx);
+            s += x[rc];
+          }
+        } else {
+#pragma unroll
+          for (int rc = 0; rc < sr; ++rc) {
+            x[rc] = red.a[rp * sr + rc] * st.w[c][rc];
+            s += x[rc];
+          }
+        }
+        const T f = foo[rp][c] / s;
+#pragma unroll
+        for (int rc = 0; rc < sr; ++rc) {
+          const T xi = f * x[rc];
+          sxi_log[rp][rc] += xi;
+          nn[rc][c] += xi;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int rp = 0; rp < sr; ++rp)
+#pragma unroll
+    for (int rc = 0; rc < sr; ++rc) hsum[rp][rc] = h[rp][rc];
+#pragma unroll
+  for (int r = 0; r < sr; ++r)
+#pragma unroll
+    for (int b = 0; b < sb; ++b) {
+      nu[r][b] = nn[r][b];
+      stn[r][b] += nn[r][b];
+    }
+}
+
 // Backward pass, termination and forward pass of pair (j, i).  SB_ / SR_
 // are the compile-time state counts of a specialized instantiation (its
 // loops unroll), or 0 for the generic one, which reads sb_rt / sr_rt.
 //   pr [Sb], tr [Sb][Sb], ell [Sb][Sr]: this pair's base HMM and emission
 //     matrix, in registers;
-//   s_log_pi [Sr], s_log_a [Sr*Sr]: reduced model j, in shared memory;
-//   carry: the scratch [tau-1, Sb*Sr, lkr, kb];
+//   red: reduced model j, in shared memory;
+//   st, stride: this pair's state (state_base); kCheckpointed keeps
+//     segments of `seg` steps, the other designs all tau-1 steps;
 //   outputs ll [lkr, kb], nu1 [lkr, Sr, kb], sxi [lkr, Sr, Sr, kb],
 //     stn [lkr, Sr, Sb, kb].
-template <typename T, int SB_, int SR_>
+template <typename T, int SB_, int SR_, int kDesign>
 __device__ __forceinline__ void pair_recursion(
-    const T (&pr)[Cap<SB_>::value], const T (&tr)[Cap<SB_>::value][Cap<SB_>::value],
-    const T (&ell)[Cap<SB_>::value][Cap<SR_>::value], const T* s_log_pi,
-    const T* s_log_a, T* __restrict__ carry, T* __restrict__ ll_out,
+    const T (&pr)[Cap<SB_>::value],
+    const T (&tr)[Cap<SB_>::value][Cap<SB_>::value],
+    const T (&ell)[Cap<SB_>::value][Cap<SR_>::value],
+    const Reduced<T, SR_>& red,
+    T* __restrict__ st, size_t stride, int seg, T* __restrict__ ll_out,
     T* __restrict__ nu1_out, T* __restrict__ sxi_out, T* __restrict__ stn_out,
-    int j, int i, int kb, int lkr, int sb_rt, int sr_rt, int tau) {
+    int j, int i, int kb, int sb_rt, int sr_rt, int tau) {
   constexpr int MSB = Cap<SB_>::value;
   constexpr int MSR = Cap<SR_>::value;
+  constexpr bool kCk = kDesign == kCheckpointed;
   const int sb = SB_ > 0 ? SB_ : sb_rt;
   const int sr = SR_ > 0 ? SR_ : sr_rt;
   const size_t skb = static_cast<size_t>(kb);
-  const size_t plane = static_cast<size_t>(lkr) * skb;  // carry entry stride
-  const size_t pix = static_cast<size_t>(j) * skb + i;  // this pair in [LKr, Kb]
+  const size_t pix = static_cast<size_t>(j) * skb + i;  // in [LKr, Kb]
+  const size_t slot_len = static_cast<size_t>(sb * sr) * stride;
+  const int ns = tau - 1;
+  const int len = kCk ? seg : ns;                 // steps per segment
+  const int nseg = ns > 0 ? (ns + len - 1) / len : 0;
 
   // ---- backward: carry LL_old [Sb, Sr] ----
-  // LL_old[b][r] = llo[b][r] + sh[b], with max_r llo[b][r] = 0.  Every
-  // use of the carry but the termination's ll_elbo is a softmax over r,
-  // where sh[b] cancels, so only llo is stored.
+  // LL_old[b][r] = llo[b][r] + sh[b]: llo sums logs of sums S near 1 and
+  // the rows' log_a maxima, so it stays near the spread of one step
+  // however long tau is; the shift sh[b] takes the part constant in r.
+  // Every use of the carry but the termination's ll_elbo is a softmax
+  // over r, where sh[b] cancels.
   T llo[MSB][MSR];
   T sh[MSB];
 #pragma unroll
@@ -98,57 +496,25 @@ __device__ __forceinline__ void pair_recursion(
 #pragma unroll
     for (int r = 0; r < sr; ++r) llo[b][r] = 0;
   }
-
-  for (int k = 0; k < tau - 1; ++k) {
-    T* cst = carry + static_cast<size_t>(k) * sb * sr * plane + pix;
+  {
+    int off = 0, s = 0;
+    for (int k = 0; k < ns; ++k) {
+      if constexpr (kCk) {
+        if (off == 0 && s < nseg - 1) {   // checkpoint s: the carry
+          T* ck = st + (seg + s) * slot_len;
 #pragma unroll
-    for (int b = 0; b < sb; ++b)
+          for (int b = 0; b < sb; ++b)
 #pragma unroll
-      for (int r = 0; r < sr; ++r) cst[(b * sr + r) * plane] = llo[b][r];
-
-    // lse[rp][c] = logsumexp_rc(log_a[rp][rc] + (ell[c][rc] + llo[c][rc]))
-    T lse[MSR][MSB];
-#pragma unroll
-    for (int rp = 0; rp < sr; ++rp) {
-#pragma unroll
-      for (int c = 0; c < sb; ++c) {
-        T x[MSR];
-        T mx = neg_inf<T>();
-#pragma unroll
-        for (int rc = 0; rc < sr; ++rc) {
-          x[rc] = s_log_a[rp * sr + rc] + (ell[c][rc] + llo[c][rc]);
-          mx = dmax(mx, x[rc]);
+            for (int r = 0; r < sr; ++r) ck[(b * sr + r) * stride] = llo[b][r];
         }
-        mx = finite_or_zero(mx);
-        T s = 0;
-#pragma unroll
-        for (int rc = 0; rc < sr; ++rc) s += dexp(x[rc] - mx);
-        lse[rp][c] = dlog(s) + mx;
+      }
+      backward_step<T, SB_, SR_, true>(ell, tr, llo, sh, red,
+                                       st + off * slot_len, stride, sb, sr);
+      if (++off == len) {
+        off = 0;
+        ++s;
       }
     }
-    // LL_new[b][rp] = sum_c trans[b][c] (lse[rp][c] + sh[c]); rebased
-    T sh_new[MSB];
-#pragma unroll
-    for (int b = 0; b < sb; ++b) {
-      T shift = 0;
-#pragma unroll
-      for (int c = 0; c < sb; ++c) shift += tr[b][c] * sh[c];
-      T m = neg_inf<T>();
-#pragma unroll
-      for (int rp = 0; rp < sr; ++rp) {
-        T acc = 0;
-#pragma unroll
-        for (int c = 0; c < sb; ++c) acc += tr[b][c] * lse[rp][c];
-        llo[b][rp] = acc;
-        m = dmax(m, acc);
-      }
-      m = finite_or_zero(m);
-#pragma unroll
-      for (int rp = 0; rp < sr; ++rp) llo[b][rp] -= m;
-      sh_new[b] = shift + m;
-    }
-#pragma unroll
-    for (int b = 0; b < sb; ++b) sh[b] = sh_new[b];
   }
 
   // ---- terminate (t = 1) and start the forward pass ----
@@ -160,22 +526,26 @@ __device__ __forceinline__ void pair_recursion(
     T mx = neg_inf<T>();
 #pragma unroll
     for (int r = 0; r < sr; ++r) {
-      x[r] = (s_log_pi[r] + ell[b][r]) + llo[b][r];
+      x[r] = (red.log_pi[r] + ell[b][r]) + llo[b][r];
       mx = dmax(mx, x[r]);
     }
     mx = finite_or_zero(mx);
     T s = 0;
 #pragma unroll
-    for (int r = 0; r < sr; ++r) s += dexp(x[r] - mx);
-    const T lse1 = dlog(s) + mx;  // of the rebased carry
-    ll += pr[b] * (lse1 + sh[b]);
+    for (int r = 0; r < sr; ++r) {
+      x[r] = rexp(x[r] - mx);
+      s += x[r];
+    }
+    ll += pr[b] * ((rlog(s) + mx) + sh[b]);
+    const T f = pr[b] * rrcp(s);
 #pragma unroll
-    for (int r = 0; r < sr; ++r) nu[r][b] = pr[b] * dexp(x[r] - lse1);
+    for (int r = 0; r < sr; ++r) nu[r][b] = f * x[r];
   }
   ll_out[pix] = ll;
 
   T stn[MSR][MSB];
-  T sxi[MSR][MSR];
+  T hsum[MSR][MSR];
+  T sxi_log[MSR][MSR];
 #pragma unroll
   for (int r = 0; r < sr; ++r) {
     T n1 = 0;
@@ -186,74 +556,83 @@ __device__ __forceinline__ void pair_recursion(
     }
     nu1_out[static_cast<size_t>(j * sr + r) * skb + i] = n1;
 #pragma unroll
-    for (int rc = 0; rc < sr; ++rc) sxi[r][rc] = 0;
+    for (int rc = 0; rc < sr; ++rc) {
+      hsum[r][rc] = 0;
+      sxi_log[r][rc] = 0;
+    }
   }
 
-  // ---- forward: t = 2 .. tau, Theta rebuilt from the stored carries ----
-  for (int k = tau - 2; k >= 0; --k) {
-    const T* cld = carry + static_cast<size_t>(k) * sb * sr * plane + pix;
-    T lk[MSB][MSR];
+  // ---- forward: t = 2 .. tau, the backward steps in reverse ----
+  for (int s = nseg - 1; s >= 0; --s) {
+    const int n = min(len, ns - s * len);
+    if constexpr (kCk) {
+      if (s < nseg - 1) {   // recompute segment s's w from its checkpoint
+        const T* ck = st + (seg + s) * slot_len;
 #pragma unroll
-    for (int b = 0; b < sb; ++b)
+        for (int b = 0; b < sb; ++b)
 #pragma unroll
-      for (int r = 0; r < sr; ++r) lk[b][r] = cld[(b * sr + r) * plane];
-
-    T nn[MSR][MSB];
-#pragma unroll
-    for (int rc = 0; rc < sr; ++rc)
-#pragma unroll
-      for (int c = 0; c < sb; ++c) nn[rc][c] = 0;
-
-#pragma unroll
-    for (int rp = 0; rp < sr; ++rp) {
-#pragma unroll
-      for (int c = 0; c < sb; ++c) {
-        // foo[rp][c] = sum_b nu[rp][b] trans[b][c]
-        T foo = 0;
-#pragma unroll
-        for (int b = 0; b < sb; ++b) foo += nu[rp][b] * tr[b][c];
-        // Theta_t[rp][c][:] = softmax_rc of the backward step's logits
-        T x[MSR];
-        T mx = neg_inf<T>();
-#pragma unroll
-        for (int rc = 0; rc < sr; ++rc) {
-          x[rc] = s_log_a[rp * sr + rc] + (ell[c][rc] + lk[c][rc]);
-          mx = dmax(mx, x[rc]);
-        }
-        mx = finite_or_zero(mx);
-        T s = 0;
-#pragma unroll
-        for (int rc = 0; rc < sr; ++rc) {
-          x[rc] = dexp(x[rc] - mx);
-          s += x[rc];
-        }
-        const T scale = foo / s;
-#pragma unroll
-        for (int rc = 0; rc < sr; ++rc) {
-          const T xi = scale * x[rc];
-          sxi[rp][rc] += xi;
-          nn[rc][c] += xi;
-        }
+          for (int r = 0; r < sr; ++r) llo[b][r] = ck[(b * sr + r) * stride];
+        for (int o = 0; o < n; ++o)
+          backward_step<T, SB_, SR_, false>(ell, tr, llo, sh, red,
+                                            st + o * slot_len, stride, sb, sr);
       }
     }
-#pragma unroll
-    for (int r = 0; r < sr; ++r)
-#pragma unroll
-      for (int b = 0; b < sb; ++b) {
-        nu[r][b] = nn[r][b];
-        stn[r][b] += nn[r][b];
-      }
+    // each step's state is loaded, and its reciprocals formed, a step
+    // ahead, beside the current step's chain
+    Step<T, SB_, SR_> cur;
+    load_step(cur, red, st + (n - 1) * slot_len, stride, sb, sr);
+    for (int o = n - 1; o >= 0; --o) {
+      Step<T, SB_, SR_> nxt;
+      load_step(nxt, red, st + (o > 0 ? o - 1 : 0) * slot_len, stride, sb,
+                sr);
+      forward_step<T, SB_, SR_>(tr, nu, stn, hsum, sxi_log, red, cur, sb,
+                                sr);
+      cur = nxt;
+    }
   }
 
 #pragma unroll
   for (int r = 0; r < sr; ++r) {
 #pragma unroll
     for (int rc = 0; rc < sr; ++rc)
-      sxi_out[static_cast<size_t>((j * sr + r) * sr + rc) * skb + i] = sxi[r][rc];
+      sxi_out[static_cast<size_t>((j * sr + r) * sr + rc) * skb + i] =
+          red.a[r * sr + rc] * hsum[r][rc] + sxi_log[r][rc];
 #pragma unroll
     for (int b = 0; b < sb; ++b)
       stn_out[static_cast<size_t>((j * sr + r) * sb + b) * skb + i] = stn[r][b];
   }
+}
+
+// Host side: lets a kernel of the shared-memory designs take `smem` bytes
+// of dynamic shared memory, with the SM's carveout all shared memory, so
+// every block the wrapper's design counted on is resident.  Returns the
+// cudaError_t, or cudaErrorInvalidValue for a launch configuration the
+// kernels do not take.
+template <typename Kernel>
+inline int prepare_launch(Kernel kernel, int design, int threads, int seg,
+                          int smem, int sb, int sr, int tau, int itemsize,
+                          bool has_scratch) {
+  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 || seg < 1 ||
+      smem < 0 || smem > kMaxSmem || design < kResident || design > kScratch ||
+      has_scratch != (design == kScratch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (design == kScratch)
+    return smem == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  const int ns = tau - 1;
+  const int slots = ns <= 0 ? 0
+                    : design == kCheckpointed ? seg + (ns + seg - 1) / seg - 1
+                                              : ns;
+  const long long need =
+      static_cast<long long>(threads) * slots * sb * sr * itemsize;
+  if (need > smem) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return static_cast<int>(err);
 }
 
 }  // namespace vbhem_pair

@@ -13,11 +13,18 @@ tensors it launches its kernel or raises.  There is no fallback.
 Restart trials ride as leading lane axes of the reduced-model arguments
 ([..., Kr, Sr] ...); the kernels fold L*Kr into their launch grid, so all
 trials of a (K, S) cell go in one launch.
+
+Both kernels keep the recursion's per-step state (Sb*Sr values a step and
+pair) where :func:`design` puts it for the shape: in shared memory for all
+tau-1 steps ('resident'), in shared memory as segments with a checkpoint
+of the carry at each segment start ('checkpointed'), or in a device-memory
+scratch ('scratch') for a state that no block can hold.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -25,20 +32,153 @@ from . import _build
 from .pair_estep import PairStats, expected_pair_ll_variational, pair_bwd_fwd
 
 # Kernel launches made in this process: B1 by pair_bwd_fwd_fused_cuda and
-# pair_estep_fused_auto, B3 by pair_bwd_fwd_cuda and pair_bwd_fwd_auto.
+# pair_estep_fused_auto, B3 by pair_bwd_fwd_cuda and pair_bwd_fwd_auto;
+# and each kernel's launches by design.
 LAUNCHES = 0
 BWD_FWD_LAUNCHES = 0
+DESIGNS = ("resident", "checkpointed", "scratch")   # the kernels' codes 0-2
+DESIGN_LAUNCHES = {"B1": dict.fromkeys(DESIGNS, 0),
+                   "B3": dict.fromkeys(DESIGNS, 0)}
 
 MAX_STATES = 8
 MAX_DIM = 4
 MAX_GRID_Y = 65535
 
+# Shared memory of one sm_90 SM (228 KB), of which each resident block
+# takes 1 KB besides its own; a block's static shared memory (its staged
+# reduced model), as ptxas reports it for the specialized bodies (at most
+# 192 B); the dynamic shared memory a block may take, leaving 3 KB of the
+# 227 KB for the static (2.6 KB in the float64 generic B1); the most blocks
+# and threads an SM holds.
+SMEM_PER_SM = 233472
+SMEM_RESERVED_PER_BLOCK = 1024
+STATIC_SMEM = 256
+SMEM_DYNAMIC_MAX = 232448 - 3072
+BLOCKS_PER_SM_MAX = 32
+THREADS_PER_SM_MAX = 2048
+THREAD_CHOICES = (128, 64, 32)
+SMS = 132   # the H100 SXM's SMs, where the wrapper cannot ask the card
+# Pairs per SM at which the resident design no longer loses to designs
+# that hold more: on an H100, at the pipeline's launch (Sb = Sr = 2,
+# tau = 50), the resident design holding 256 pairs per SM ran faster than
+# every checkpointed variant, which held up to about 700 (PERF.md §6).
+RESIDENT_PAIRS_PER_SM = 256
+# A scratch this small stays in the 50 MB L2, and its design holds as many
+# pairs as registers allow.
+SCRATCH_IN_L2 = 40_000_000
+# Below this many pairs per SM the checkpointed design loses to the
+# scratch.
+PAIRS_PER_SM_MIN = 64
+
 _C_FN = {torch.float32: "vbhem_pair_estep_fused_f32",
          torch.float64: "vbhem_pair_estep_fused_f64"}
-_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _BF_C_FN = {torch.float32: "vbhem_pair_bwd_fwd_f32",
             torch.float64: "vbhem_pair_bwd_fwd_f64"}
-_BF_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BF_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+class PairDesign(NamedTuple):
+    """Where B1 and B3 keep the recursion's per-step state: ``kind`` one of
+    :data:`DESIGNS`; ``threads`` pairs per block; ``seg`` steps per segment
+    (the checkpointed design; the others hold all tau-1 steps at once);
+    ``smem_bytes`` of dynamic shared memory per block (0 for the
+    scratch)."""
+    kind: str
+    threads: int
+    seg: int
+    smem_bytes: int
+
+
+def state_slots(kind: str, tau: int, seg: int) -> int:
+    """Per-step states (Sb*Sr values each) one pair keeps in shared
+    memory: every step's, or one segment's and a carry checkpoint at every
+    segment start but the last's, or none (the scratch)."""
+    ns = tau - 1
+    if kind == "scratch" or ns <= 0:
+        return 0
+    if kind == "checkpointed":
+        return seg + -(-ns // seg) - 1
+    return ns
+
+
+def pairs_per_sm(threads: int, smem_bytes: int) -> int:
+    """Pairs an SM holds at once with blocks of ``threads`` pairs and
+    ``smem_bytes`` of dynamic shared memory each (registers aside)."""
+    blocks = SMEM_PER_SM // (smem_bytes + STATIC_SMEM
+                             + SMEM_RESERVED_PER_BLOCK)
+    return min(blocks, BLOCKS_PER_SM_MAX,
+               THREADS_PER_SM_MAX // threads) * threads
+
+
+def _best_block(slots: int, step_bytes: int):
+    """(pairs per SM, threads, smem bytes) of the block size that holds the
+    most pairs per SM, or None when no block of 32 fits.  Among equals the
+    smallest block: at the pipeline's launch blocks of 32 ran 5% faster
+    than blocks of 128 holding as many pairs (PERF.md §6)."""
+    best = None
+    for threads in sorted(THREAD_CHOICES):
+        smem = threads * slots * step_bytes
+        if smem > SMEM_DYNAMIC_MAX:
+            continue
+        held = pairs_per_sm(threads, smem)
+        if best is None or held > best[0]:
+            best = (held, threads, smem)
+    return best
+
+
+def design_of(kind: str, sb: int, sr: int, tau: int, itemsize: int,
+              seg: Optional[int] = None) -> Optional[PairDesign]:
+    """Design ``kind`` at a shape, with the block size that holds the most
+    pairs per SM; the checkpointed design in segments of ``seg`` steps
+    (default ceil(sqrt(tau-1)), which keeps the fewest steps' state).
+    None where no block of 32 pairs holds the state."""
+    ns = tau - 1
+    if kind == "scratch":
+        return PairDesign("scratch", THREAD_CHOICES[0], max(ns, 1), 0)
+    if kind == "checkpointed":
+        seg = seg or math.isqrt(max(ns, 1) - 1) + 1
+    else:
+        seg = max(ns, 1)
+    best = _best_block(state_slots(kind, tau, seg), sb * sr * itemsize)
+    if best is None:
+        return None
+    return PairDesign(kind, best[1], seg, best[2])
+
+
+def design(sb: int, sr: int, tau: int, itemsize: int, pairs: int,
+           sms: int = SMS) -> PairDesign:
+    """The design B1 and B3 take for Sb, Sr, tau, ``itemsize`` and
+    ``pairs`` = Kb * L*Kr on a card of ``sms`` SMs.
+
+    Each thread runs one pair's serial recursion, so a launch's time is
+    the chain of 2 (tau-1) steps times the rounds of pairs each SM runs.
+    The resident design keeps every step's state in shared memory and
+    computes each step once: it is taken where it holds
+    RESIDENT_PAIRS_PER_SM pairs per SM, or all of the launch's.  Else the
+    scratch, where its state stays in L2 (small launches: no limit on the
+    pairs in flight but registers); else the checkpointed design, which
+    keeps about 2 sqrt(tau-1) steps' state and computes most backward
+    steps twice, where it holds PAIRS_PER_SM_MIN pairs per SM; else the
+    scratch."""
+    ns = tau - 1
+    need = -(-pairs // sms)
+    res = design_of("resident", sb, sr, tau, itemsize)
+    if res is not None and pairs_per_sm(res.threads, res.smem_bytes) >= min(
+            RESIDENT_PAIRS_PER_SM, need):
+        return res
+    scratch = design_of("scratch", sb, sr, tau, itemsize)
+    if itemsize * ns * sb * sr * pairs <= SCRATCH_IN_L2:
+        return scratch
+    ck = design_of("checkpointed", sb, sr, tau, itemsize) if ns > 1 else None
+    if ck is not None and pairs_per_sm(ck.threads, ck.smem_bytes) \
+            >= PAIRS_PER_SM_MIN:
+        return ck
+    return scratch
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _check_tensors(named: dict, dtype, device, contiguous=()):
@@ -107,15 +247,29 @@ def validate(prior_b, trans_b, mean_b, cov_b, log_pi_r, log_a_r, m_r, w_r,
     return kb, sb, d, lanes, kr, sr
 
 
-def _outputs(dev, dt, lkr, kb, sb, sr, tau):
-    """The kernels' Kb-last outputs (ll, nu1, sxi, stn) and the carry
-    scratch."""
+def _outputs(dev, dt, lkr, kb, sb, sr):
+    """The kernels' Kb-last outputs (ll, nu1, sxi, stn)."""
     return (torch.empty((lkr, kb), dtype=dt, device=dev),
             torch.empty((lkr, sr, kb), dtype=dt, device=dev),
             torch.empty((lkr, sr, sr, kb), dtype=dt, device=dev),
-            torch.empty((lkr, sr, sb, kb), dtype=dt, device=dev),
-            torch.empty(((tau - 1) * sb * sr * lkr * kb,), dtype=dt,
-                        device=dev))
+            torch.empty((lkr, sr, sb, kb), dtype=dt, device=dev))
+
+
+def _state_args(des: PairDesign, dev, dt, lkr, kb, sb, sr, tau):
+    """The design's arguments of the C interface after the outputs: the
+    scratch [tau-1, Sb*Sr, L*Kr, Kb] (allocated for the scratch design
+    only, else None) and, after the shape, the design's code, block size,
+    segment and shared memory.  Returns (scratch tensor or None, pointer,
+    tail)."""
+    if des.kind not in DESIGNS:
+        raise ValueError(f"unknown design {des.kind!r}")
+    scratch = None
+    if des.kind == "scratch":
+        scratch = torch.empty(((tau - 1) * sb * sr * lkr * kb,), dtype=dt,
+                              device=dev)
+    ptr = None if scratch is None else scratch.data_ptr()
+    tail = (DESIGNS.index(des.kind), des.threads, des.seg, des.smem_bytes)
+    return scratch, ptr, tail
 
 
 def _unfold(ll, nu1, sxi, stn, lanes, kr, kb, sb, sr) -> PairStats:
@@ -128,8 +282,9 @@ def _unfold(ll, nu1, sxi, stn, lanes, kr, kb, sb, sr) -> PairStats:
 
 
 def _launch(prior_b, trans_b, mean_b, cov_b, reduced, tau, kb, sb, lanes,
-            kr, sr) -> PairStats:
-    """One launch on arguments :func:`validate` has accepted."""
+            kr, sr, des: Optional[PairDesign] = None) -> PairStats:
+    """One launch on arguments :func:`validate` has accepted, in ``des``
+    or the design :func:`design` picks."""
     global LAUNCHES
     dev, dt = mean_b.device, mean_b.dtype
     if dev.type != "cuda":
@@ -137,6 +292,8 @@ def _launch(prior_b, trans_b, mean_b, cov_b, reduced, tau, kb, sb, lanes,
     fn = _build.c_function(_C_FN[dt], _ARGTYPES)
     lkr = math.prod(lanes) * kr
     d = mean_b.shape[-1]
+    des = des or design(sb, sr, tau, mean_b.element_size(), kb * lkr,
+                        _sms(dev))
 
     with torch.cuda.device(dev):
         # base bank with Kb last, so the kernel's loads coalesce
@@ -144,30 +301,36 @@ def _launch(prior_b, trans_b, mean_b, cov_b, reduced, tau, kb, sb, lanes,
                   trans_b.permute(1, 2, 0).contiguous(),
                   mean_b.permute(1, 2, 0).contiguous(),
                   cov_b.permute(1, 2, 3, 0).contiguous())
-        outs = _outputs(dev, dt, lkr, kb, sb, sr, tau)
+        outs = _outputs(dev, dt, lkr, kb, sb, sr)
+        scratch, ptr, tail = _state_args(des, dev, dt, lkr, kb, sb, sr, tau)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*[t.data_ptr() for t in base_t + tuple(reduced) + outs],
-                 kb, lkr, sb, sr, d, int(tau), stream)
+                 ptr, kb, lkr, sb, sr, d, int(tau), *tail, stream)
         if err != 0:
-            raise RuntimeError(f"pair_estep_fused kernel launch failed: "
-                               f"cudaError {err}")
+            raise RuntimeError(f"pair_estep_fused kernel launch failed "
+                               f"({des}): cudaError {err}")
         LAUNCHES += 1
-    return _unfold(*outs[:4], lanes, kr, kb, sb, sr)
+        DESIGN_LAUNCHES["B1"][des.kind] += 1
+        del scratch   # freed on the stream, after the kernel
+    return _unfold(*outs, lanes, kr, kb, sb, sr)
 
 
 def pair_bwd_fwd_fused_cuda(prior_b, trans_b, mean_b, cov_b, log_pi_r,
                             log_a_r, m_r, w_r, v_r, lam_r, log_lam_r,
-                            tau: int) -> PairStats:
+                            tau: int,
+                            des: Optional[PairDesign] = None) -> PairStats:
     """Fused pair E-step (E3logN + backward/forward recursions) in one
     launch of the CUDA kernel.  Arguments and results as
     :func:`pair_estep_fused_auto`; every tensor must be on one CUDA
-    device.  The results are views of the kernel's Kb-last buffers."""
+    device.  ``des`` launches that design instead of :func:`design`'s
+    choice (to check and time each design).  The results are views of the
+    kernel's Kb-last buffers."""
     kb, sb, _, lanes, kr, sr = validate(
         prior_b, trans_b, mean_b, cov_b, log_pi_r, log_a_r, m_r, w_r, v_r,
         lam_r, log_lam_r, tau)
     return _launch(prior_b, trans_b, mean_b, cov_b,
                    (log_pi_r, log_a_r, m_r, w_r, v_r, lam_r, log_lam_r),
-                   tau, kb, sb, lanes, kr, sr)
+                   tau, kb, sb, lanes, kr, sr, des)
 
 
 def pair_estep_fused_auto(prior_b, trans_b, mean_b, cov_b, log_pi_r,
@@ -227,15 +390,18 @@ def validate_bwd_fwd(prior_b, trans_b, log_pi_r, log_a_r, ell, tau: int):
 
 
 def _launch_bwd_fwd(prior_b, trans_b, log_pi_r, log_a_r, ell, tau, kb, sb,
-                    lanes, kr, sr) -> PairStats:
+                    lanes, kr, sr,
+                    des: Optional[PairDesign] = None) -> PairStats:
     """One launch of B3 on arguments :func:`validate_bwd_fwd` has
-    accepted."""
+    accepted, in ``des`` or the design :func:`design` picks."""
     global BWD_FWD_LAUNCHES
     dev, dt = ell.device, ell.dtype
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     fn = _build.c_function(_BF_C_FN[dt], _BF_ARGTYPES)
     lkr = math.prod(lanes) * kr
+    des = des or design(sb, sr, tau, ell.element_size(), kb * lkr,
+                        _sms(dev))
 
     with torch.cuda.device(dev):
         # [..., Kb, Kr, Sb, Sr] -> [L*Kr, Sb, Sr, Kb]: no copy when ell is
@@ -244,27 +410,31 @@ def _launch_bwd_fwd(prior_b, trans_b, log_pi_r, log_a_r, ell, tau, kb, sb,
         ins = (ell_t, prior_b.t().contiguous(),
                trans_b.permute(1, 2, 0).contiguous(), log_pi_r.contiguous(),
                log_a_r.contiguous())
-        outs = _outputs(dev, dt, lkr, kb, sb, sr, tau)
+        outs = _outputs(dev, dt, lkr, kb, sb, sr)
+        scratch, ptr, tail = _state_args(des, dev, dt, lkr, kb, sb, sr, tau)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[t.data_ptr() for t in ins + outs], kb, lkr, sb, sr,
-                 int(tau), stream)
+        err = fn(*[t.data_ptr() for t in ins + outs], ptr, kb, lkr, sb, sr,
+                 int(tau), *tail, stream)
         if err != 0:
-            raise RuntimeError(f"pair_bwd_fwd kernel launch failed: "
-                               f"cudaError {err}")
+            raise RuntimeError(f"pair_bwd_fwd kernel launch failed "
+                               f"({des}): cudaError {err}")
         BWD_FWD_LAUNCHES += 1
-    return _unfold(*outs[:4], lanes, kr, kb, sb, sr)
+        DESIGN_LAUNCHES["B3"][des.kind] += 1
+        del scratch   # freed on the stream, after the kernel
+    return _unfold(*outs, lanes, kr, kb, sb, sr)
 
 
-def pair_bwd_fwd_cuda(prior_b, trans_b, log_pi_r, log_a_r, ell,
-                      tau: int) -> PairStats:
+def pair_bwd_fwd_cuda(prior_b, trans_b, log_pi_r, log_a_r, ell, tau: int,
+                      des: Optional[PairDesign] = None) -> PairStats:
     """The recursion on a precomputed emission matrix in one launch of
     kernel B3.  Arguments and results as :func:`pair_bwd_fwd_auto`; every
-    tensor must be on one CUDA device.  The results are views of the
+    tensor must be on one CUDA device.  ``des`` launches that design
+    instead of :func:`design`'s choice.  The results are views of the
     kernel's Kb-last buffers."""
     kb, sb, lanes, kr, sr = validate_bwd_fwd(prior_b, trans_b, log_pi_r,
                                              log_a_r, ell, tau)
     return _launch_bwd_fwd(prior_b, trans_b, log_pi_r, log_a_r, ell, tau,
-                           kb, sb, lanes, kr, sr)
+                           kb, sb, lanes, kr, sr, des)
 
 
 def pair_bwd_fwd_auto(prior_b, trans_b, log_pi_r, log_a_r, ell,
