@@ -16,10 +16,10 @@ Phases (any failure exits non-zero and prints no result line):
      log_rho, in the resident and the streamed design, and the fused
      E-step that forms log_rho from x in the kernel), B3 the VHEM / DIC
      pair recursion; B1 and B3 in each of their designs (the recursion's
-     state resident or checkpointed in shared memory, or in a
-     device-memory scratch), at shapes that pick each and with each
-     forced at the main paths' shapes, and on inputs that fire the
-     recursion's underflow guard (masked reduced states, -inf log_a);
+     state resident in shared memory, or in a device-memory scratch), at
+     shapes that pick each and with each forced at the main paths'
+     shapes, and on inputs that fire the recursion's underflow guard
+     (masked reduced states, -inf log_a);
   3. VBHEM path: ``vbhem.cluster`` over (K, S) in {1,2,3} x {2,3} on a
      planted bank of 8192 base HMMs with 8 restart trials per cell; the
      ELBOs must be finite, every EM iteration must have launched B1, in an
@@ -119,12 +119,18 @@ DEVICE_NAMES = {"B1": "pair_estep_fused_kernel", "B2": "fb_resident_kernel",
                 "B3": "pair_bwd_fwd_kernel"}
 
 # Peak rates of one H100 SXM, from NVIDIA's published specifications:
-# device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.
-# Special functions (exp, log) run on the SFUs: 16 results per clock per
-# SM (NVIDIA's published arithmetic throughput table for compute
-# capability 9.0) at the 1.98 GHz boost clock, over the card's SMs.
+# device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s,
+# float64 outside the tensor cores 34 TFLOP/s.  float32 special functions
+# (exp, log) run on the SFUs: 16 results per clock per SM (NVIDIA's
+# published arithmetic throughput table for compute capability 9.0) at
+# the 1.98 GHz boost clock, over the card's SMs.  float64 ones have no
+# SFU instruction and run as float64 arithmetic: counted as 16 flops each
+# (8 FMAs: a range reduction and a short polynomial, fewer than any
+# correctly rounded exp or log takes), so the bound stays a floor.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+F64_FLOP_PER_S = 34e12
+F64_FLOP_PER_SPECIAL = 16
 SFU_PER_SM_PER_CLOCK = 16
 BOOST_HZ = 1.98e9
 
@@ -179,14 +185,11 @@ def read_counts() -> dict:
 
 def check_on_chip(fails, what, launches, kernel):
     """Every launch of ``kernel`` in ``launches`` kept the recursion's
-    state on chip (resident or checkpointed): none took the scratch."""
-    on_chip = (launches[f"{kernel}_resident"]
-               + launches[f"{kernel}_checkpointed"])
-    fails.check(on_chip == launches[kernel] > 0
+    state on chip (the resident design): none took the scratch."""
+    fails.check(launches[f"{kernel}_resident"] == launches[kernel] > 0
                 and launches[f"{kernel}_scratch"] == 0,
                 f"{what}: {kernel}'s {launches[kernel]} launches all on "
                 f"chip (resident {launches[f'{kernel}_resident']}, "
-                f"checkpointed {launches[f'{kernel}_checkpointed']}, "
                 f"scratch {launches[f'{kernel}_scratch']})")
 
 
@@ -198,13 +201,19 @@ def sm_count() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
-def bound(n_bytes: float, n_sfu: float, n_flop: float) -> dict:
-    """The larger of the bytes time and the operations time (special
-    functions on the SFUs, the rest at the float32 rate)."""
+def bound(n_bytes: float, n_sfu: float, n_flop: float,
+          itemsize: int = 4) -> dict:
+    """The larger of the bytes time and the operations time: in float32
+    the special functions on the SFUs, the rest at the float32 rate; in
+    float64 both at the float64 rate, F64_FLOP_PER_SPECIAL flops for each
+    special function."""
     sms = sm_count()
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = max(n_sfu / (sms * SFU_PER_SM_PER_CLOCK * BOOST_HZ),
-                n_flop / F32_FLOP_PER_S)
+    if itemsize == 8:
+        t_ops = (n_sfu * F64_FLOP_PER_SPECIAL + n_flop) / F64_FLOP_PER_S
+    else:
+        t_ops = max(n_sfu / (sms * SFU_PER_SM_PER_CLOCK * BOOST_HZ),
+                    n_flop / F32_FLOP_PER_S)
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": n_bytes, "sfu_ops": n_sfu, "flops": n_flop}
@@ -226,8 +235,10 @@ def pair_sfu_before(pairs, sb, sr, tau) -> int:
     return pairs * ((tau - 1) * (sr * sr * sb + sr * sb) + sb * (2 * sr + 1))
 
 
-def _with_count_before(b, n_bytes, pairs, sb, sr, tau, flop) -> dict:
-    before = bound(n_bytes, pair_sfu_before(pairs, sb, sr, tau), flop)
+def _with_count_before(b, n_bytes, pairs, sb, sr, tau, flop,
+                       itemsize) -> dict:
+    before = bound(n_bytes, pair_sfu_before(pairs, sb, sr, tau), flop,
+                   itemsize)
     return {**b, "bound_ms_before": before["bound_ms"],
             "sfu_ops_before": before["sfu_ops"]}
 
@@ -245,8 +256,8 @@ def b1_bound(kb, lkr, sb, sr, d, tau, itemsize) -> dict:
                           + lkr * sr * (sr + d + d * d + 4)
                           + pairs * (1 + sr + sr * sr + sr * sb))
     return _with_count_before(
-        bound(n_bytes, pair_sfu(pairs, sb, sr, tau), flop), n_bytes, pairs,
-        sb, sr, tau, flop)
+        bound(n_bytes, pair_sfu(pairs, sb, sr, tau), flop, itemsize),
+        n_bytes, pairs, sb, sr, tau, flop, itemsize)
 
 
 def b3_bound(kb, lkr, sb, sr, tau, itemsize) -> dict:
@@ -260,14 +271,15 @@ def b3_bound(kb, lkr, sb, sr, tau, itemsize) -> dict:
                           + pairs * sb * sr
                           + pairs * (1 + sr + sr * sr + sr * sb))
     return {**_with_count_before(
-        bound(n_bytes, pair_sfu(pairs, sb, sr, tau), flop), n_bytes, pairs,
-        sb, sr, tau, flop), "ell_bytes": itemsize * pairs * sb * sr}
+        bound(n_bytes, pair_sfu(pairs, sb, sr, tau), flop, itemsize),
+        n_bytes, pairs, sb, sr, tau, flop, itemsize),
+        "ell_bytes": itemsize * pairs * sb * sr}
 
 
 def design_note(des, pairs, sb, sr, tau, itemsize) -> str:
     """The design a launch takes, and the scratch it allocates (only the
     scratch design has one)."""
-    note = f"design {des.kind} ({des.threads} threads, segment {des.seg}, " \
+    note = f"design {des.kind} ({des.threads} threads, " \
            f"{des.smem_bytes} B of shared memory a block)"
     if des.kind == "scratch":
         note += (f"; its scratch {itemsize * (tau - 1) * sb * sr * pairs:.4g}"
@@ -297,7 +309,7 @@ def b2_bound(log_pz1, log_trans, log_rho, mask) -> dict:
                        + log_pz1.numel() + log_trans.numel())
                + mask_bytes(m8))
     sfu = valid * (k + 1) + log_pz1.numel() + log_trans.numel()
-    return bound(n_bytes, sfu, valid * 10 * k * k)
+    return bound(n_bytes, sfu, valid * 10 * k * k, size)
 
 
 def b2_fused_bound(x, mask, log_pz1, log_trans, emis) -> dict:
@@ -320,7 +332,7 @@ def b2_fused_bound(x, mask, log_pz1, log_trans, emis) -> dict:
                        + n_seq * (k * k + 1)) + mask_bytes(m8))
     sfu = valid * (k + 1) + log_pz1.numel() + log_trans.numel()
     flop = valid * (10 * k * k + k * (d + 2 * d * d + 1))
-    return bound(n_bytes, sfu, flop)
+    return bound(n_bytes, sfu, flop, size)
 
 
 # ---------------------------------------------------------------------------
@@ -416,28 +428,24 @@ B1_CASES = [
     # masks it (-1e30), its E3logN 1000 nats above the others'
     ("masked_state_ragged", 256, 4, 3, 3, 2, 10, 1, True, "state", None),
     ("masked_column_tau50", 256, 4, 2, 2, 2, 50, 1, False, "column", None),
-    ("masked_state_checkpointed", 256, 4, 3, 3, 2, 50, 1, True, "state",
-     "checkpointed"),
     ("masked_state_scratch", 256, 4, 3, 3, 2, 10, 1, True, "state",
      "scratch"),
-    # past the resident design: shapes that pick the checkpointed design
-    # and the scratch (the generic body, Sb = Sr = 8)
+    ("masked_state_tau50_scratch", 256, 4, 3, 3, 2, 50, 1, True, "state",
+     "scratch"),
+    # past the resident design: shapes that pick the scratch (long tau;
+    # the generic body, Sb = Sr = 8)
     ("tau200", 8192, 2, 2, 2, 2, 200, 2, False, None, None),
     ("s8_tau200", 256, 2, 8, 8, 2, 200, 1, False, None, None),
     ("bench_shape", 8192, 8, 3, 3, 2, 10, 1, False, None, None),
     # the launches of phase 3's largest cells: 8 restart lanes of Kr=3
     ("main_cell", 8192, 3, 3, 3, 2, 10, 8, False, None, None),
     ("main_cell_sr2", 8192, 3, 3, 2, 2, 10, 8, False, None, None),
-    ("main_cell_checkpointed", 8192, 3, 3, 3, 2, 10, 8, False, None,
-     "checkpointed"),
     ("main_cell_scratch", 8192, 3, 3, 3, 2, 10, 8, False, None, "scratch"),
     # the launches of phase 5: a learned bank of 2-state HMMs, tau=50
     ("pipeline_cell", 8192, 3, 2, 2, 2, 50, 8, False, None, None),
     ("pipeline_cell_64", 8192, 2, 2, 2, 2, 50, 64, False, None, None),
     ("pipeline_cell_64_resident", 8192, 2, 2, 2, 2, 50, 64, False, None,
      "resident"),
-    ("pipeline_cell_64_checkpointed", 8192, 2, 2, 2, 2, 50, 64, False, None,
-     "checkpointed"),
     ("pipeline_cell_64_scratch", 8192, 2, 2, 2, 2, 50, 64, False, None,
      "scratch"),
 ]
@@ -473,7 +481,7 @@ def design_name(des, sb, sr, tau, dtype, pairs) -> str:
         itemsize = torch.empty((), dtype=dtype).element_size()
         des = pair_estep_cuda.design(sb, sr, tau, itemsize, pairs,
                                      sm_count())
-    return f"{des.kind} t={des.threads} seg={des.seg}"
+    return f"{des.kind} t={des.threads}"
 
 
 def _plain_pair(args, tau):
@@ -711,17 +719,15 @@ B3_CASES = [
     ("log_a_neg_inf_spread", 1, 256, 3, 2, 3, 10, False, "zeros_spread",
      None),
     ("log_a_neg_inf_spread_tau50", 1, 256, 3, 2, 3, 50, False,
-     "zeros_spread", "checkpointed"),
+     "zeros_spread", "scratch"),
     ("masked_state_ragged", 1, 256, 3, 3, 3, 10, True, "masked", None),
     ("masked_state_scratch", 1, 256, 3, 3, 3, 10, True, "masked",
      "scratch"),
-    # past the resident design: the checkpointed design and the scratch
-    # (the generic body, Sb = Sr = 8)
+    # past the resident design: the scratch (long tau; the generic body,
+    # Sb = Sr = 8)
     ("tau200", 2, 8192, 2, 2, 2, 200, False, None, None),
     ("s8_tau200", 1, 256, 2, 8, 8, 200, False, None, None),
     ("vhem_full_width", *VHEM_FULL, False, None, None),
-    ("vhem_full_width_checkpointed", *VHEM_FULL, False, None,
-     "checkpointed"),
     ("vhem_full_width_scratch", *VHEM_FULL, False, None, "scratch"),
     # phase 7's launch: the (2, 2) instantiation at tau=50
     ("dic_cell", 1, 8192, 3, 2, 2, 50, False, None, None),

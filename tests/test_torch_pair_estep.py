@@ -273,8 +273,7 @@ def test_library_path_keys_on_sources(monkeypatch, tmp_path):
 def test_kernel_rebased_carry_matches_loop_oracle(tau, sr):
     """The rebased, scaled recursion of the CUDA kernels, which cannot run
     here (tests/test_torch_pair_recursion.py transliterates it), on B1's
-    E3logN, against the explicit-loop oracle of tests/test_pair_estep.py,
-    keeping every step's state and in segments of 3 steps."""
+    E3logN, against the explicit-loop oracle of tests/test_pair_estep.py."""
     case = make_case(9, kb=3, kr=2, sb=3, sr=sr, ragged=True)
     t = port(case)
     ell = tpe.expected_pair_ll_variational(*t[2:4], *t[6:]).numpy()
@@ -283,13 +282,11 @@ def test_kernel_rebased_carry_matches_loop_oracle(tau, sr):
         for j in range(2):
             want = oracle_pair(prior[i], trans[i], log_pi[j], log_a[j],
                                ell[i, j], tau)
-            for seg in (None, 3):
-                got = scaled_pair_transliteration(
-                    prior[i], trans[i], log_pi[j], log_a[j], ell[i, j], tau,
-                    seg=seg)
-                np.testing.assert_allclose(got[0], want[0], rtol=1e-12)
-                for g, w in zip(got[1:4], want[1:]):
-                    np.testing.assert_allclose(g, w, rtol=1e-10, atol=1e-13)
+            got = scaled_pair_transliteration(
+                prior[i], trans[i], log_pi[j], log_a[j], ell[i, j], tau)
+            np.testing.assert_allclose(got[0], want[0], rtol=1e-12)
+            for g, w in zip(got[1:4], want[1:]):
+                np.testing.assert_allclose(g, w, rtol=1e-10, atol=1e-13)
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,13 @@
 """The pair recursion of kernels B1 and B3 (``csrc/pair_recursion.cuh``),
 which cannot run here, transliterated into NumPy: the scaled backward
-step, the per-step state w kept for the forward pass (every step, or
-segments recomputed from carry checkpoints), the underflow guard, and the
-forward pass that forms Theta from the state without exps.  Held to the
+step, the per-step state w kept for the forward pass, the underflow
+guard, and the forward pass that forms Theta from the state without
+exps.  Held to the
 explicit-loop oracle of tests/test_pair_estep.py at rtol 1e-10 in float64,
 and within the kernels' float32 gate (5e-5 of max |got - want| /
 (|want| + 1)) of that oracle in float32, on ragged Sb, Sr=1, -inf log_a,
 -1e30 masked reduced states and ell spreads of 10^3 nats.  Also the
 wrapper's choice of design and its shared-memory sizing by shape."""
-import math
-
 import numpy as np
 import pytest
 import torch
@@ -22,11 +20,9 @@ FLOOR = {np.float32: 2.0 ** -64, np.float64: 2.0 ** -512}
 
 
 def scaled_pair_transliteration(prior, trans, log_pi, log_a, ell, tau,
-                                dtype=np.float64, seg=None):
+                                dtype=np.float64):
     """``pair_recursion`` of ``csrc/pair_recursion.cuh`` for one pair, in
-    ``dtype``.  ``seg`` is the checkpointed design's segment length (None:
-    every step's state kept, as the resident and scratch designs do).
-    Returns (ll_elbo, nu_1 [Sr], sum_xi [Sr, Sr], sum_t_nu [Sr, Sb], the
+    ``dtype``, keeping every step's state as both designs do.  Returns (ll_elbo, nu_1 [Sr], sum_xi [Sr, Sr], sum_t_nu [Sr, Sb], the
     count of columns the underflow guard took to the log domain)."""
     prior, trans, log_pi, log_a, ell = (np.asarray(x, dtype) for x in
                                         (prior, trans, log_pi, log_a, ell))
@@ -56,8 +52,7 @@ def scaled_pair_transliteration(prior, trans, log_pi, log_a, ell, tau,
                 lse[rp, c] = (np.log(np.exp(x - m).sum()) + m) - mc[c]
             state[c] = (z[c] - mc[c]) - one           # log w - 1 < 0
         # the carry keeps trans lse, the shift trans (m_c + shift)
-        new_sh = None if sh is None else trans @ (mc + sh)
-        return trans @ lse.T, new_sh, state           # [b, rp]
+        return trans @ lse.T, trans @ (mc + sh), state   # [b, rp]
 
     def forward(nu, state, hsum, sxi_log):
         """One step; sum_xi = A * hsum + sxi_log after the last."""
@@ -82,16 +77,11 @@ def scaled_pair_transliteration(prior, trans, log_pi, log_a, ell, tau,
         hsum += g @ state                             # [rp, rc]
         return nn
 
-    ns = tau - 1
-    seg = ns if seg is None else seg
-    nseg = -(-ns // seg) if ns > 0 else 0
     llo, sh = np.zeros((sb, sr), dtype), np.zeros(sb, dtype)
-    checkpoints, slots = {}, {}
-    for k in range(ns):
-        s, off = divmod(k, seg)
-        if off == 0 and s < nseg - 1:
-            checkpoints[s] = llo.copy()
-        llo, sh, slots[off] = backward(llo, sh)
+    slots = []
+    for _ in range(tau - 1):
+        llo, sh, state = backward(llo, sh)
+        slots.append(state)
 
     x = log_pi[None, :] + ell + llo                   # [b, r]
     mx = np.array([fz(v) for v in x.max(axis=1)], dtype)
@@ -101,15 +91,9 @@ def scaled_pair_transliteration(prior, trans, log_pi, log_a, ell, tau,
     nu = ((prior / tot)[:, None] * e).T               # [r, b]
     nu1, stn = nu.sum(axis=1), nu.copy()
     hsum, sxi_log = np.zeros((sr, sr), dtype), np.zeros((sr, sr), dtype)
-    for s in range(nseg - 1, -1, -1):
-        n = min(seg, ns - s * seg)
-        if s < nseg - 1:                              # recompute segment s
-            carry = checkpoints[s]
-            for o in range(n):
-                carry, _, slots[o] = backward(carry, None)
-        for o in range(n - 1, -1, -1):
-            nu = forward(nu, slots[o], hsum, sxi_log)
-            stn += nu
+    for state in reversed(slots):
+        nu = forward(nu, state, hsum, sxi_log)
+        stn += nu
     return ll, nu1, a * hsum + sxi_log, stn, guarded[0]
 
 
@@ -184,9 +168,8 @@ def _rel(got, want):
 @pytest.mark.parametrize("tau", TAUS)
 @pytest.mark.parametrize("name", list(CASES))
 def test_scaled_recursion_f64_matches_loop_oracle(name, tau):
-    """Every step's state kept (the resident and scratch designs) and, for
-    tau >= 10, segments of 3 steps recomputed from checkpoints (the
-    checkpointed design): rtol 1e-10 against the oracle."""
+    """rtol 1e-10 against the oracle, and the guard fires in the cases
+    built for it."""
     kw, must_guard = CASES[name]
     fired = 0
     for pair in make_pairs(20 + tau, **kw):
@@ -194,10 +177,6 @@ def test_scaled_recursion_f64_matches_loop_oracle(name, tau):
         got = scaled_pair_transliteration(*pair, tau)
         _check(got, want, 1e-10, 1e-13)
         fired += got[4]
-        if tau >= 10:
-            ck = scaled_pair_transliteration(*pair, tau, seg=3)
-            _check(ck, want, 1e-10, 1e-13)
-            assert ck[4] >= got[4]   # the recomputed steps guard again
     assert (fired > 0) == (must_guard and tau > 1), fired
 
 
@@ -213,11 +192,10 @@ def test_scaled_recursion_f32_within_gate(name, tau):
         p32 = [np.asarray(x, np.float32) for x in pair]
         with np.errstate(over="ignore", under="ignore"):
             want = oracle_pair(*[x.astype(np.float64) for x in p32], tau)
-            for seg in (None, 7):
-                got = scaled_pair_transliteration(*p32, tau, np.float32, seg)
-                assert all(np.all(np.isfinite(g)) for g in got[:4])
-                worst = max(worst, _rel(got, want))
-                fired += got[4]
+            got = scaled_pair_transliteration(*p32, tau, np.float32)
+            assert all(np.all(np.isfinite(g)) for g in got[:4])
+            worst = max(worst, _rel(got, want))
+            fired += got[4]
     assert worst <= KERNEL_TOL, worst
     assert (fired > 0) == (must_guard and tau > 1), fired
 
@@ -236,15 +214,6 @@ def test_guard_keeps_log_zero_out_of_ragged_rows():
 # ---------------------------------------------------------------------------
 # the wrapper's design by shape
 # ---------------------------------------------------------------------------
-
-def test_state_slots():
-    assert tpc.state_slots("resident", 10, 9) == 9
-    assert tpc.state_slots("scratch", 10, 9) == 0
-    assert tpc.state_slots("resident", 1, 1) == 0
-    # 49 steps in segments of 7: one segment's state and 6 checkpoints
-    assert tpc.state_slots("checkpointed", 50, 7) == 7 + 6
-    assert tpc.state_slots("checkpointed", 51, 7) == 7 + 7
-
 
 def test_pairs_per_sm():
     # no shared memory: the 2048-thread limit
@@ -265,61 +234,79 @@ BENCH, MAIN, PIPE, VHEM = 8192 * 8, 8192 * 24, 8192 * 192, 8192 * 60
     (2, 3, 10, 4, VHEM, "resident"),       # VHEM full width
     (2, 2, 50, 4, 8192 * 3, "resident"),   # DIC, float32
     (2, 2, 50, 8, 8192 * 2, "resident"),   # DIC, float64: all pairs held
-    (2, 2, 50, 8, 8192 * 3, "scratch"),    # DIC, float64: 38 MB, in L2
+    (2, 2, 50, 8, 8192 * 3, "scratch"),    # DIC, float64: 128 of 187 held
     (3, 3, 10, 8, MAIN, "resident"),       # float64 main-path cell
     (2, 2, 1, 4, MAIN, "resident"),        # no steps
-    (2, 2, 200, 4, PIPE, "checkpointed"),  # long tau
+    (2, 2, 200, 4, PIPE, "scratch"),       # long tau: 64 pairs per SM
+    (2, 2, 200, 4, 8192 * 4, "scratch"),   # chip_smoke's long-tau case
     (2, 2, 200, 4, 4096, "resident"),      # long tau, a small launch
     (8, 8, 200, 8, 512, "scratch"),        # no block holds the state
     (8, 8, 200, 4, 512, "scratch"),
+    (8, 8, 10, 8, 256, "resident"),        # f64, Sb = Sr = 8: 32 a SM held
+    (8, 8, 10, 8, 8192, "scratch"),        # ... where 63 a SM are needed
 ])
 def test_design_by_shape(sb, sr, tau, itemsize, pairs, kind):
     des = tpc.design(sb, sr, tau, itemsize, pairs)
     assert des.kind == kind
     assert des.threads in tpc.THREAD_CHOICES
-    slots = tpc.state_slots(des.kind, tau, des.seg)
-    # the block's state fits its dynamic shared memory, which fits a block
-    assert des.smem_bytes == des.threads * slots * sb * sr * itemsize
-    assert des.smem_bytes <= tpc.SMEM_DYNAMIC_MAX
-    held = tpc.pairs_per_sm(des.threads, des.smem_bytes)
-    if kind == "checkpointed":
-        assert 1 <= des.seg < tau - 1
-        assert des.seg == math.isqrt(tau - 2) + 1
-        assert held >= tpc.PAIRS_PER_SM_MIN
-    elif kind == "resident":
-        assert des.seg == max(tau - 1, 1)
-        assert held >= min(tpc.RESIDENT_PAIRS_PER_SM,
-                           -(-pairs // tpc.SMS))
+    need = min(tpc.RESIDENT_PAIRS_PER_SM, -(-pairs // tpc.SMS))
+    res = tpc.design_of("resident", sb, sr, tau, itemsize)
+    if kind == "resident":
+        # every step's state fits the dynamic shared memory of a block
+        assert des == res
+        assert des.smem_bytes == des.threads * (tau - 1) * sb * sr * itemsize
+        assert des.smem_bytes <= tpc.SMEM_DYNAMIC_MAX
+        assert tpc.pairs_per_sm(des.threads, des.smem_bytes) >= need
     else:
         assert des.smem_bytes == 0
+        # the scratch only where the resident design holds too few pairs
+        assert res is None or tpc.pairs_per_sm(res.threads,
+                                               res.smem_bytes) < need
 
 
 def test_resident_takes_every_step_where_it_holds_enough_pairs():
     # bench / main-path cell: 9 steps x 9 values x 4 bytes = 324 B a pair
     # (640 pairs per SM in blocks of 32, 64 or 128: the smallest taken)
     des = tpc.design(3, 3, 10, 4, MAIN)
-    assert des == tpc.PairDesign("resident", 32, 9, 32 * 324)
+    assert des == tpc.PairDesign("resident", 32, 32 * 324)
     assert tpc.pairs_per_sm(des.threads, des.smem_bytes) == 640
     assert tpc.pairs_per_sm(128, 128 * 324) == 640
     # the pipeline: 784 B a pair, 256 pairs per SM
     des = tpc.design(2, 2, 50, 4, PIPE)
-    assert des == tpc.PairDesign("resident", 32, 49, 32 * 784)
+    assert des == tpc.PairDesign("resident", 32, 32 * 784)
     assert tpc.pairs_per_sm(des.threads, des.smem_bytes) == 256
     # a card with fewer SMs needs more pairs per SM
     assert tpc.design(2, 2, 50, 8, 8192 * 2, sms=66).kind == "scratch"
 
 
+def test_design_of_sizes_blocks_and_rejects_unknown_kinds():
+    # tau = 1: no steps, no shared memory; 64 threads reach the 2048-thread
+    # limit first
+    assert tpc.design_of("resident", 3, 3, 1, 4) == tpc.PairDesign(
+        "resident", 64, 0)
+    # 1568 B a pair in float64 at the pipeline's shape: blocks of 32 hold
+    # 4 x 32 = 128 pairs per SM, blocks of 128 only one
+    des = tpc.design_of("resident", 2, 2, 50, 8)
+    assert des == tpc.PairDesign("resident", 32, 32 * 1568)
+    assert tpc.pairs_per_sm(des.threads, des.smem_bytes) == 128
+    # no block of 32 holds 199 steps of 64 float64 values
+    assert tpc.design_of("resident", 8, 8, 200, 8) is None
+    assert tpc.design_of("scratch", 8, 8, 200, 8) == tpc.PairDesign(
+        "scratch", 128, 0)
+    with pytest.raises(ValueError, match="design"):
+        tpc.design_of("checkpointed", 2, 2, 50, 4)
+
+
 def test_state_args_allocate_scratch_only_for_the_scratch_design():
     dev, dt = torch.device("cpu"), torch.float32
-    for kind in ("resident", "checkpointed"):
-        des = tpc.PairDesign(kind, 64, 3, 4096)
-        scratch, ptr, tail = tpc._state_args(des, dev, dt, 6, 40, 2, 3, 10)
-        assert scratch is None and ptr is None
-        assert tail == (tpc.DESIGNS.index(kind), 64, 3, 4096)
-    des = tpc.PairDesign("scratch", 128, 9, 0)
+    des = tpc.PairDesign("resident", 64, 4096)
+    scratch, ptr, tail = tpc._state_args(des, dev, dt, 6, 40, 2, 3, 10)
+    assert scratch is None and ptr is None
+    assert tail == (0, 64, 4096)
+    des = tpc.PairDesign("scratch", 128, 0)
     scratch, ptr, tail = tpc._state_args(des, dev, dt, 6, 40, 2, 3, 10)
     assert scratch.numel() == 9 * 2 * 3 * 6 * 40
-    assert ptr == scratch.data_ptr() and tail == (2, 128, 9, 0)
+    assert ptr == scratch.data_ptr() and tail == (1, 128, 0)
     with pytest.raises(ValueError, match="design"):
-        tpc._state_args(tpc.PairDesign("other", 128, 9, 0), dev, dt, 6, 40,
+        tpc._state_args(tpc.PairDesign("other", 128, 0), dev, dt, 6, 40,
                         2, 3, 10)

@@ -3,7 +3,6 @@ precomputed emission matrix) at the launches of the port's paths on one
 NVIDIA card.
 
     python3 tools/time_pair.py [--n 50] [--label NAME] [--out FILE]
-                               [--designs] [--min-blocks 4,5]
 
 Shapes, float32 unless named (Kb=8192, D=2, random banks and starts):
   B1 bench: L=1, Kr=8, Sb=Sr=3, tau=10 (bench.py's shape);
@@ -13,19 +12,12 @@ Shapes, float32 unless named (Kb=8192, D=2, random banks and starts):
   B3 DIC cells: L=1, Kr=1, 2, 3, Sb=Sr=2, tau=50, float32 and float64
   (phase 7);
   B1 long tau: L=8, Kr=2, Sb=Sr=2, tau=200, past what the resident design
-  holds (no path of the port launches it yet).
+  holds, so the wrapper takes the device-memory scratch (no path of the
+  port launches it yet).
 For each: the kernel's device time (torch.profiler), the wrapper's time
-and the plain PyTorch version's time (CUDA events), and the bound as the
-chip_smoke.py beside this file computes it.  ``--designs`` (only where the
-wrapper takes a design, ``ops/pair_estep_cuda.PairDesign``) also launches
-each design at each shape, resident and checkpointed at several block
-sizes and segments and the device-memory scratch, holds each against the
-plain version in float64 (the gate of chip_smoke.py) and times it.
-``--min-blocks`` also builds the two kernels' sources again for each
-value given as the least blocks per SM of their float32 bodies
-(``VBHEM_PAIR_MIN_BLOCKS_F32``, which caps the registers ptxas may give a
-thread), prints ptxas' register report, and gates and times the float32
-shapes with each.
+and the plain PyTorch version's time (CUDA events), the bound as the
+chip_smoke.py beside this file computes it, and, where the checkout's
+wrapper picks a design (``ops/pair_estep_cuda.design``), the one it took.
 
 It takes its helpers from the chip_smoke.py of the checkout it sits in
 (``random_posts``, ``kernel_args``, ``_plain_pair``, ``b3_inputs``,
@@ -40,11 +32,7 @@ object; ``--out`` also writes the object to a file.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import math
-import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -58,7 +46,7 @@ import chip_smoke  # noqa: E402
 from vbhem_tpu_torch import VBHEMConfig  # noqa: E402
 from vbhem_tpu_torch.models import vbhem  # noqa: E402
 from vbhem_tpu_torch.ops import pair_estep as plain  # noqa: E402
-from vbhem_tpu_torch.ops import _build, pair_estep_cuda  # noqa: E402
+from vbhem_tpu_torch.ops import pair_estep_cuda  # noqa: E402
 from vbhem_tpu_torch.utils.planted import random_bank  # noqa: E402
 
 KB, D = 8192, 2
@@ -82,7 +70,7 @@ DEVICE_NAMES = {"B1": "pair_estep_fused_kernel", "B3": "pair_bwd_fwd_kernel"}
 
 
 def inputs(kernel, lanes, kr, sb, sr, tau, dtype, device):
-    """(launch(des=None), plain version, plain version in float64)."""
+    """(launch, plain version)."""
     if kernel == "B1":
         base = random_bank(np.random.default_rng(0), KB, sb, D, device,
                            dtype)
@@ -99,52 +87,14 @@ def inputs(kernel, lanes, kr, sb, sr, tau, dtype, device):
         fn = pair_estep_cuda.pair_bwd_fwd_cuda
         plain_fn = plain.pair_bwd_fwd
 
-    def launch(des=None):
-        if des is None:
-            return fn(*args, tau)
-        return fn(*args, tau, des=des)
-    return (launch, lambda: plain_fn(args, tau) if kernel == "B1"
-            else plain_fn(*args, tau),
-            lambda: (plain_fn(tuple(a.double() for a in args), tau)
-                     if kernel == "B1"
-                     else plain_fn(*[a.double() for a in args], tau)))
+    return (lambda: fn(*args, tau),
+            lambda: plain_fn(args, tau) if kernel == "B1"
+            else plain_fn(*args, tau))
 
 
-def design_variants(sb, sr, tau, itemsize, pairs, sms) -> list:
-    """(name, PairDesign) of the designs worth timing at a shape: the
-    wrapper's choice, the resident design at each block size that fits,
-    the checkpointed one at a few segment lengths and block sizes, the
-    scratch."""
-    pd = pair_estep_cuda
-    ns = tau - 1
-    auto = pd.design(sb, sr, tau, itemsize, pairs, sms)
-    out = [("auto " + str(tuple(auto)), None)]
-    if ns <= 0:
-        return out
-    step = sb * sr * itemsize
-    for threads in (128, 64, 32):
-        smem = threads * ns * step
-        if smem <= pd.SMEM_DYNAMIC_MAX:
-            out.append((f"resident t={threads}",
-                        pd.PairDesign("resident", threads, ns, smem)))
-    root = math.isqrt(ns - 1) + 1
-    for seg in sorted({2, 3, root, 2 * root}):
-        if seg >= ns:
-            continue
-        for threads in (128, 64):
-            smem = threads * pd.state_slots("checkpointed", tau, seg) * step
-            if smem <= pd.SMEM_DYNAMIC_MAX:
-                out.append((f"checkpointed seg={seg} t={threads}",
-                            pd.PairDesign("checkpointed", threads, seg,
-                                          smem)))
-    out.append(("scratch t=128", pd.PairDesign("scratch", 128, ns, 0)))
-    return out
-
-
-def time_shape(shape, n, device, designs: bool) -> dict:
+def time_shape(shape, n, device) -> dict:
     name, kernel, lanes, kr, sb, sr, tau, dtype = shape
-    launch, plain_fn, plain64 = inputs(kernel, lanes, kr, sb, sr, tau, dtype,
-                                       device)
+    launch, plain_fn = inputs(kernel, lanes, kr, sb, sr, tau, dtype, device)
     wrapper, plain_runs = [], []
     for fn, calls, into in ((launch, n, wrapper),
                             (plain_fn, max(n // 10, 2), plain_runs),
@@ -160,63 +110,16 @@ def time_shape(shape, n, device, designs: bool) -> dict:
     row = {"kernel_device_ms": dev_ms, "wrapper_ms_runs": wrapper,
            "plain_ms_runs": plain_runs,
            **{k: v for k, v in b.items() if not isinstance(v, dict)}}
+    design = getattr(pair_estep_cuda, "design", None)
+    if design is not None:
+        row["design"] = tuple(design(sb, sr, tau, itemsize, KB * lanes * kr,
+                                     chip_smoke.sm_count()))
     print(f"{name}: device {dev_ms:.4f} ms, wrapper "
           f"{np.mean(wrapper):.4f} ms (runs {wrapper}), plain "
           f"{np.mean(plain_runs):.4f} ms, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']})", flush=True)
-    if designs:
-        want = plain64()
-        row["designs"] = {}
-        for vname, des in design_variants(sb, sr, tau, itemsize,
-                                          KB * lanes * kr,
-                                          chip_smoke.sm_count()):
-            got = launch(des)
-            torch.cuda.synchronize()
-            errs, _ = chip_smoke._errors(got, want)
-            worst = max(errs.values())
-            ms = chip_smoke.device_ms(lambda: launch(des),
-                                      DEVICE_NAMES[kernel], 20)
-            tol = chip_smoke.TOL[dtype]
-            row["designs"][vname] = {"device_ms": ms, "err": worst,
-                                     "ok": worst <= tol}
-            print(f"  {vname}: device {ms:.4f} ms, parity {worst:.3e} "
-                  f"({'PASS' if worst <= tol else 'FAIL'} tol {tol:.0e})",
-                  flush=True)
-        del want
+          f"({b['bound_by']}), design {row.get('design')}", flush=True)
     torch.cuda.empty_cache()
     return row
-
-
-def build_min_blocks(n: int) -> Path:
-    """B1's and B3's sources built with VBHEM_PAIR_MIN_BLOCKS_F32 = n into
-    build/pair_min_blocks_<n>/; prints ptxas' registers and spills of the
-    float32 bodies; returns the library."""
-    out = _build.BUILD_DIR.parent / f"pair_min_blocks_{n}"
-    out.mkdir(parents=True, exist_ok=True)
-    flags = [*_build.NVCC_FLAGS, f"-DVBHEM_PAIR_MIN_BLOCKS_F32={n}"]
-    nvcc = _build.find_nvcc()
-    objs, log = [], ""
-    for name in ("pair_estep_fused", "pair_bwd_fwd"):
-        obj = out / f"{name}.o"
-        proc = subprocess.run([nvcc, *flags, "-c", "-o", str(obj),
-                               str(_build.CSRC_DIR / f"{name}.cu")],
-                              capture_output=True, text=True)
-        log += proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise _build.KernelBuildError(log)
-        objs.append(str(obj))
-    lib = out / "libpair.so"
-    subprocess.run([nvcc, "-shared", "-o", str(lib), *objs], check=True)
-    kernel = None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            kernel = m.group(1)
-        elif kernel and "kernelIf" in kernel and "registers" in line:
-            k = re.search(r"(pair_\w+_kernelIf\w*?E)E", kernel)
-            print(f"  min blocks {n}: {k.group(1) if k else kernel}: "
-                  f"{line.strip()}", flush=True)
-    return lib
 
 
 def main() -> int:
@@ -226,11 +129,6 @@ def main() -> int:
     ap.add_argument("--label", default=str(REPO.name),
                     help="name of this checkout in the output")
     ap.add_argument("--out", type=Path, help="also write the JSON here")
-    ap.add_argument("--designs", action="store_true",
-                    help="also check and time each design at each shape")
-    ap.add_argument("--min-blocks", default="",
-                    help="comma-separated least blocks per SM of the "
-                         "float32 bodies to build and time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_pair: no CUDA device is available", file=sys.stderr)
@@ -239,35 +137,13 @@ def main() -> int:
     out = {"label": args.label, "nvidia_smi": chip_smoke.nvidia_smi_line(),
            "shapes": {}}
     for shape in SHAPES:
-        out["shapes"][shape[0]] = time_shape(shape, args.n, device,
-                                             args.designs)
-    out["min_blocks"] = {}
-    for n in [int(v) for v in args.min_blocks.split(",") if v]:
-        _build._lib = ctypes.CDLL(str(build_min_blocks(n)))
-        _build._fns.clear()
-        out["min_blocks"][n] = {}
-        for shape in SHAPES:
-            if shape[-1] != torch.float32:
-                continue
-            launch, _, plain64 = inputs(*shape[1:], device)
-            got = launch()
-            torch.cuda.synchronize()
-            worst = max(chip_smoke._errors(got, plain64())[0].values())
-            ms = chip_smoke.device_ms(launch, DEVICE_NAMES[shape[1]], 20)
-            out["min_blocks"][n][shape[0]] = {"device_ms": ms, "err": worst}
-            print(f"min blocks {n} {shape[0]}: device {ms:.4f} ms, parity "
-                  f"{worst:.3e}", flush=True)
+        out["shapes"][shape[0]] = time_shape(shape, args.n, device)
     print(out["nvidia_smi"], flush=True)
     text = json.dumps(out)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(text + "\n")
     print(text, flush=True)
-    failed = [f"{s}: {v}" for s, row in out["shapes"].items()
-              for v, d in row.get("designs", {}).items() if not d["ok"]]
-    if failed:
-        print(f"time_pair: parity failed for {failed}", file=sys.stderr)
-        return 1
     return 0
 
 

@@ -21,9 +21,9 @@
 //     from `expected_pair_ll_point` and copies nothing);
 //   * grid (ceil(Kb / threads), L*Kr): a block stages its reduced model's
 //     log_pi, log_a and exp(log_a) in shared memory;
-//   * the per-step state of the recursion stays on chip, in the resident or
-//     checkpointed design the wrapper picks from the shape, and goes to a
-//     device-memory scratch only where no block holds it
+//   * the per-step state of the recursion stays on chip, in shared memory,
+//     wherever the wrapper finds a block holds it at enough pairs per SM,
+//     and goes to a device-memory scratch only where none does
 //     (pair_recursion.cuh);
 //   * the VHEM path's bank has Sb=2 and its grid Sr in 1..3: (Sb, Sr) =
 //     (2, 1), (2, 2), (2, 3) are compile-time specializations; every other
@@ -49,7 +49,7 @@ pair_bwd_fwd_kernel(const T* __restrict__ ell_in,  // [LKr, Sb, Sr, Kb]
                     T* __restrict__ stn_out,       // [LKr, Sr, Sb, Kb]
                     T* __restrict__ scratch,       // kScratch only:
                                                    // [tau-1, Sb*Sr, LKr, Kb]
-                    int kb, int lkr, int sb_rt, int sr_rt, int tau, int seg) {
+                    int kb, int lkr, int sb_rt, int sr_rt, int tau) {
   constexpr int MSB = Cap<SB_>::value;
   constexpr int MSR = Cap<SR_>::value;
   const int sb = SB_ > 0 ? SB_ : sb_rt;
@@ -80,23 +80,22 @@ pair_bwd_fwd_kernel(const T* __restrict__ ell_in,  // [LKr, Sb, Sr, Kb]
   size_t stride;
   T* st = state_base<T, kDesign>(scratch, static_cast<size_t>(j) * skb + i,
                                  static_cast<size_t>(lkr) * skb, stride);
-  pair_recursion<T, SB_, SR_, kDesign>(pr, tr, ell, red, st, stride, seg,
-                                       ll_out, nu1_out, sxi_out, stn_out, j,
-                                       i, kb, sb_rt, sr_rt, tau);
+  pair_recursion<T, SB_, SR_>(pr, tr, ell, red, st, stride, ll_out, nu1_out,
+                              sxi_out, stn_out, j, i, kb, sb_rt, sr_rt, tau);
 }
 
 struct Args {
   const void *ell, *prior, *trans, *log_pi, *log_a;
   void *ll_out, *nu1_out, *sxi_out, *stn_out, *scratch;
-  int kb, lkr, sb, sr, tau, design, threads, seg, smem;
+  int kb, lkr, sb, sr, tau, design, threads, smem;
   cudaStream_t stream;
 };
 
 template <typename T, int SB_, int SR_, int kDesign>
 int launch_one(const Args& a) {
   auto* kernel = pair_bwd_fwd_kernel<T, SB_, SR_, kDesign>;
-  const int err = prepare_launch(kernel, a.design, a.threads, a.seg, a.smem,
-                                 a.sb, a.sr, a.tau, sizeof(T),
+  const int err = prepare_launch(kernel, a.design, a.threads, a.smem, a.sb,
+                                 a.sr, a.tau, sizeof(T),
                                  a.scratch != nullptr);
   if (err != 0) return err;
   const dim3 grid((a.kb + a.threads - 1) / a.threads, a.lkr);
@@ -106,7 +105,7 @@ int launch_one(const Args& a) {
       static_cast<const T*>(a.log_a), static_cast<T*>(a.ll_out),
       static_cast<T*>(a.nu1_out), static_cast<T*>(a.sxi_out),
       static_cast<T*>(a.stn_out), static_cast<T*>(a.scratch), a.kb, a.lkr,
-      a.sb, a.sr, a.tau, a.seg);
+      a.sb, a.sr, a.tau);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -114,7 +113,6 @@ template <typename T, int SB_, int SR_>
 int launch_shape(const Args& a) {
   switch (a.design) {
     case kResident: return launch_one<T, SB_, SR_, kResident>(a);
-    case kCheckpointed: return launch_one<T, SB_, SR_, kCheckpointed>(a);
     case kScratch: return launch_one<T, SB_, SR_, kScratch>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -142,11 +140,11 @@ int launch(const Args& a) {
                       const void* log_pi, const void* log_a, void* ll_out,    \
                       void* nu1_out, void* sxi_out, void* stn_out,            \
                       void* scratch, int kb, int lkr, int sb, int sr,         \
-                      int tau, int design, int threads, int seg, int smem,    \
+                      int tau, int design, int threads, int smem,             \
                       void* stream) {                                         \
     const Args a{ell, prior, trans, log_pi, log_a, ll_out, nu1_out, sxi_out,  \
                  stn_out, scratch, kb, lkr, sb, sr, tau, design, threads,     \
-                 seg, smem, static_cast<cudaStream_t>(stream)};               \
+                 smem, static_cast<cudaStream_t>(stream)};                    \
     return launch<T>(a);                                                      \
   }
 

@@ -25,9 +25,9 @@
 //   * E3logN is computed in registers and never stored;
 //   * the recursion's per-step state stays on chip where the shape lets it
 //     (pair_recursion.cuh): the wrapper (`ops/pair_estep_cuda.py:design`)
-//     picks the block size and the resident or checkpointed design from
-//     the shape, and a device-memory scratch only for states no block
-//     holds;
+//     picks the block size and keeps every step in shared memory where a
+//     block holds it at enough pairs per SM, and a device-memory scratch
+//     only where none does;
 //   * the shapes the clustering paths launch, (Sb, Sr, D) = (3, 3, 2) and
 //     (3, 2, 2) on the planted bank and (2, 2, 2) on a learned bank of
 //     2-state HMMs, are compile-time specializations whose loops unroll
@@ -66,7 +66,7 @@ pair_estep_fused_kernel(const T* __restrict__ prior,    // [Sb, Kb]
                         T* __restrict__ scratch,        // kScratch only:
                                                         // [tau-1, Sb*Sr, LKr, Kb]
                         int kb, int lkr, int sb_rt, int sr_rt, int d_rt,
-                        int tau, int seg) {
+                        int tau) {
   constexpr int MSB = Cap<SB_>::value;
   constexpr int MSR = Cap<SR_>::value;
   constexpr int MD = D_ > 0 ? D_ : kMaxD;
@@ -140,24 +140,23 @@ pair_estep_fused_kernel(const T* __restrict__ prior,    // [Sb, Kb]
   size_t stride;
   T* st = state_base<T, kDesign>(scratch, static_cast<size_t>(j) * skb + i,
                                  static_cast<size_t>(lkr) * skb, stride);
-  pair_recursion<T, SB_, SR_, kDesign>(pr, tr, ell, red, st, stride, seg,
-                                       ll_out, nu1_out, sxi_out, stn_out, j,
-                                       i, kb, sb_rt, sr_rt, tau);
+  pair_recursion<T, SB_, SR_>(pr, tr, ell, red, st, stride, ll_out, nu1_out,
+                              sxi_out, stn_out, j, i, kb, sb_rt, sr_rt, tau);
 }
 
 struct Args {
   const void *prior, *trans, *mean, *cov, *log_pi, *log_a, *m_r, *w_r, *v_r,
       *lam_r, *loglam_r;
   void *ll_out, *nu1_out, *sxi_out, *stn_out, *scratch;
-  int kb, lkr, sb, sr, d, tau, design, threads, seg, smem;
+  int kb, lkr, sb, sr, d, tau, design, threads, smem;
   cudaStream_t stream;
 };
 
 template <typename T, int SB_, int SR_, int D_, int kDesign>
 int launch_one(const Args& a) {
   auto* kernel = pair_estep_fused_kernel<T, SB_, SR_, D_, kDesign>;
-  const int err = prepare_launch(kernel, a.design, a.threads, a.seg, a.smem,
-                                 a.sb, a.sr, a.tau, sizeof(T),
+  const int err = prepare_launch(kernel, a.design, a.threads, a.smem, a.sb,
+                                 a.sr, a.tau, sizeof(T),
                                  a.scratch != nullptr);
   if (err != 0) return err;
   const dim3 grid((a.kb + a.threads - 1) / a.threads, a.lkr);
@@ -170,7 +169,7 @@ int launch_one(const Args& a) {
       static_cast<const T*>(a.loglam_r), static_cast<T*>(a.ll_out),
       static_cast<T*>(a.nu1_out), static_cast<T*>(a.sxi_out),
       static_cast<T*>(a.stn_out), static_cast<T*>(a.scratch), a.kb, a.lkr,
-      a.sb, a.sr, a.d, a.tau, a.seg);
+      a.sb, a.sr, a.d, a.tau);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -178,7 +177,6 @@ template <typename T, int SB_, int SR_, int D_>
 int launch_shape(const Args& a) {
   switch (a.design) {
     case kResident: return launch_one<T, SB_, SR_, D_, kResident>(a);
-    case kCheckpointed: return launch_one<T, SB_, SR_, D_, kCheckpointed>(a);
     case kScratch: return launch_one<T, SB_, SR_, D_, kScratch>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -196,13 +194,12 @@ int launch(const Args& a) {
 
 // Plain C interface for ctypes.  The caller validates shapes, dtypes,
 // contiguity and ranges (Sb, Sr in 1..8, D in 1..4, tau >= 1, L*Kr <= 65535),
-// chooses the design (0 resident, 1 checkpointed with segments of `seg`
-// steps, 2 device-memory scratch), the block size `threads` (a multiple of
-// 32 up to 128) and the dynamic shared memory `smem` in bytes, and
-// allocates every output and, for design 2 only, the scratch
-// [tau-1, Sb*Sr, L*Kr, Kb] (else passes null).  Returns the cudaError_t of
-// the launch (0 = launched; cudaErrorInvalidValue for a configuration the
-// kernel does not take).
+// chooses the design (0 resident in shared memory, 1 device-memory
+// scratch), the block size `threads` (a multiple of 32 up to 128) and the
+// dynamic shared memory `smem` in bytes, and allocates every output and,
+// for design 1 only, the scratch [tau-1, Sb*Sr, L*Kr, Kb] (else passes
+// null).  Returns the cudaError_t of the launch (0 = launched;
+// cudaErrorInvalidValue for a configuration the kernel does not take).
 #define VBHEM_FUSED_ENTRY(NAME, T)                                            \
   extern "C" int NAME(                                                        \
       const void* prior, const void* trans, const void* mean,                 \
@@ -210,10 +207,10 @@ int launch(const Args& a) {
       const void* m_r, const void* w_r, const void* v_r, const void* lam_r,   \
       const void* loglam_r, void* ll_out, void* nu1_out, void* sxi_out,       \
       void* stn_out, void* scratch, int kb, int lkr, int sb, int sr, int d,   \
-      int tau, int design, int threads, int seg, int smem, void* stream) {    \
+      int tau, int design, int threads, int smem, void* stream) {             \
     const Args a{prior, trans, mean, cov, log_pi, log_a, m_r, w_r, v_r,       \
                  lam_r, loglam_r, ll_out, nu1_out, sxi_out, stn_out, scratch, \
-                 kb, lkr, sb, sr, d, tau, design, threads, seg, smem,         \
+                 kb, lkr, sb, sr, d, tau, design, threads, smem,              \
                  static_cast<cudaStream_t>(stream)};                          \
     return launch<T>(a);                                                      \
   }

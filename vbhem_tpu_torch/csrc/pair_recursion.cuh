@@ -45,19 +45,17 @@
 //     pass knows to rebuild that column's Theta with exps.  No log(0)
 //     reaches the sum_c trans * lse, where a zero row of a ragged base
 //     HMM's trans would turn it into NaN;
-//   * where the state lives is the design (`kResident`, `kCheckpointed`,
-//     `kScratch`), chosen by the wrapper from the shape: all tau-1 steps
-//     in dynamic shared memory; in shared memory as segments of `seg`
-//     steps with the carry kept at every segment start, the backward pass
-//     recomputing a segment's w from its checkpoint before the forward
-//     pass walks it; or all steps in a device-memory scratch
-//     [tau-1, Sb*Sr, L*Kr, Kb] for states that no block holds at a useful
-//     number of pairs per SM, and for launches whose scratch stays in L2;
-//     shared memory is laid out value-major, [slot][Sb*Sr][thread], so a
-//     warp's stores and loads fall on consecutive words;
+//   * where the state lives is the design (`kResident`, `kScratch`), chosen
+//     by the wrapper from the shape: all tau-1 steps in dynamic shared
+//     memory, where a block holds them at enough pairs per SM; else all
+//     steps in a device-memory scratch [tau-1, Sb*Sr, L*Kr, Kb] (long tau,
+//     float64 at large S).  Shared memory is laid out value-major,
+//     [slot][Sb*Sr][thread], so a warp's stores and loads fall on
+//     consecutive words;
 //   * float32 bodies are held to 5 blocks of 128 threads per SM
 //     (`__launch_bounds__`), which lets the Sb = Sr = 3 bodies run 640
-//     pairs per SM instead of 512 (measured 5% faster; 6 blocks spill).
+//     pairs per SM instead of 512 (measured 5% faster than 4 blocks on an
+//     H100; 6 blocks spill: PERF.md section 6).
 
 #pragma once
 
@@ -74,18 +72,13 @@ constexpr int kMaxSmem = 232448;   // shared memory one block may use
 
 // The least blocks of kMaxThreads an SM must hold, which caps the
 // registers ptxas may give a thread (`__launch_bounds__`), in float32;
-// float64 bodies take what they need.  tools/time_pair.py --min-blocks
-// builds and times other values.
-#ifndef VBHEM_PAIR_MIN_BLOCKS_F32
-#define VBHEM_PAIR_MIN_BLOCKS_F32 5
-#endif
+// float64 bodies take what they need.
 template <typename T>
-constexpr int kMinBlocks = sizeof(T) == 4 ? VBHEM_PAIR_MIN_BLOCKS_F32 : 1;
+constexpr int kMinBlocks = sizeof(T) == 4 ? 5 : 1;
 
 // where the per-step state lives (ops/pair_estep_cuda.py: DESIGNS)
 constexpr int kResident = 0;
-constexpr int kCheckpointed = 1;
-constexpr int kScratch = 2;
+constexpr int kScratch = 1;
 
 extern __shared__ __align__(16) unsigned char pair_smem[];
 
@@ -198,10 +191,10 @@ __device__ __forceinline__ T* state_base(T* scratch, size_t pix,
   }
 }
 
-// One backward step: from the rebased carry llo [Sb, Sr] (and, with
-// kShift, its shifts sh [Sb]) to the next, storing w (or, in a guarded
-// column, log w - 1) at `slot`.
-template <typename T, int SB_, int SR_, bool kShift>
+// One backward step: from the rebased carry llo [Sb, Sr] and its shifts
+// sh [Sb] to the next, storing w (or, in a guarded column, log w - 1) at
+// `slot`.
+template <typename T, int SB_, int SR_>
 __device__ __forceinline__ void backward_step(
     const T (&ell)[Cap<SB_>::value][Cap<SR_>::value],
     const T (&tr)[Cap<SB_>::value][Cap<SB_>::value],
@@ -285,10 +278,8 @@ __device__ __forceinline__ void backward_step(
   // LL_new[b][rp] = sum_c trans[b][c] (lse[rp][c] + m_c + sh[c]): the
   // carry keeps sum_c trans[b][c] lse[rp][c], the shift the rest
   T base[MSB];
-  if constexpr (kShift) {
 #pragma unroll
-    for (int c = 0; c < sb; ++c) base[c] = mc[c] + sh[c];
-  }
+  for (int c = 0; c < sb; ++c) base[c] = mc[c] + sh[c];
 #pragma unroll
   for (int b = 0; b < sb; ++b) {
 #pragma unroll
@@ -298,12 +289,10 @@ __device__ __forceinline__ void backward_step(
       for (int c = 0; c < sb; ++c) acc += tr[b][c] * lse[rp][c];
       llo[b][rp] = acc;
     }
-    if constexpr (kShift) {
-      T shift = 0;
+    T shift = 0;
 #pragma unroll
-      for (int c = 0; c < sb; ++c) shift += tr[b][c] * base[c];
-      sh[b] = shift;
-    }
+    for (int c = 0; c < sb; ++c) shift += tr[b][c] * base[c];
+    sh[b] = shift;
   }
 }
 
@@ -457,30 +446,26 @@ __device__ __forceinline__ void forward_step(
 //   pr [Sb], tr [Sb][Sb], ell [Sb][Sr]: this pair's base HMM and emission
 //     matrix, in registers;
 //   red: reduced model j, in shared memory;
-//   st, stride: this pair's state (state_base); kCheckpointed keeps
-//     segments of `seg` steps, the other designs all tau-1 steps;
+//   st, stride: this pair's state for all tau-1 steps (state_base);
 //   outputs ll [lkr, kb], nu1 [lkr, Sr, kb], sxi [lkr, Sr, Sr, kb],
 //     stn [lkr, Sr, Sb, kb].
-template <typename T, int SB_, int SR_, int kDesign>
+template <typename T, int SB_, int SR_>
 __device__ __forceinline__ void pair_recursion(
     const T (&pr)[Cap<SB_>::value],
     const T (&tr)[Cap<SB_>::value][Cap<SB_>::value],
     const T (&ell)[Cap<SB_>::value][Cap<SR_>::value],
     const Reduced<T, SR_>& red,
-    T* __restrict__ st, size_t stride, int seg, T* __restrict__ ll_out,
+    T* __restrict__ st, size_t stride, T* __restrict__ ll_out,
     T* __restrict__ nu1_out, T* __restrict__ sxi_out, T* __restrict__ stn_out,
     int j, int i, int kb, int sb_rt, int sr_rt, int tau) {
   constexpr int MSB = Cap<SB_>::value;
   constexpr int MSR = Cap<SR_>::value;
-  constexpr bool kCk = kDesign == kCheckpointed;
   const int sb = SB_ > 0 ? SB_ : sb_rt;
   const int sr = SR_ > 0 ? SR_ : sr_rt;
   const size_t skb = static_cast<size_t>(kb);
   const size_t pix = static_cast<size_t>(j) * skb + i;  // in [LKr, Kb]
   const size_t slot_len = static_cast<size_t>(sb * sr) * stride;
   const int ns = tau - 1;
-  const int len = kCk ? seg : ns;                 // steps per segment
-  const int nseg = ns > 0 ? (ns + len - 1) / len : 0;
 
   // ---- backward: carry LL_old [Sb, Sr] ----
   // LL_old[b][r] = llo[b][r] + sh[b]: llo sums logs of sums S near 1 and
@@ -496,26 +481,9 @@ __device__ __forceinline__ void pair_recursion(
 #pragma unroll
     for (int r = 0; r < sr; ++r) llo[b][r] = 0;
   }
-  {
-    int off = 0, s = 0;
-    for (int k = 0; k < ns; ++k) {
-      if constexpr (kCk) {
-        if (off == 0 && s < nseg - 1) {   // checkpoint s: the carry
-          T* ck = st + (seg + s) * slot_len;
-#pragma unroll
-          for (int b = 0; b < sb; ++b)
-#pragma unroll
-            for (int r = 0; r < sr; ++r) ck[(b * sr + r) * stride] = llo[b][r];
-        }
-      }
-      backward_step<T, SB_, SR_, true>(ell, tr, llo, sh, red,
-                                       st + off * slot_len, stride, sb, sr);
-      if (++off == len) {
-        off = 0;
-        ++s;
-      }
-    }
-  }
+  for (int k = 0; k < ns; ++k)
+    backward_step<T, SB_, SR_>(ell, tr, llo, sh, red, st + k * slot_len,
+                               stride, sb, sr);
 
   // ---- terminate (t = 1) and start the forward pass ----
   T nu[MSR][MSB];
@@ -563,25 +531,12 @@ __device__ __forceinline__ void pair_recursion(
   }
 
   // ---- forward: t = 2 .. tau, the backward steps in reverse ----
-  for (int s = nseg - 1; s >= 0; --s) {
-    const int n = min(len, ns - s * len);
-    if constexpr (kCk) {
-      if (s < nseg - 1) {   // recompute segment s's w from its checkpoint
-        const T* ck = st + (seg + s) * slot_len;
-#pragma unroll
-        for (int b = 0; b < sb; ++b)
-#pragma unroll
-          for (int r = 0; r < sr; ++r) llo[b][r] = ck[(b * sr + r) * stride];
-        for (int o = 0; o < n; ++o)
-          backward_step<T, SB_, SR_, false>(ell, tr, llo, sh, red,
-                                            st + o * slot_len, stride, sb, sr);
-      }
-    }
-    // each step's state is loaded, and its reciprocals formed, a step
-    // ahead, beside the current step's chain
+  // each step's state is loaded, and its reciprocals formed, a step ahead,
+  // beside the current step's chain
+  if (ns > 0) {
     Step<T, SB_, SR_> cur;
-    load_step(cur, red, st + (n - 1) * slot_len, stride, sb, sr);
-    for (int o = n - 1; o >= 0; --o) {
+    load_step(cur, red, st + (ns - 1) * slot_len, stride, sb, sr);
+    for (int o = ns - 1; o >= 0; --o) {
       Step<T, SB_, SR_> nxt;
       load_step(nxt, red, st + (o > 0 ? o - 1 : 0) * slot_len, stride, sb,
                 sr);
@@ -603,27 +558,24 @@ __device__ __forceinline__ void pair_recursion(
   }
 }
 
-// Host side: lets a kernel of the shared-memory designs take `smem` bytes
-// of dynamic shared memory, with the SM's carveout all shared memory, so
+// Host side: lets a kernel of the resident design take `smem` bytes of
+// dynamic shared memory, with the SM's carveout all shared memory, so
 // every block the wrapper's design counted on is resident.  Returns the
 // cudaError_t, or cudaErrorInvalidValue for a launch configuration the
 // kernels do not take.
 template <typename Kernel>
-inline int prepare_launch(Kernel kernel, int design, int threads, int seg,
-                          int smem, int sb, int sr, int tau, int itemsize,
+inline int prepare_launch(Kernel kernel, int design, int threads, int smem,
+                          int sb, int sr, int tau, int itemsize,
                           bool has_scratch) {
-  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 || seg < 1 ||
-      smem < 0 || smem > kMaxSmem || design < kResident || design > kScratch ||
+  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+      smem < 0 || smem > kMaxSmem ||
+      (design != kResident && design != kScratch) ||
       has_scratch != (design == kScratch))
     return static_cast<int>(cudaErrorInvalidValue);
   if (design == kScratch)
     return smem == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
-  const int ns = tau - 1;
-  const int slots = ns <= 0 ? 0
-                    : design == kCheckpointed ? seg + (ns + seg - 1) / seg - 1
-                                              : ns;
-  const long long need =
-      static_cast<long long>(threads) * slots * sb * sr * itemsize;
+  const long long need = static_cast<long long>(threads) * (tau - 1) * sb *
+                         sr * itemsize;
   if (need > smem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem == 0) return 0;
   cudaError_t err = cudaFuncSetAttribute(

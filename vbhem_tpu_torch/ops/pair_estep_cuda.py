@@ -16,9 +16,8 @@ trials of a (K, S) cell go in one launch.
 
 Both kernels keep the recursion's per-step state (Sb*Sr values a step and
 pair) where :func:`design` puts it for the shape: in shared memory for all
-tau-1 steps ('resident'), in shared memory as segments with a checkpoint
-of the carry at each segment start ('checkpointed'), or in a device-memory
-scratch ('scratch') for a state that no block can hold.
+tau-1 steps ('resident') where a block holds it at enough pairs per SM,
+else in a device-memory scratch ('scratch').
 """
 from __future__ import annotations
 
@@ -36,7 +35,7 @@ from .pair_estep import PairStats, expected_pair_ll_variational, pair_bwd_fwd
 # and each kernel's launches by design.
 LAUNCHES = 0
 BWD_FWD_LAUNCHES = 0
-DESIGNS = ("resident", "checkpointed", "scratch")   # the kernels' codes 0-2
+DESIGNS = ("resident", "scratch")   # the kernels' codes 0 and 1
 DESIGN_LAUNCHES = {"B1": dict.fromkeys(DESIGNS, 0),
                    "B3": dict.fromkeys(DESIGNS, 0)}
 
@@ -58,48 +57,27 @@ BLOCKS_PER_SM_MAX = 32
 THREADS_PER_SM_MAX = 2048
 THREAD_CHOICES = (128, 64, 32)
 SMS = 132   # the H100 SXM's SMs, where the wrapper cannot ask the card
-# Pairs per SM at which the resident design no longer loses to designs
-# that hold more: on an H100, at the pipeline's launch (Sb = Sr = 2,
-# tau = 50), the resident design holding 256 pairs per SM ran faster than
-# every checkpointed variant, which held up to about 700 (PERF.md §6).
+# Pairs per SM the resident design must hold (or all of the launch's):
+# on an H100, at the pipeline's launch (Sb = Sr = 2, tau = 50), it ran
+# faster holding 256 than the scratch and than designs that held up to
+# about 700 by recomputing steps (PERF.md §6).
 RESIDENT_PAIRS_PER_SM = 256
-# A scratch this small stays in the 50 MB L2, and its design holds as many
-# pairs as registers allow.
-SCRATCH_IN_L2 = 40_000_000
-# Below this many pairs per SM the checkpointed design loses to the
-# scratch.
-PAIRS_PER_SM_MIN = 64
 
 _C_FN = {torch.float32: "vbhem_pair_estep_fused_f32",
          torch.float64: "vbhem_pair_estep_fused_f64"}
-_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _BF_C_FN = {torch.float32: "vbhem_pair_bwd_fwd_f32",
             torch.float64: "vbhem_pair_bwd_fwd_f64"}
-_BF_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_BF_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 class PairDesign(NamedTuple):
     """Where B1 and B3 keep the recursion's per-step state: ``kind`` one of
-    :data:`DESIGNS`; ``threads`` pairs per block; ``seg`` steps per segment
-    (the checkpointed design; the others hold all tau-1 steps at once);
-    ``smem_bytes`` of dynamic shared memory per block (0 for the
-    scratch)."""
+    :data:`DESIGNS`; ``threads`` pairs per block; ``smem_bytes`` of dynamic
+    shared memory per block (0 for the scratch)."""
     kind: str
     threads: int
-    seg: int
     smem_bytes: int
-
-
-def state_slots(kind: str, tau: int, seg: int) -> int:
-    """Per-step states (Sb*Sr values each) one pair keeps in shared
-    memory: every step's, or one segment's and a carry checkpoint at every
-    segment start but the last's, or none (the scratch)."""
-    ns = tau - 1
-    if kind == "scratch" or ns <= 0:
-        return 0
-    if kind == "checkpointed":
-        return seg + -(-ns // seg) - 1
-    return ns
 
 
 def pairs_per_sm(threads: int, smem_bytes: int) -> int:
@@ -111,39 +89,27 @@ def pairs_per_sm(threads: int, smem_bytes: int) -> int:
                THREADS_PER_SM_MAX // threads) * threads
 
 
-def _best_block(slots: int, step_bytes: int):
-    """(pairs per SM, threads, smem bytes) of the block size that holds the
-    most pairs per SM, or None when no block of 32 fits.  Among equals the
-    smallest block: at the pipeline's launch blocks of 32 ran 5% faster
-    than blocks of 128 holding as many pairs (PERF.md §6)."""
+def design_of(kind: str, sb: int, sr: int, tau: int,
+              itemsize: int) -> Optional[PairDesign]:
+    """Design ``kind`` at a shape.  The resident design takes the block
+    size that holds the most pairs per SM, among equals the smallest (at
+    the pipeline's launch blocks of 32 ran 5% faster than blocks of 128
+    holding as many pairs, PERF.md §6); None where no block of 32 pairs
+    holds every step's state."""
+    if kind == "scratch":
+        return PairDesign("scratch", THREAD_CHOICES[0], 0)
+    if kind != "resident":
+        raise ValueError(f"unknown design {kind!r}")
     best = None
     for threads in sorted(THREAD_CHOICES):
-        smem = threads * slots * step_bytes
+        smem = threads * (tau - 1) * sb * sr * itemsize
         if smem > SMEM_DYNAMIC_MAX:
             continue
         held = pairs_per_sm(threads, smem)
-        if best is None or held > best[0]:
-            best = (held, threads, smem)
+        if best is None or held > pairs_per_sm(best.threads,
+                                               best.smem_bytes):
+            best = PairDesign("resident", threads, smem)
     return best
-
-
-def design_of(kind: str, sb: int, sr: int, tau: int, itemsize: int,
-              seg: Optional[int] = None) -> Optional[PairDesign]:
-    """Design ``kind`` at a shape, with the block size that holds the most
-    pairs per SM; the checkpointed design in segments of ``seg`` steps
-    (default ceil(sqrt(tau-1)), which keeps the fewest steps' state).
-    None where no block of 32 pairs holds the state."""
-    ns = tau - 1
-    if kind == "scratch":
-        return PairDesign("scratch", THREAD_CHOICES[0], max(ns, 1), 0)
-    if kind == "checkpointed":
-        seg = seg or math.isqrt(max(ns, 1) - 1) + 1
-    else:
-        seg = max(ns, 1)
-    best = _best_block(state_slots(kind, tau, seg), sb * sr * itemsize)
-    if best is None:
-        return None
-    return PairDesign(kind, best[1], seg, best[2])
 
 
 def design(sb: int, sr: int, tau: int, itemsize: int, pairs: int,
@@ -151,30 +117,16 @@ def design(sb: int, sr: int, tau: int, itemsize: int, pairs: int,
     """The design B1 and B3 take for Sb, Sr, tau, ``itemsize`` and
     ``pairs`` = Kb * L*Kr on a card of ``sms`` SMs.
 
-    Each thread runs one pair's serial recursion, so a launch's time is
-    the chain of 2 (tau-1) steps times the rounds of pairs each SM runs.
-    The resident design keeps every step's state in shared memory and
-    computes each step once: it is taken where it holds
-    RESIDENT_PAIRS_PER_SM pairs per SM, or all of the launch's.  Else the
-    scratch, where its state stays in L2 (small launches: no limit on the
-    pairs in flight but registers); else the checkpointed design, which
-    keeps about 2 sqrt(tau-1) steps' state and computes most backward
-    steps twice, where it holds PAIRS_PER_SM_MIN pairs per SM; else the
-    scratch."""
-    ns = tau - 1
-    need = -(-pairs // sms)
+    Each thread runs one pair's serial recursion, whose latency the pairs
+    in flight per SM hide.  The resident design keeps every step's state
+    in shared memory, which caps the pairs an SM holds: it is taken where
+    it holds RESIDENT_PAIRS_PER_SM pairs per SM, or all of the launch's.
+    Else the scratch, whose pairs in flight only registers limit."""
     res = design_of("resident", sb, sr, tau, itemsize)
     if res is not None and pairs_per_sm(res.threads, res.smem_bytes) >= min(
-            RESIDENT_PAIRS_PER_SM, need):
+            RESIDENT_PAIRS_PER_SM, -(-pairs // sms)):
         return res
-    scratch = design_of("scratch", sb, sr, tau, itemsize)
-    if itemsize * ns * sb * sr * pairs <= SCRATCH_IN_L2:
-        return scratch
-    ck = design_of("checkpointed", sb, sr, tau, itemsize) if ns > 1 else None
-    if ck is not None and pairs_per_sm(ck.threads, ck.smem_bytes) \
-            >= PAIRS_PER_SM_MIN:
-        return ck
-    return scratch
+    return design_of("scratch", sb, sr, tau, itemsize)
 
 
 def _sms(dev) -> int:
@@ -258,9 +210,8 @@ def _outputs(dev, dt, lkr, kb, sb, sr):
 def _state_args(des: PairDesign, dev, dt, lkr, kb, sb, sr, tau):
     """The design's arguments of the C interface after the outputs: the
     scratch [tau-1, Sb*Sr, L*Kr, Kb] (allocated for the scratch design
-    only, else None) and, after the shape, the design's code, block size,
-    segment and shared memory.  Returns (scratch tensor or None, pointer,
-    tail)."""
+    only, else None) and, after the shape, the design's code, block size
+    and shared memory.  Returns (scratch tensor or None, pointer, tail)."""
     if des.kind not in DESIGNS:
         raise ValueError(f"unknown design {des.kind!r}")
     scratch = None
@@ -268,7 +219,7 @@ def _state_args(des: PairDesign, dev, dt, lkr, kb, sb, sr, tau):
         scratch = torch.empty(((tau - 1) * sb * sr * lkr * kb,), dtype=dt,
                               device=dev)
     ptr = None if scratch is None else scratch.data_ptr()
-    tail = (DESIGNS.index(des.kind), des.threads, des.seg, des.smem_bytes)
+    tail = (DESIGNS.index(des.kind), des.threads, des.smem_bytes)
     return scratch, ptr, tail
 
 
