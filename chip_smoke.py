@@ -19,7 +19,12 @@ Phases (any failure exits non-zero and prints no result line):
      state resident in shared memory, or in a device-memory scratch), at
      shapes that pick each and with each forced at the main paths'
      shapes, and on inputs that fire the recursion's underflow guard
-     (masked reduced states, -inf log_a);
+     (masked reduced states, -inf log_a); past the register bodies (Sb,
+     Sr above 8 in B1 and B3, K above 8 in B2: the wide bodies, whose
+     vectors live in device memory) and past B1's emission dims (D=5:
+     E3logN in PyTorch, then a B3 launch); B1 at the padded grid's launch
+     (every lane its own cluster and state masks) and B3 in float64 at the
+     grid rescoring's launch;
   3. VBHEM path: ``vbhem.cluster`` over (K, S) in {1,2,3} x {2,3} on a
      planted bank of 8192 base HMMs with 8 restart trials per cell; the
      ELBOs must be finite, every EM iteration must have launched B1, in an
@@ -49,16 +54,34 @@ Phases (any failure exits non-zero and prints no result line):
      each of those launches held against the plain version in float64 on
      its own inputs, with phase 2's tolerances; both tables and
      selections printed;
-  8. timing (informational): each kernel's device time, its wrapper's
+  8. grid: ``vbhem.cluster_batched`` on the bank phase 4 learned (Kb=8192,
+     Sb=2), K=1..6 x S=1..5, tau=50, Nv=100, baseem, GRID_TRIALS
+     restarts, float32 with the float64 rescoring of every cell winner:
+     B1 launched on every EM iteration of every lane chunk, in the design
+     ``pair_estep_cuda.design`` names for the chunk; B3 once per rescored
+     cell; every score finite; the (K=2, S=2) labels recovering the
+     groups; the chunks, peak memory, wall time, both score grids and each
+     cell's float32-against-float64 gap printed.  Then padded equals
+     unpadded: lanes of cell (2, 2), drawn as the grid draws them, run
+     padded and sliced to (2, 2) from the same start, their ELBOs within
+     5e-5 relative;
+  9. protocol: ``experiments.synthetic.run_vbhem`` at
+     ``default_vbhem_config()``'s settings with hyperparameter learning
+     off, on 20 subjects per group of phase 4's bank: the (2, 2) cell's
+     Rand index 1.0; the selected K, S and Rand index printed;
+  10. timing (informational): each kernel's device time, its wrapper's
      time and its plain version's time at its main-path shape (B1 also at
      the bench shape and the pipeline's largest launch), and one EM
      iteration of each engine (VBHEM, VBEM, VHEM) with the kernel and
      with the plain version (the engine's own iteration, its kernel
      wrapper rebound to the plain version for the plain runs); for B2
      both entries, the fused E-step against ``expected_log_gauss``
-     followed by entry 1.
+     followed by entry 1; B1 at the grid's launch (one lane chunk, with
+     and without masked states), B3 float64 at the rescoring's launch,
+     one grid EM iteration, and the wide bodies at S=9 and K=9, each
+     beside its bound.
 
-B3 is checked in phase 2 like B1 and B2.  Each of phases 3-7 sets every
+B3 is checked in phase 2 like B1 and B2.  Each of phases 3-9 sets every
 kernel's launch count (B1's and B3's also by design) to 0 just before it
 runs its path and reads the counts just after.  Prints a JSON line
 describing each kernel, the ``nvidia-smi`` name and power-limit line, and
@@ -69,6 +92,7 @@ JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -108,6 +132,10 @@ KERNELS = {
            "source": "vbhem_tpu_torch/csrc/pair_bwd_fwd.cu",
            "replaces": "vbhem_tpu/ops/pair_estep_pallas.py:110"},
 }
+# where each kernel's wide body (more than 8 states) lives
+WIDE_SOURCES = {"B1": "vbhem_tpu_torch/csrc/pair_recursion.cuh",
+                "B2": "vbhem_tpu_torch/csrc/fb_wide.cu",
+                "B3": "vbhem_tpu_torch/csrc/pair_recursion.cuh"}
 # each kernel's launch counters: (module, attribute); B2 counts its two
 # entries apart (entry 1 and the fused E-step)
 COUNTERS = {"B1": (pair_estep_cuda, "LAUNCHES"), "B2": (fb_cuda, "LAUNCHES"),
@@ -183,14 +211,18 @@ def read_counts() -> dict:
     return counts
 
 
-def check_on_chip(fails, what, launches, kernel):
-    """Every launch of ``kernel`` in ``launches`` kept the recursion's
-    state on chip (the resident design): none took the scratch."""
-    fails.check(launches[f"{kernel}_resident"] == launches[kernel] > 0
-                and launches[f"{kernel}_scratch"] == 0,
-                f"{what}: {kernel}'s {launches[kernel]} launches all on "
-                f"chip (resident {launches[f'{kernel}_resident']}, "
-                f"scratch {launches[f'{kernel}_scratch']})")
+def check_on_chip(fails, what, launches, kernel, kind="resident"):
+    """Every launch of ``kernel`` in ``launches`` took the design ``kind``:
+    by default the resident design, the recursion's state on chip, none
+    in the scratch; for the padded grid the design that
+    ``pair_estep_cuda.design`` names for its launch."""
+    other = [k for k in pair_estep_cuda.DESIGNS if k != kind]
+    fails.check(launches[f"{kernel}_{kind}"] == launches[kernel] > 0
+                and all(launches[f"{kernel}_{k}"] == 0 for k in other),
+                f"{what}: {kernel}'s {launches[kernel]} launches all in "
+                f"the {kind} design (" + ", ".join(
+                    f"{k} {launches[f'{kernel}_{k}']}"
+                    for k in pair_estep_cuda.DESIGNS) + ")")
 
 
 # ---------------------------------------------------------------------------
@@ -414,6 +446,11 @@ def plain_e_step(base, post, exps, tau):
                               exps.log_a, ell, tau)
 
 
+# the (K, S) cells of the grid_launch parity case's lanes, padded to
+# (6, 5): single-cluster and single-state lanes among them
+GRID_PARITY_CELLS = [(1, 1), (1, 5), (2, 2), (6, 1), (6, 5), (3, 4), (4, 3),
+                     (5, 2)]
+
 B1_CASES = [
     # name, kb, kr, sb, sr, d, tau, lanes, ragged, masking, forced design
     ("kb256_tau10", 256, 4, 3, 3, 2, 10, 1, False, None, None),
@@ -432,6 +469,10 @@ B1_CASES = [
      "scratch"),
     ("masked_state_tau50_scratch", 256, 4, 3, 3, 2, 50, 1, True, "state",
      "scratch"),
+    # the guard in the generic body (D=3 is not a specialization): without
+    # kKeepZ (pair_recursion.cuh) nvcc 12.9's -O3 build got these wrong
+    ("d3_masked_state_tau2", 256, 4, 3, 3, 3, 2, 1, False, "state", None),
+    ("d3_masked_state_tau50", 256, 4, 3, 3, 3, 50, 1, False, "state", None),
     # past the resident design: shapes that pick the scratch (long tau;
     # the generic body, Sb = Sr = 8)
     ("tau200", 8192, 2, 2, 2, 2, 200, 2, False, None, None),
@@ -448,6 +489,20 @@ B1_CASES = [
      "resident"),
     ("pipeline_cell_64_scratch", 8192, 2, 2, 2, 2, 50, 64, False, None,
      "scratch"),
+    # past the register bodies: at their cap (Sb = Sr = 8), then the wide
+    # body (Sb or Sr above 8; its guard on a masked state); D at B1's cap
+    # and past it (E3logN in PyTorch, then a B3 launch)
+    ("s8_tau10", 256, 2, 8, 8, 2, 10, 1, False, None, None),
+    ("s9", 256, 2, 9, 9, 2, 10, 1, False, None, None),
+    ("s12", 256, 2, 12, 12, 2, 10, 1, False, None, None),
+    ("s9_masked_state", 256, 2, 9, 9, 2, 10, 1, True, "state", None),
+    ("sb2_sr9_tau50", 1024, 2, 2, 9, 2, 50, 2, False, None, None),
+    ("d4", 256, 4, 3, 3, 4, 10, 1, False, None, None),
+    ("d5", 256, 4, 3, 3, 5, 10, 1, False, None, None),
+    # the padded grid's launch (phase 8): the learned bank's Sb=2, cells
+    # padded to Kmax=6, Smax=5, tau=50; every lane its own masks
+    ("grid_launch", 8192, 6, 2, 5, 2, 50, len(GRID_PARITY_CELLS), False,
+     "grid", None),
 ]
 
 
@@ -465,6 +520,27 @@ def masked(args, what):
         log_a[..., -1, :] = -1e30
     log_lam[..., -1] += 2000.0
     return tuple(args)
+
+
+def cell_masks(cells, kmax, smax, device):
+    """cmask [L, Kmax], smask [L, Smax] of lanes of the (K, S) ``cells``."""
+    cm = torch.stack([torch.arange(kmax, device=device) < k
+                      for k, _ in cells])
+    sm = torch.stack([torch.arange(smax, device=device) < s
+                      for _, s in cells])
+    return cm, sm
+
+
+def grid_kernel_args(base, post, cells):
+    """B1's arguments as the padded grid's E-step forms them: lanes of
+    ``post`` at (Kmax, Smax), each masked to its cell of ``cells`` (masked
+    clusters' and states' log_pi, log_a at -1e30)."""
+    cm, sm = cell_masks(cells, post.num_clusters, post.num_states,
+                        post.alpha.device)
+    exps = vbhem.reduced_expectations(post, cm, sm)
+    return (base.hmm.prior, base.hmm.trans, base.hmm.mean, base.hmm.cov,
+            exps.log_pi, exps.log_a, post.niw.m, post.niw.w, post.niw.v,
+            post.niw.beta, exps.log_lam)
 
 
 def forced_design(kind, sb, sr, tau, dtype):
@@ -529,17 +605,35 @@ def phase_parity_b1(fails: Failures, device) -> float:
             hyps = vbhem.VBHEMHyps.from_config(cfg, d, dtype, device)
             gen = torch.Generator(device="cpu").manual_seed(11)
             post = random_posts(gen, base, hyps, lanes, kr, sr, cfg.nv)
-            args = kernel_args(base, post)
-            if masking:
-                args = masked(args, masking)
+            if masking == "grid":
+                args = grid_kernel_args(base, post, GRID_PARITY_CELLS)
+            else:
+                args = kernel_args(base, post)
+                if masking:
+                    args = masked(args, masking)
             des = forced_design(kind, sb, sr, tau, dtype)
             pairs = kb * lanes * kr
             name += f" [{design_name(des, sb, sr, tau, dtype, pairs)}]"
+            before = read_counts()
             got = pair_estep_cuda.pair_bwd_fwd_fused_cuda(*args, tau,
                                                           des=des)
+            after = read_counts()
             want = _plain_pair(tuple(a.double() for a in args), tau)
             torch.cuda.synchronize()
             errs, max_abs = _errors(got, want)
+            # which kernel and body ran: B3 for D past B1's cap, the
+            # wide body (scratch only) past the register bodies' states
+            kernel = "B3" if d > pair_estep_cuda.MAX_DIM else "B1"
+            ran = {k: after[k] - before[k] for k in ("B1", "B3")}
+            wide = pair_estep_cuda.is_wide(sb, sr)
+            if d > pair_estep_cuda.MAX_DIM or wide:
+                ok = ran[kernel] == 1 and sum(ran.values()) == 1
+                if wide:
+                    ok = ok and (after[f"{kernel}_scratch"]
+                                 - before[f"{kernel}_scratch"]) == 1
+                fails.check(ok, f"B1 {name} {dtype}: one launch of "
+                                f"{kernel}{' (wide body)' if wide else ''}"
+                                f" (launches {ran})")
             if dtype == torch.float32:
                 max_abs_f32 = max(max_abs_f32, max_abs)
                 p32 = _plain_pair(args, tau)
@@ -595,6 +689,13 @@ B2_CASES = [
 # entry 1 only: tiles too large for shared memory, so the streamed design
 B2_STREAMED_CASES = [
     ("long_t_streamed", (2,), 64, 2000, 8, False, True, False),
+]
+# entry 1 only: K past the register bodies (K = 8 is B2_CASES' k8), the
+# wide body
+B2_WIDE_CASES = [
+    ("k9", (2,), 128, 20, 9, False, True, False),
+    ("k12", (2,), 128, 20, 12, False, True, False),
+    ("k9_lanes_per_seq", (4, 3), 25, 50, 9, True, True, True),
 ]
 # the fused E-step at every case of B2_CASES with D=2, and these
 B2_FUSED_EXTRA = [
@@ -667,7 +768,7 @@ def phase_parity_b2(fails: Failures, device) -> float:
     max_abs_f32 = 0.0
     for dtype in (torch.float32, torch.float64):
         for name, lanes, n, t, k, per_seq, ragged, mpl in \
-                B2_CASES + B2_STREAMED_CASES:
+                B2_CASES + B2_STREAMED_CASES + B2_WIDE_CASES:
             args = fb_inputs(1, lanes, n, t, k, device, dtype, per_seq,
                              ragged, mpl)
             des = fb_cuda.design(t, k, args[2].element_size())
@@ -699,6 +800,28 @@ def phase_parity_b2(fails: Failures, device) -> float:
             if dtype == torch.float32:
                 max_abs_f32 = max(max_abs_f32, err)
             del got, x, niw
+        # the E-step's dispatch at K past the fused entry's: log_rho in
+        # PyTorch, then entry 1's wide body
+        x, mask, pz1, trans, niw = fused_inputs(
+            2, (4,), 128, 50, 9, 2, device, dtype, ragged=True)
+        before = read_counts()
+        got = fb_cuda.e_step_auto(x, mask, pz1, trans, niw)
+        after = read_counts()
+        torch.cuda.synchronize()
+        ran = {k: after[k] - before[k] for k in ("B2", "B2_fused")}
+        fails.check(ran == {"B2": 1, "B2_fused": 0},
+                    f"B2 e_step_auto K=9 {dtype}: entry 1 (wide body) "
+                    f"launched ({ran})")
+        err = _parity_fb(
+            fails, "e_step_auto K=9 D=2 (wide)", dtype, got,
+            lambda: fb_plain.forward_backward(
+                _f64(pz1), _f64(trans), fb_plain.expected_log_gauss(
+                    _f64(x), tree_map(_f64, niw)), mask),
+            lambda: fb_plain.forward_backward(
+                pz1, trans, fb_plain.expected_log_gauss(x, niw), mask))
+        if dtype == torch.float32:
+            max_abs_f32 = max(max_abs_f32, err)
+        del got, x, niw
     return max_abs_f32
 
 
@@ -733,6 +856,14 @@ B3_CASES = [
     ("dic_cell", 1, 8192, 3, 2, 2, 50, False, None, None),
     ("dic_cell_resident", 1, 8192, 3, 2, 2, 50, False, None, "resident"),
     ("dic_cell_scratch", 1, 8192, 3, 2, 2, 50, False, None, "scratch"),
+    # past the register bodies: at their cap, then the wide body
+    ("s8_tau10", 1, 256, 2, 8, 8, 10, False, None, None),
+    ("s9", 1, 256, 2, 9, 9, 10, False, None, None),
+    ("s12", 1, 256, 2, 12, 12, 10, False, None, None),
+    ("s9_masked_state", 1, 256, 2, 9, 9, 10, True, "masked", None),
+    # phase 8's float64 rescoring: one launch per cell winner, unpadded;
+    # the largest cell (6, 5) on the learned bank's Sb=2, tau=50
+    ("rescore_cell_6_5", 1, 8192, 6, 2, 5, 50, False, None, None),
 ]
 
 
@@ -784,8 +915,16 @@ def phase_parity_b3(fails: Failures, device) -> float:
             des = forced_design(kind, sb, sr, tau, dtype)
             pairs = kb * lanes * kr
             name += f" [{design_name(des, sb, sr, tau, dtype, pairs)}]"
+            before = read_counts()
             got = pair_estep_cuda.pair_bwd_fwd_cuda(*args, tau, des=des)
+            after = read_counts()
             torch.cuda.synchronize()
+            if pair_estep_cuda.is_wide(sb, sr):
+                ran = {k: after[k] - before[k]
+                       for k in ("B3", "B3_scratch", "B1")}
+                fails.check(ran == {"B3": 1, "B3_scratch": 1, "B1": 0},
+                            f"B3 {name} {dtype}: one launch of the wide "
+                            f"body ({ran})")
             want = plain.pair_bwd_fwd(*[a.double() for a in args], tau)
             errs, max_abs = _errors(got, want)
             if dtype == torch.float32:
@@ -1054,7 +1193,217 @@ def phase_dic(fails: Failures, device, pipe, labels) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: timing
+# phases 8-9: the padded (K, S) grid and the synthetic protocol's VBHEM stage
+# ---------------------------------------------------------------------------
+
+# The grid of the synthetic protocol (`experiments/synthetic.py:119-140`)
+# and its restarts on the 8192-subject bank: PIPELINE_TRIALS, for the
+# reason given there.
+GRID = (list(range(1, 7)), list(range(1, 6)))
+GRID_TRIALS = PIPELINE_TRIALS
+GRID_CONFIG = VBHEMConfig(alpha0=1e6, m0=(1.5, 1.5), w0=1.0,
+                          trials=GRID_TRIALS, nv=100, tau=50,
+                          initmode="baseem", learn_hyps=False)
+GRID_SEED = 0
+# the largest |float32 ELBO - float64 rescoring| / |float64| a cell may
+# show: above the largest gap measured on an H100 (9.3e-7 on the grid's
+# 8192-subject bank, 1.2e-4 on the protocol's 40 subjects, whose bound is
+# 200 times smaller) and below the 1-3% the JAX package's float32 bound
+# showed on the TPU
+GRID_GAP_LIMIT = 1e-4
+PROTOCOL_GAP_LIMIT = 1e-3
+
+
+def grid_design(base, n_lanes, chunk) -> str:
+    """The design ``pair_estep_cuda.design`` names for the grid's B1
+    launches: a chunk of lanes at the padded shape."""
+    kb, sb = base.state_mask.shape
+    lanes = chunk or n_lanes
+    return pair_estep_cuda.design(sb, max(GRID[1]), GRID_CONFIG.tau,
+                                  base.hmm.mean.element_size(),
+                                  kb * lanes * max(GRID[0]),
+                                  sm_count()).kind
+
+
+def _cell_gaps(info) -> dict:
+    """Per cell, (device float32 ELBO - float64 rescoring) / |float64|."""
+    gaps = {}
+    for ki, k in enumerate(info["model_k"]):
+        for si, s_ in enumerate(info["model_s"]):
+            corr = math.lgamma(k + 1) + math.lgamma(s_ + 1)
+            ll64 = info["model_ll"][ki, si] - corr
+            ll32 = info["model_ll_device"][ki, si] - corr
+            gaps[f"{k},{s_}"] = float((ll32 - ll64) / abs(ll64))
+    return gaps
+
+
+def _check_grid_launches(fails, what, launches, info, base, n_lanes):
+    """B1 once per EM iteration of every chunk, all in the design named
+    for the chunk's launch; B3 once per rescored cell (float32 banks)."""
+    iters = sum(info["grid_chunk_iters"])
+    fails.check(launches["B1"] == iters > 0,
+                f"{what}: B1 launched {launches['B1']} times for the "
+                f"{iters} EM iterations of its chunks "
+                f"{info['grid_chunk_iters']}")
+    check_on_chip(fails, what, launches, "B1",
+                  grid_design(base, n_lanes, info["grid_trial_chunk"]))
+    rescored = int(np.sum(np.isfinite(info["model_ll_device"])))
+    fails.check(launches["B3"] == rescored,
+                f"{what}: B3 (float64) launched {launches['B3']} times for "
+                f"{rescored} rescored cells")
+
+
+def phase_grid(fails: Failures, device, vbem) -> dict:
+    """cluster_batched() over the protocol's (K, S) grid on the bank phase
+    4 learned, with the float64 rescoring of every cell winner."""
+    labels = vbem["labels"]
+    base = vbhem.h3m_from_results(vbem["results"], device=device)
+    n_lanes = len(GRID[0]) * len(GRID[1]) * GRID_CONFIG.trials
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res, info = vbhem.cluster_batched(
+        torch.Generator(device="cpu").manual_seed(GRID_SEED), base, *GRID,
+        GRID_CONFIG)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    chunk = info["grid_trial_chunk"]
+    n_chunks = len(info["grid_chunk_iters"])
+    print(f"grid: Kb={base.num_hmms} Sb={base.state_mask.shape[1]} "
+          f"K={GRID[0]} x S={GRID[1]} tau={GRID_CONFIG.tau} "
+          f"nv={GRID_CONFIG.nv} trials={GRID_CONFIG.trials} lanes={n_lanes} "
+          f"f32; lane chunk {chunk or n_lanes} x {n_chunks} chunks, EM "
+          f"iterations per chunk {info['grid_chunk_iters']}; "
+          f"wall={wall:.3f}s peak_memory={peak:.2f} GiB "
+          f"launches={launches}", flush=True)
+    print(f"grid: selected K={info['model_best_k']} "
+          f"S={info['model_best_s']}; per-K S* "
+          f"{info['model_best_s_per_k']}", flush=True)
+    print(f"grid: scores (float64 rescoring, selects) "
+          f"{info['model_ll'].tolist()}", flush=True)
+    print(f"grid: scores (device float32) "
+          f"{info['model_ll_device'].tolist()}", flush=True)
+    gaps = _cell_gaps(info)
+    print(f"grid: per-cell (f32 - f64) / |f64| {json.dumps(gaps)}",
+          flush=True)
+    worst = max(abs(g) for g in gaps.values())
+    fails.check(worst <= GRID_GAP_LIMIT,
+                f"grid: every cell's float32 ELBO within {GRID_GAP_LIMIT:.0e}"
+                f" of its float64 rescoring (largest gap {worst:.3e})")
+    print(f"grid: per-cell EM iterations "
+          f"{ {f'{k},{s_}': n for (k, s_), n in info['model_em_iters'].items()} }",
+          flush=True)
+    fails.check(bool(np.all(np.isfinite(info["model_ll"])))
+                and bool(np.all(np.isfinite(info["model_ll_device"]))),
+                "grid: every score finite (float32 and float64)")
+    _check_grid_launches(fails, "grid", launches, info, base, n_lanes)
+    ri = rand_index(info["model_all"][(2, 2)].label.cpu().numpy(), labels)
+    fails.check(ri == 1.0, f"grid (K=2, S=2) labels vs planted groups: "
+                           f"Rand index {ri}")
+    return {"launches": launches, "wall_s": wall, "peak_gib": peak,
+            "chunk": chunk or n_lanes, "n_chunks": n_chunks,
+            "chunk_iters": info["grid_chunk_iters"], "gaps": gaps,
+            "best": (info["model_best_k"], info["model_best_s"]),
+            "base": base}
+
+
+def phase_padded(fails: Failures, device, grid, lanes=8, iters=40) -> dict:
+    """Padded equals unpadded on the card: the first ``lanes`` restarts of
+    cell (2, 2), drawn as phase 8's grid draws them (the same generator
+    seed, every lane at (Kmax, Smax)), each run padded under its masks
+    and, from the same start sliced to (2, 2), unpadded, both for
+    ``iters`` iterations (no early stop, so both take the same steps);
+    the ELBOs must agree to 5e-5 relative."""
+    base = grid["base"]
+    kmax, smax = max(GRID[0]), max(GRID[1])
+    cells = [(k, s_) for k in GRID[0] for s_ in GRID[1]]
+    n_lanes = len(cells) * GRID_CONFIG.trials
+    hyps = vbhem.VBHEMHyps.from_config(GRID_CONFIG, 2, torch.float32, device)
+    post0 = vbhem.init_baseem(
+        torch.Generator(device="cpu").manual_seed(GRID_SEED), base, kmax,
+        smax, hyps, GRID_CONFIG.nv, lanes=(n_lanes,))
+    first = cells.index((2, 2)) * GRID_CONFIG.trials
+    post = tree_map(lambda a: a[first:first + lanes], post0)
+    cm, sm = cell_masks([(2, 2)] * lanes, kmax, smax, device)
+    kw = dict(nv=GRID_CONFIG.nv, tau=GRID_CONFIG.tau, max_iter=iters,
+              min_diff=0.0)
+    padded = vbhem.vbhem_em_masked(base, post, hyps, cmask=cm, smask=sm,
+                                   **kw)
+    sliced = tree_map(torch.Tensor.contiguous, vbhem.H3MPosterior(
+        alpha=post.alpha[:, :2], eta=post.eta[:, :2, :2],
+        epsilon=post.epsilon[:, :2, :2, :2],
+        niw=NIW(*[f[:, :2, :2] for f in post.niw])))
+    unpadded = vbhem.vbhem_em(base, sliced, hyps, **kw)
+    a = padded.ll.double().cpu().numpy()
+    b = unpadded.ll.double().cpu().numpy()
+    rel = np.abs(a - b) / np.abs(b)
+    print(f"padded vs unpadded: cell (2, 2), lanes {first}..{first + lanes - 1}"
+          f" of the grid, {iters} iterations: padded {a.tolist()} unpadded "
+          f"{b.tolist()}; relative gaps {rel.tolist()}", flush=True)
+    fails.check(bool(np.all(np.isfinite(a))) and float(rel.max()) <= 5e-5,
+                f"padded equals unpadded (f32, (6,5) padding of cell (2,2), "
+                f"{lanes} lanes): largest relative gap {rel.max():.3e} "
+                f"<= 5e-5")
+    return {"max_rel": float(rel.max())}
+
+
+def phase_protocol(fails: Failures, device, vbem, per_group=20) -> dict:
+    """run_vbhem() at the protocol's size: ``per_group`` subjects of each
+    planted group of phase 4's bank, default_vbhem_config()'s settings
+    with hyperparameter learning off, the grid K=1..6 x S=1..5."""
+    labels = vbem["labels"]
+    idx = np.concatenate([np.flatnonzero(labels == g)[:per_group]
+                          for g in (0, 1)])
+    results = [vbem["results"][i] for i in idx]
+    lab = labels[idx]
+    cfg = dataclasses.replace(synthetic.default_vbhem_config(),
+                              learn_hyps=False)
+    reset_counts()
+    t0 = time.perf_counter()
+    res, info, score = synthetic.run_vbhem(
+        torch.Generator(device="cpu").manual_seed(1), results, lab, *GRID,
+        cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    base = vbhem.h3m_from_results(results, device=device)
+    n_lanes = len(GRID[0]) * len(GRID[1]) * cfg.trials
+    print(f"protocol: Kb={len(results)} ({per_group} subjects per group of "
+          f"phase 4's bank) K={GRID[0]} x S={GRID[1]} trials={cfg.trials} "
+          f"nv={cfg.nv} tau={cfg.tau} initmode={cfg.initmode} "
+          f"learn_hyps={cfg.learn_hyps} wall={wall:.3f}s "
+          f"chunks={info['grid_chunk_iters']} launches={launches}",
+          flush=True)
+    print(f"protocol: scores (float64) {info['model_ll'].tolist()}",
+          flush=True)
+    gaps = _cell_gaps(info)
+    print(f"protocol: per-cell (f32 - f64) / |f64| {json.dumps(gaps)}",
+          flush=True)
+    worst = max(abs(g) for g in gaps.values())
+    fails.check(worst <= PROTOCOL_GAP_LIMIT,
+                f"protocol: every cell's float32 ELBO within "
+                f"{PROTOCOL_GAP_LIMIT:.0e} of its float64 rescoring (largest "
+                f"gap {worst:.3e})")
+    sel_ri = rand_index(score.labels, lab)
+    print(f"protocol: selected cell K={info['model_best_k']} "
+          f"S={info['model_best_s']}; after vbh3m_remove_empty "
+          f"{_selection(score)} (Rand index {sel_ri})", flush=True)
+    fails.check(bool(np.all(np.isfinite(info["model_ll"]))),
+                "protocol: every score finite")
+    _check_grid_launches(fails, "protocol", launches, info, base, n_lanes)
+    ri = rand_index(info["model_all"][(2, 2)].label.cpu().numpy(), lab)
+    fails.check(ri == 1.0, f"protocol (K=2, S=2) labels vs planted groups: "
+                           f"Rand index {ri}")
+    return {"launches": launches, "wall_s": wall, "best_k": score.best_k,
+            "best_s": score.best_s, "s_list": score.s_list,
+            "rand_index": sel_ri, "adjusted_rand_index": score.rand_index}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: timing
 # ---------------------------------------------------------------------------
 
 def em_iteration(base, post, hyps, tilde_n, tau, pair_fn):
@@ -1300,6 +1649,201 @@ def timing_b3(device, vbem, n=50) -> dict:
     return row
 
 
+def _bound_line(row) -> str:
+    return (f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+            f"{row['sfu_ops']:.4g} SFU ops, {row['bytes']:.4g} bytes)")
+
+
+def grid_chunk(base, lanes, device, seed=5):
+    """The grid's B1 launch at a lane chunk of ``lanes``: baseem starts at
+    (Kmax, Smax) = (6, 5), the lanes cycling over the grid's cells; returns
+    (posterior, each lane's cell, float32 hyperparameters, the generator
+    after its draws)."""
+    kmax, smax = max(GRID[0]), max(GRID[1])
+    cells = [(k, s_) for k in GRID[0] for s_ in GRID[1]]
+    lane_cells = [cells[i % len(cells)] for i in range(lanes)]
+    hyps = vbhem.VBHEMHyps.from_config(GRID_CONFIG, 2, torch.float32, device)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    post = vbhem.init_baseem(gen, base, kmax, smax, hyps, GRID_CONFIG.nv,
+                             lanes=(lanes,))
+    return post, lane_cells, hyps, gen
+
+
+def parity_grid_chunk(fails: Failures, device, grid) -> dict:
+    """B1 checked at the launch the grid runs: one launch at phase 8's lane
+    chunk (its lane count, each lane masked to its cell, Kb=8192, Sb=2,
+    Kmax=6, Smax=5, tau=50, float32; the scratch is tens of GB), in the
+    design ``design()`` names, and a spread of its lanes (the first, the
+    middle and the last, and the first lane of K=1, of S=1, of (6, 5) and
+    of the other cells) held
+    against the plain version in float64 on those lanes' inputs at the
+    float32 tolerance."""
+    base = grid["base"]
+    lanes, tau = grid["chunk"], GRID_CONFIG.tau
+    post, lane_cells, _, _ = grid_chunk(base, lanes, device)
+    args = grid_kernel_args(base, post, lane_cells)
+    des = grid_design(base, lanes, lanes)
+    before = read_counts()
+    got = pair_estep_cuda.pair_bwd_fwd_fused_cuda(*args, tau)
+    torch.cuda.synchronize()
+    after = read_counts()
+    ran = {k: after[k] - before[k] for k in ("B1", f"B1_{des}")}
+    fails.check(ran == {"B1": 1, f"B1_{des}": 1},
+                f"grid chunk launch: one B1 launch of {lanes} lanes in the "
+                f"{des} design (launches {ran})")
+    first = {}
+    for i, (k, s_) in enumerate(lane_cells):
+        first.setdefault("K=1, S>1" if k == 1 and s_ > 1 else
+                         "S=1, K>1" if s_ == 1 and k > 1 else
+                         "K=1, S=1" if k == s_ == 1 else
+                         "(6, 5)" if (k, s_) == (6, 5) else "other", i)
+    picks = sorted({0, lanes // 2, lanes - 1, *first.values()})
+    worst = 0.0
+    for lane in picks:
+        lane_args = args[:4] + tuple(a[lane:lane + 1] for a in args[4:])
+        want = _plain_pair(tuple(a.double() for a in lane_args), tau)
+        got_l = type(got)(*[f[lane:lane + 1] for f in got])
+        errs, _ = _errors(got_l, want)
+        worst = max(worst, max(errs.values()))
+        _gate(fails, "B1", f"grid chunk launch [{des}, L={lanes}] lane "
+                           f"{lane} of cell {lane_cells[lane]}",
+              torch.float32, errs)
+    return {"lanes": lanes, "checked": picks, "worst": worst}
+
+
+def timing_grid(device, grid, n=3) -> dict:
+    """B1 at the grid's launch: one lane chunk of phase 8 (its lane count,
+    the lanes cycling over the grid's cells, each masked to its cell,
+    baseem starts at (Kmax, Smax) = (6, 5), Sb=2, tau=50, float32), its
+    device time in the design the wrapper takes; the same launch with no
+    masked state (every lane (6, 5)), to show what the underflow guard's
+    log-domain branch costs where the argmax of ell + carry is a masked
+    state; one grid EM iteration (``vbhem._em_iteration`` with the
+    lanes' masks) at that chunk; B3 in float64 at the rescoring's largest
+    launch, cell (6, 5) unpadded, against its plain version."""
+    base = grid["base"]
+    kb, sb = base.state_mask.shape
+    kmax, smax, tau = max(GRID[0]), max(GRID[1]), GRID_CONFIG.tau
+    lanes = grid["chunk"]
+    post, lane_cells, hyps, gen = grid_chunk(base, lanes, device)
+    masked_args = grid_kernel_args(base, post, lane_cells)
+    open_args = kernel_args(base, post)
+    b1 = pair_estep_cuda.pair_bwd_fwd_fused_cuda
+    dev_masked = device_ms(lambda: b1(*masked_args, tau),
+                           DEVICE_NAMES["B1"], n)
+    dev_open = device_ms(lambda: b1(*open_args, tau), DEVICE_NAMES["B1"], n)
+    del masked_args, open_args
+    pairs = kb * lanes * kmax
+    des = pair_estep_cuda.design(sb, smax, tau, 4, pairs, sm_count())
+    row = {"kernel_device_ms": dev_masked, "unmasked_device_ms": dev_open,
+           "lanes": lanes, "design": des._asdict(),
+           "launches_per_run": grid["launches"]["B1"],
+           **b1_bound(kb, lanes * kmax, sb, smax, 2, tau, 4)}
+    cm, sm = cell_masks(lane_cells, kmax, smax, device)
+    tilde_n = (GRID_CONFIG.nv * kb) * base.omega
+    it_runs = interleaved({"kernel": lambda: vbhem._em_iteration(
+        base, post, hyps, tilde_n, tau, "full", (cm, sm))}, n, device,
+        warmup=1)
+    row["iter_ms_runs"] = [v * 1e3 for v in it_runs["kernel"]]
+    row["iter_ms"] = float(np.mean(row["iter_ms_runs"]))
+    print(f"timing B1 [grid launch: Kb={kb} L={lanes} Kmax={kmax} Sb={sb} "
+          f"Smax={smax} D=2 tau={tau} f32, lanes masked to their cells] "
+          f"kernel device {dev_masked:.4f} ms; unmasked (every lane (6,5)) "
+          f"{dev_open:.4f} ms; {_bound_line(row)}, share "
+          f"{row['bound_ms'] / dev_masked:.3f}; "
+          f"{design_note(des, pairs, sb, smax, tau, 4)}; "
+          f"{grid['launches']['B1']} launches in phase 8; plain version "
+          f"not run (its per-step Theta at this launch would take "
+          f"{4 * (tau - 1) * pairs * smax * sb * smax / 1e9:.1f} GB)",
+          flush=True)
+    print(f"timing grid EM iteration [L={lanes} lanes]: {row['iter_ms']:.2f} "
+          f"ms (runs {row['iter_ms_runs']})", flush=True)
+    del post, cm, sm
+
+    # B3 float64 at the rescoring's largest launch
+    hyps64 = vbhem.VBHEMHyps.from_config(GRID_CONFIG, 2, torch.float64,
+                                         device)
+    base64 = _to_f64(base)
+    post64 = vbhem.init_baseem(gen, base64, kmax, smax, hyps64,
+                               GRID_CONFIG.nv)
+    exps = vbhem.reduced_expectations(post64)
+    ell = plain.expected_pair_ll_variational(
+        base64.hmm.mean, base64.hmm.cov, post64.niw.m, post64.niw.w,
+        post64.niw.v, post64.niw.beta, exps.log_lam)
+    args = (base64.hmm.prior, base64.hmm.trans, exps.log_pi, exps.log_a, ell)
+    runs = interleaved({
+        "kernel": lambda: pair_estep_cuda.pair_bwd_fwd_cuda(*args, tau),
+        "plain": lambda: plain.pair_bwd_fwd(*args, tau)}, 10, device)
+    dev64 = device_ms(lambda: pair_estep_cuda.pair_bwd_fwd_cuda(*args, tau),
+                      DEVICE_NAMES["B3"], 10)
+    des64 = pair_estep_cuda.design(sb, smax, tau, 8, kb * kmax, sm_count())
+    b3row = {"kernel_device_ms": dev64, "design": des64._asdict(),
+             "wrapper_ms": float(np.mean(runs["kernel"])) * 1e3,
+             "plain_ms": float(np.mean(runs["plain"])) * 1e3,
+             "launches_per_run": grid["launches"]["B3"],
+             **b3_bound(kb, kmax, sb, smax, tau, 8)}
+    print(f"timing B3 f64 [rescoring launch: cell (6,5) unpadded, Kb={kb} "
+          f"Sb={sb} tau={tau}] kernel device {dev64:.4f} ms; wrapper "
+          f"{b3row['wrapper_ms']:.4f} ms; plain {b3row['plain_ms']:.4f} ms; "
+          f"{_bound_line(b3row)}, share {b3row['bound_ms'] / dev64:.3f}; "
+          f"{design_note(des64, kb * kmax, sb, smax, tau, 8)}; "
+          f"{grid['launches']['B3']} launches in phase 8", flush=True)
+    row["b3_f64"] = b3row
+    return row
+
+
+def timing_wide(device, n=10) -> dict:
+    """The wide bodies (vectors in device memory) at S=9 and K=9, float32:
+    B1 and B3 at Kb=8192, L=1, Kr=2, Sb=Sr=9, tau=10; B2's entry 1 at 64
+    lanes x 25 sequences, T=50, K=9; each beside its bound and the plain
+    version's time."""
+    out = {}
+    kb, kr, s9, tau = 8192, 2, 9, 10
+    rng = np.random.default_rng(9)
+    base = random_bank(rng, kb, s9, 2, device, torch.float32)
+    cfg = VBHEMConfig(m0=(0.0, 0.0), w0=1.0, nv=100, tau=tau)
+    hyps = vbhem.VBHEMHyps.from_config(cfg, 2, torch.float32, device)
+    post = random_posts(torch.Generator(device="cpu").manual_seed(2), base,
+                        hyps, 1, kr, s9, cfg.nv)
+    args = kernel_args(base, post)
+    ell = plain.expected_pair_ll_variational(*args[2:4], *args[6:])
+    b3_args = (*args[:2], *args[4:6], ell)
+    for key, fn, plain_fn, bnd in (
+            ("B1", lambda: pair_estep_cuda.pair_bwd_fwd_fused_cuda(*args,
+                                                                   tau),
+             lambda: _plain_pair(args, tau),
+             b1_bound(kb, kr, s9, s9, 2, tau, 4)),
+            ("B3", lambda: pair_estep_cuda.pair_bwd_fwd_cuda(*b3_args, tau),
+             lambda: plain.pair_bwd_fwd(*b3_args, tau),
+             b3_bound(kb, kr, s9, s9, tau, 4))):
+        dev = device_ms(fn, DEVICE_NAMES[key].replace("_kernel",
+                                                      "_wide_kernel"), n)
+        runs = interleaved({"plain": plain_fn}, 3, device, warmup=1)
+        row = {"kernel_device_ms": dev,
+               "plain_ms": float(np.mean(runs["plain"])) * 1e3, **bnd}
+        print(f"timing {key} wide body [Kb={kb} L=1 Kr={kr} Sb=Sr={s9} "
+              f"tau={tau} f32] kernel device {dev:.4f} ms; plain "
+              f"{row['plain_ms']:.4f} ms; {_bound_line(row)}, share "
+              f"{row['bound_ms'] / dev:.4f}", flush=True)
+        out[key] = row
+    pz1, trans, log_rho, mask = fb_inputs(3, (64,), 25, 50, 9, device,
+                                          torch.float32)
+    dev = device_ms(lambda: fb_cuda.forward_backward_cuda(pz1, trans,
+                                                          log_rho, mask),
+                    "fb_wide_kernel", n)
+    runs = interleaved({"plain": lambda: fb_plain.forward_backward(
+        pz1, trans, log_rho, mask)}, 3, device, warmup=1)
+    row = {"kernel_device_ms": dev,
+           "plain_ms": float(np.mean(runs["plain"])) * 1e3,
+           **b2_bound(pz1, trans, log_rho, mask)}
+    print(f"timing B2 wide body [entry 1: 64 lanes x 25 sequences, T=50, "
+          f"K=9, f32] kernel device {dev:.4f} ms; plain "
+          f"{row['plain_ms']:.4f} ms; {_bound_line(row)}, share "
+          f"{row['bound_ms'] / dev:.4f}", flush=True)
+    out["B2"] = row
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1357,12 +1901,28 @@ def main() -> int:
                                          vbem["labels"]))
         else:
             fails.check(False, "DIC needs the pipeline's grid")
+        run("grid", lambda: phase_grid(fails, device, vbem))
+        if "grid" in results:
+            run("parity grid chunk",
+                lambda: parity_grid_chunk(fails, device, results["grid"]))
+            run("padded vs unpadded",
+                lambda: phase_padded(fails, device, results["grid"]))
+        else:
+            fails.check(False, "the grid chunk's parity and padded vs "
+                               "unpadded need the grid's bank")
+        run("protocol", lambda: phase_protocol(fails, device, vbem))
         run("timing B2", lambda: timing_b2(device, vbem))
         run("timing B3", lambda: timing_b3(device, vbem))
+        if "grid" in results:
+            run("timing grid", lambda: timing_grid(device, results["grid"]))
+        else:
+            fails.check(False, "the grid timing needs the grid's chunk")
     else:
-        fails.check(False, "the pipeline, VHEM, DIC and the B2 and B3 "
-                           "timings need the VBEM path")
+        fails.check(False, "the pipeline, VHEM, DIC, grid and protocol "
+                           "phases and the B2, B3 and grid timings need the "
+                           "VBEM path")
     run("timing B1", lambda: timing_b1(device))
+    run("timing wide bodies", lambda: timing_wide(device))
 
     lines = []
     for key, parity, path, timing, field in (
@@ -1387,6 +1947,29 @@ def main() -> int:
         if key in ("B1", "B3"):   # the main path's launches by design
             lines[-1]["designs"] = {kind: counts.get(f"{key}_{kind}")
                                     for kind in pair_estep_cuda.DESIGNS}
+        # each path's own run: launches counted from 0 just before it
+        lines[-1]["launches_by_path"] = {
+            path: results[path]["launches"].get(key) + (
+                results[path]["launches"]["B2_fused"] if key == "B2" else 0)
+            for path in ("VBHEM path", "VBEM path", "pipeline", "VHEM path",
+                         "grid", "protocol") if path in results}
+        grid_t = results.get("timing grid", {})
+        wide_t = results.get("timing wide bodies", {}).get(key, {})
+        if key == "B1" and grid_t:   # the grid's own launch
+            lines[-1]["grid_launch"] = {
+                f: grid_t.get(f) for f in (
+                    "kernel_device_ms", "unmasked_device_ms", "bound_ms",
+                    "bound_by", "lanes", "launches_per_run")}
+        if key == "B3" and grid_t:   # the float64 rescoring's launch
+            lines[-1]["rescore_launch"] = {
+                f: grid_t["b3_f64"].get(f) for f in (
+                    "kernel_device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "launches_per_run")}
+        if wide_t:   # the wide body, S=9 or K=9
+            lines[-1]["wide_body"] = {
+                "source": WIDE_SOURCES[key],
+                **{f: wide_t.get(f) for f in ("kernel_device_ms", "plain_ms",
+                                              "bound_ms", "bound_by")}}
         if key == "B2":   # the main path runs the fused entry; entry 1 too
             lines[-1].update(
                 entry1_ms=t.get("entry1_device_ms"),

@@ -54,6 +54,8 @@ CASES = {
     "t1": dict(t=1),
     "k1": dict(k=1),
     "k8": dict(k=8, t=4),
+    "k9": dict(k=9, t=4),       # past the register bodies: the wide body
+    "k12": dict(k=12, t=5),
     "full_length": dict(ragged=False),
     "lanes": dict(lanes=(2, 3)),
     "lanes_per_seq": dict(lanes=(3,), per_seq=True),
@@ -213,7 +215,10 @@ def kernel_transliteration(log_pz1, log_trans, log_rho, mask, tc_max):
 
 @pytest.mark.parametrize("name,tc", [("shared_ragged", 3), ("t1", 16),
                                      ("k1", 2), ("full_length", 7),
-                                     ("full_length", 1)])
+                                     ("full_length", 1),
+                                     # the wide body (csrc/fb_wide.cu) runs
+                                     # this arithmetic over all of T at once
+                                     ("k9", 4), ("k12", 5)])
 def test_kernel_algorithm_matches_plain(name, tc):
     case = make_case(5, **CASES[name])
     want = tfb.forward_backward(*port(case))
@@ -250,10 +255,14 @@ def test_validate_rejects_what_the_kernel_cannot_take():
     m0[2, :] = False                     # a sequence with step 0 masked out
     with pytest.raises(ValueError, match="step 0"):
         auto(p, a, r, m0)
-    with pytest.raises(ValueError, match="K=9"):
-        auto(*port(make_case(6, n=4, t=3, k=9)))
+    # K above 8 is taken (the wide body on the card; the plain version
+    # here); empty shapes are not
+    got = auto(*port(make_case(6, n=4, t=3, k=9)))
+    assert got.gamma.shape == (4, 3, 9)
     with pytest.raises(ValueError, match="empty"):
         auto(p, a, r[:, :0], m[:, :0])
+    with pytest.raises(ValueError, match="empty"):
+        auto(p[..., :0], a[..., :0, :0], r[..., :0], m)
     with pytest.raises(ValueError, match="dtype"):
         auto(p.float(), a, r, m)
     with pytest.raises(ValueError, match="dtype"):
@@ -652,6 +661,10 @@ def test_design_picks_resident_or_streamed_by_shape():
                 des = fb_cuda.design(t, k, size)
                 assert des.smem_bytes <= fb_cuda.SMEM_PER_BLOCK
                 assert des.kind == "streamed" or des.rows % 32 == 0
+    # past the register bodies: the wide body, whatever T
+    for t, k in ((1, 9), (50, 12), (2000, 40)):
+        assert fb_cuda.design(t, k, 4) == ("wide", 0, 0)
+    assert fb_cuda.wide_work_values(9) == 81 + 27
 
 
 def test_mask_bits():

@@ -71,6 +71,10 @@ CASES = {
     "tau2_ragged": dict(kw=dict(ragged=True), tau=2),
     "d3_sr1": dict(kw=dict(d=3, sr=1), tau=4),
     "logpi_neg1e30": dict(kw=dict(sb=2, sr=2, big_neg=True), tau=3),
+    # sizes past the register bodies (the wide bodies on the card) and
+    # past B1's emission dims (E3logN in PyTorch and B3 on the card)
+    "sb9_sr9": dict(kw=dict(kb=6, kr=2, sb=9, sr=9), tau=4),
+    "d5": dict(kw=dict(kb=6, kr=2, d=5), tau=4),
 }
 
 
@@ -223,11 +227,18 @@ def test_validate_rejects_what_the_kernel_cannot_take():
         tpc.pair_estep_fused_auto(*_bad(case, w_r=w_nc), 2)
     with pytest.raises(ValueError, match="shape"):
         tpc.pair_estep_fused_auto(*_bad(case, m_r=t[6][:, :1].contiguous()), 2)
-    for kw, msg in ((dict(sb=9), "Sb"), (dict(sr=9), "Sr"),
-                    (dict(d=5), "D=5")):
+    # Sb, Sr above 8 and D above 4 are taken (the wide bodies and the
+    # route through B3 on the card; the plain version here); empty shapes
+    # are not
+    for kw in (dict(sb=9), dict(sr=9), dict(d=5), dict(sb=12, sr=12)):
+        got = tpc.pair_estep_fused_auto(*port(make_case(8, kb=4, kr=1, **kw)),
+                                        2)
+        assert np.all(np.isfinite(got.ll_elbo.numpy()))
+    for kw, msg in ((dict(kb=0), "empty bank"), (dict(kr=0), "empty bank"),
+                    (dict(sr=0), "no states"), (dict(d=0), "D=0")):
         with pytest.raises(ValueError, match=msg):
-            tpc.pair_estep_fused_auto(*port(make_case(8, kb=4, kr=1, **kw)),
-                                      2)
+            tpc.pair_estep_fused_auto(*port(make_case(8, **dict(
+                dict(kb=4, kr=1), **kw))), 2)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -324,6 +335,7 @@ BF_CASES = {
     "tau2_ragged": dict(kw=dict(ragged=True), tau=2),
     "sr1": dict(kw=dict(sr=1), tau=4),
     "log_a_neg_inf": dict(kw=dict(sb=2, sr=3, neg_inf=True), tau=5),
+    "sb9_sr12": dict(kw=dict(kb=6, kr=2, sb=9, sr=12), tau=4),
 }
 
 
@@ -465,10 +477,14 @@ def test_validate_bwd_fwd_rejects_what_the_kernel_cannot_take():
         call(log_a_r=t["log_a_r"][None])
     with pytest.raises(ValueError, match="tensor"):
         call(prior_b=case[0])
-    for kw, msg in ((dict(sb=9), "Sb"), (dict(sr=9), "Sr")):
+    for kw in (dict(sb=9), dict(sr=9)):
+        got = tpc.pair_bwd_fwd_auto(*port(make_bwd_fwd_case(18, kb=4, kr=1,
+                                                            **kw)), 2)
+        assert np.all(np.isfinite(got.ll_elbo.numpy()))
+    for kw, msg in ((dict(kb=0), "empty bank"), (dict(sr=0), "no states")):
         with pytest.raises(ValueError, match=msg):
-            tpc.pair_bwd_fwd_auto(*port(make_bwd_fwd_case(18, kb=4, kr=1,
-                                                          **kw)), 2)
+            tpc.pair_bwd_fwd_auto(*port(make_bwd_fwd_case(18, **dict(
+                dict(kb=4, kr=1), **kw))), 2)
     # any strides: the wrapper lays the tensors out for the kernel
     def strided(x):
         y = x.transpose(0, 1).contiguous().transpose(0, 1)

@@ -148,6 +148,9 @@ CASES = {
     "masked_state": (dict(kind="masked", ragged=True), True),
     "masked_column": (dict(sb=2, sr=2, kind="masked_col"), True),
     "spread_1e3": (dict(kind="spread"), False),
+    # past the register bodies: the wide body runs the same arithmetic
+    "wide_s9": (dict(sb=9, sr=9), False),
+    "wide_masked_s10": (dict(sb=9, sr=10, kind="masked"), True),
 }
 TAUS = (1, 2, 10, 50)
 
@@ -244,6 +247,9 @@ BENCH, MAIN, PIPE, VHEM = 8192 * 8, 8192 * 24, 8192 * 192, 8192 * 60
     (8, 8, 200, 4, 512, "scratch"),
     (8, 8, 10, 8, 256, "resident"),        # f64, Sb = Sr = 8: 32 a SM held
     (8, 8, 10, 8, 8192, "scratch"),        # ... where 63 a SM are needed
+    (2, 5, 50, 4, 8192 * 6 * 30, "scratch"),  # the padded grid, 30 lanes
+    (9, 9, 2, 4, 64, "scratch"),           # the wide body: scratch only
+    (2, 12, 1, 8, 64, "scratch"),
 ])
 def test_design_by_shape(sb, sr, tau, itemsize, pairs, kind):
     des = tpc.design(sb, sr, tau, itemsize, pairs)
@@ -295,6 +301,35 @@ def test_design_of_sizes_blocks_and_rejects_unknown_kinds():
         "scratch", 128, 0)
     with pytest.raises(ValueError, match="design"):
         tpc.design_of("checkpointed", 2, 2, 50, 4)
+
+
+def test_wide_body_sizes():
+    """The wide body: only the scratch design; its workspace after the
+    states (csrc/pair_recursion.cuh: WideWork) and its shared memory (the
+    reduced model, and B1's emission constants) by shape."""
+    assert not tpc.is_wide(8, 8) and tpc.is_wide(9, 2) and tpc.is_wide(2, 9)
+    assert tpc.design_of("resident", 9, 9, 10, 4) is None
+    # llo, lse, nu, stn, foo, nn, inv [Sb*Sr]; hsum, sxi [Sr^2]; sh, mc
+    # [Sb]; x [Sr]; B1 adds E3logN [Sb*Sr]
+    assert tpc.wide_work_values(9, 12, False) == 7 * 108 + 2 * 144 + 18 + 12
+    assert tpc.wide_work_values(9, 12, True) == \
+        tpc.wide_work_values(9, 12, False) + 108
+    assert tpc.wide_smem_bytes(12, 0, 8) == (2 * 144 + 24) * 8
+    assert tpc.wide_smem_bytes(12, 3, 4) == (2 * 144 + 24 + 36 + 108 + 24) * 4
+    # the reduced model must fit a block's shared memory: Sr = 119 in
+    # float64 (B3) does, 121 does not
+    assert tpc.wide_smem_bytes(119, 0, 8) <= tpc.SMEM_DYNAMIC_MAX
+    assert tpc.wide_smem_bytes(121, 0, 8) > tpc.SMEM_DYNAMIC_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        tpc._wide_checks(tpc.PairDesign("scratch", 128, 0), 2, 121, 0, 8)
+    with pytest.raises(ValueError, match="scratch design"):
+        tpc._wide_checks(tpc.PairDesign("resident", 32, 1024), 9, 9, 2, 4)
+    scratch, _, _ = tpc._state_args(tpc.PairDesign("scratch", 128, 0),
+                                    torch.device("cpu"), torch.float32, 6,
+                                    40, 9, 9, 3,
+                                    tpc.wide_work_values(9, 9, True))
+    assert scratch.numel() == (2 * 81 + tpc.wide_work_values(9, 9, True)) \
+        * 6 * 40
 
 
 def test_state_args_allocate_scratch_only_for_the_scratch_design():

@@ -27,7 +27,9 @@
 //     (pair_recursion.cuh);
 //   * the VHEM path's bank has Sb=2 and its grid Sr in 1..3: (Sb, Sr) =
 //     (2, 1), (2, 2), (2, 3) are compile-time specializations; every other
-//     shape in Sb, Sr <= 8 runs a generic instantiation.
+//     shape in Sb, Sr <= 8 runs a generic instantiation, and larger ones
+//     the wide body of pair_recursion.cuh (vectors in device memory, the
+//     scratch design only).
 // Templated on float and double.
 
 #include "pair_recursion.cuh"
@@ -84,6 +86,39 @@ pair_bwd_fwd_kernel(const T* __restrict__ ell_in,  // [LKr, Sb, Sr, Kb]
                               sxi_out, stn_out, j, i, kb, sb_rt, sr_rt, tau);
 }
 
+// The wide body (Sb or Sr above kMaxS, pair_recursion.cuh): the reduced
+// model in dynamic shared memory, the states and the working vectors in
+// the scratch [tau-1, Sb*Sr, LKr, Kb] + [wide_work_values, LKr, Kb].
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+pair_bwd_fwd_wide_kernel(const T* __restrict__ ell_in, const T* __restrict__ prior,
+                         const T* __restrict__ trans, const T* __restrict__ log_pi,
+                         const T* __restrict__ log_a, T* __restrict__ ll_out,
+                         T* __restrict__ nu1_out, T* __restrict__ sxi_out,
+                         T* __restrict__ stn_out, T* __restrict__ scratch,
+                         int kb, int lkr, int sb, int sr, int tau) {
+  const WideReduced<T> red(reinterpret_cast<T*>(pair_smem), sr);
+  const int j = blockIdx.y;
+  stage_reduced_wide(red, log_pi, log_a, j, sr);
+  __syncthreads();
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= kb) return;
+  const size_t skb = static_cast<size_t>(kb);
+  const size_t plane = static_cast<size_t>(lkr) * skb;
+  const size_t pix = static_cast<size_t>(j) * skb + i;
+  T* st = scratch + pix;
+  const WideWork<T> w(
+      scratch + static_cast<size_t>(tau - 1) * sb * sr * plane + pix, plane,
+      sb, sr);
+  pair_recursion_wide<T>(
+      Strided<const T>{prior + i, skb}, Strided<const T>{trans + i, skb},
+      Strided<const T>{ell_in + static_cast<size_t>(j) * sb * sr * skb + i,
+                       skb},
+      red, st, plane, w, ll_out, nu1_out, sxi_out, stn_out, j, i, kb, sb, sr,
+      tau);
+}
+
 struct Args {
   const void *ell, *prior, *trans, *log_pi, *log_a;
   void *ll_out, *nu1_out, *sxi_out, *stn_out, *scratch;
@@ -119,7 +154,26 @@ int launch_shape(const Args& a) {
 }
 
 template <typename T>
+int launch_wide(const Args& a) {
+  auto* kernel = pair_bwd_fwd_wide_kernel<T>;
+  const size_t smem = sizeof(T) * wide_reduced_values(a.sr);
+  const int err = prepare_wide_launch(kernel, a.design, a.threads, smem,
+                                      a.scratch != nullptr);
+  if (err != 0) return err;
+  const dim3 grid((a.kb + a.threads - 1) / a.threads, a.lkr);
+  kernel<<<grid, a.threads, smem, a.stream>>>(
+      static_cast<const T*>(a.ell), static_cast<const T*>(a.prior),
+      static_cast<const T*>(a.trans), static_cast<const T*>(a.log_pi),
+      static_cast<const T*>(a.log_a), static_cast<T*>(a.ll_out),
+      static_cast<T*>(a.nu1_out), static_cast<T*>(a.sxi_out),
+      static_cast<T*>(a.stn_out), static_cast<T*>(a.scratch), a.kb, a.lkr,
+      a.sb, a.sr, a.tau);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch(const Args& a) {
+  if (a.sb > kMaxS || a.sr > kMaxS) return launch_wide<T>(a);
   if (a.sb == 2 && a.sr == 1) return launch_shape<T, 2, 1>(a);
   if (a.sb == 2 && a.sr == 2) return launch_shape<T, 2, 2>(a);
   if (a.sb == 2 && a.sr == 3) return launch_shape<T, 2, 3>(a);
@@ -129,7 +183,8 @@ int launch(const Args& a) {
 }  // namespace
 
 // Plain C interface for ctypes.  The caller validates shapes, dtypes,
-// contiguity and ranges (Sb, Sr in 1..8, tau >= 1, L*Kr <= 65535), lays
+// contiguity and ranges (Sb, Sr >= 1, tau >= 1, L*Kr <= 65535; above
+// Sb, Sr = 8 the scratch design, with the wide body's workspace), lays
 // ell out as [L*Kr, Sb, Sr, Kb] and the base bank with Kb last, chooses
 // the design, block size and shared memory as for B1
 // (vbhem_pair_estep_fused_*), and allocates every output and, for the

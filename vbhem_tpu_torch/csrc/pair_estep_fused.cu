@@ -32,7 +32,10 @@
 //     (3, 2, 2) on the planted bank and (2, 2, 2) on a learned bank of
 //     2-state HMMs, are compile-time specializations whose loops unroll
 //     and whose arrays live in registers; every other shape in Sb, Sr <= 8,
-//     D <= 4 runs a generic instantiation with runtime bounds.
+//     D <= 4 runs a generic instantiation with runtime bounds, and Sb or
+//     Sr above 8 the wide body (pair_recursion.cuh: vectors in device
+//     memory, the scratch design only).  D > 4 never reaches this kernel:
+//     the wrapper forms E3logN in PyTorch and launches B3.
 // Templated on float and double.
 
 #include "pair_recursion.cuh"
@@ -144,6 +147,86 @@ pair_estep_fused_kernel(const T* __restrict__ prior,    // [Sb, Kb]
                               sxi_out, stn_out, j, i, kb, sb_rt, sr_rt, tau);
 }
 
+// The wide body (Sb or Sr above kMaxS, pair_recursion.cuh): the reduced
+// model and its emission constants in dynamic shared memory; E3logN, the
+// states and the working vectors in the scratch [tau-1, Sb*Sr, LKr, Kb] +
+// [Sb*Sr + wide_work_values, LKr, Kb].  D <= kMaxD (the wrapper routes
+// wider data to B3).
+__host__ __device__ __forceinline__ int wide_fused_smem_values(int sr, int d) {
+  return wide_reduced_values(sr) + sr * d + sr * d * d + 2 * sr;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+pair_estep_fused_wide_kernel(
+    const T* __restrict__ prior, const T* __restrict__ trans,
+    const T* __restrict__ mean, const T* __restrict__ cov,
+    const T* __restrict__ log_pi, const T* __restrict__ log_a,
+    const T* __restrict__ m_r, const T* __restrict__ w_r,
+    const T* __restrict__ v_r, const T* __restrict__ lam_r,
+    const T* __restrict__ loglam_r, T* __restrict__ ll_out,
+    T* __restrict__ nu1_out, T* __restrict__ sxi_out, T* __restrict__ stn_out,
+    T* __restrict__ scratch, int kb, int lkr, int sb, int sr, int d, int tau) {
+  T* smem = reinterpret_cast<T*>(pair_smem);
+  const WideReduced<T> red(smem, sr);
+  T* s_m = smem + wide_reduced_values(sr);
+  T* s_w = s_m + sr * d;
+  T* s_v = s_w + sr * d * d;
+  T* s_c = s_v + sr;
+  const int j = blockIdx.y;
+  const T two_pi = static_cast<T>(6.283185307179586476925286766559);
+  stage_reduced_wide(red, log_pi, log_a, j, sr);
+  for (int q = threadIdx.x; q < sr; q += blockDim.x) {
+    s_v[q] = v_r[static_cast<size_t>(j) * sr + q];
+    s_c[q] = (static_cast<T>(d) * log(two_pi) -
+              loglam_r[static_cast<size_t>(j) * sr + q]) +
+             static_cast<T>(d) / lam_r[static_cast<size_t>(j) * sr + q];
+  }
+  for (int q = threadIdx.x; q < sr * d; q += blockDim.x)
+    s_m[q] = m_r[static_cast<size_t>(j) * sr * d + q];
+  for (int q = threadIdx.x; q < sr * d * d; q += blockDim.x)
+    s_w[q] = w_r[static_cast<size_t>(j) * sr * d * d + q];
+  __syncthreads();
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= kb) return;
+  const size_t skb = static_cast<size_t>(kb);
+  const size_t plane = static_cast<size_t>(lkr) * skb;
+  const size_t pix = static_cast<size_t>(j) * skb + i;
+  T* work = scratch + static_cast<size_t>(tau - 1) * sb * sr * plane + pix;
+  const Strided<T> ell{work, plane};
+
+  // ---- E3logN [Sb, Sr], as the other bodies form it ----
+  for (int b = 0; b < sb; ++b) {
+    T mu[kMaxD];
+    T sg[kMaxD][kMaxD];
+    for (int e = 0; e < d; ++e) {
+      mu[e] = mean[(static_cast<size_t>(b) * d + e) * skb + i];
+      for (int f = 0; f < d; ++f)
+        sg[e][f] = cov[((static_cast<size_t>(b) * d + e) * d + f) * skb + i];
+    }
+    for (int r = 0; r < sr; ++r) {
+      T trw = 0, quad = 0;
+      for (int e = 0; e < d; ++e) {
+        const T de = mu[e] - s_m[r * d + e];
+        for (int f = 0; f < d; ++f) {
+          const T wv = s_w[(r * d + e) * d + f];
+          trw += wv * sg[f][e];
+          quad += de * wv * (mu[f] - s_m[r * d + f]);
+        }
+      }
+      ell[b * sr + r] = static_cast<T>(-0.5) * (s_c[r] + s_v[r] * (trw + quad));
+    }
+  }
+
+  const WideWork<T> w(work + static_cast<size_t>(sb) * sr * plane, plane, sb,
+                      sr);
+  pair_recursion_wide<T>(
+      Strided<const T>{prior + i, skb}, Strided<const T>{trans + i, skb},
+      Strided<const T>{work, plane}, red, scratch + pix, plane, w, ll_out,
+      nu1_out, sxi_out, stn_out, j, i, kb, sb, sr, tau);
+}
+
 struct Args {
   const void *prior, *trans, *mean, *cov, *log_pi, *log_a, *m_r, *w_r, *v_r,
       *lam_r, *loglam_r;
@@ -183,7 +266,31 @@ int launch_shape(const Args& a) {
 }
 
 template <typename T>
+int launch_wide(const Args& a) {
+  if (a.d < 1 || a.d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  auto* kernel = pair_estep_fused_wide_kernel<T>;
+  const size_t smem = sizeof(T) * wide_fused_smem_values(a.sr, a.d);
+  const int err = prepare_wide_launch(kernel, a.design, a.threads, smem,
+                                      a.scratch != nullptr);
+  if (err != 0) return err;
+  const dim3 grid((a.kb + a.threads - 1) / a.threads, a.lkr);
+  kernel<<<grid, a.threads, smem, a.stream>>>(
+      static_cast<const T*>(a.prior), static_cast<const T*>(a.trans),
+      static_cast<const T*>(a.mean), static_cast<const T*>(a.cov),
+      static_cast<const T*>(a.log_pi), static_cast<const T*>(a.log_a),
+      static_cast<const T*>(a.m_r), static_cast<const T*>(a.w_r),
+      static_cast<const T*>(a.v_r), static_cast<const T*>(a.lam_r),
+      static_cast<const T*>(a.loglam_r), static_cast<T*>(a.ll_out),
+      static_cast<T*>(a.nu1_out), static_cast<T*>(a.sxi_out),
+      static_cast<T*>(a.stn_out), static_cast<T*>(a.scratch), a.kb, a.lkr,
+      a.sb, a.sr, a.d, a.tau);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch(const Args& a) {
+  if (a.d < 1 || a.d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.sb > kMaxS || a.sr > kMaxS) return launch_wide<T>(a);
   if (a.sb == 3 && a.sr == 3 && a.d == 2) return launch_shape<T, 3, 3, 2>(a);
   if (a.sb == 3 && a.sr == 2 && a.d == 2) return launch_shape<T, 3, 2, 2>(a);
   if (a.sb == 2 && a.sr == 2 && a.d == 2) return launch_shape<T, 2, 2, 2>(a);
@@ -193,7 +300,9 @@ int launch(const Args& a) {
 }  // namespace
 
 // Plain C interface for ctypes.  The caller validates shapes, dtypes,
-// contiguity and ranges (Sb, Sr in 1..8, D in 1..4, tau >= 1, L*Kr <= 65535),
+// contiguity and ranges (Sb, Sr >= 1, D in 1..4, tau >= 1, L*Kr <= 65535;
+// above Sb, Sr = 8 the scratch design, with E3logN and the wide body's
+// workspace after the states),
 // chooses the design (0 resident in shared memory, 1 device-memory
 // scratch), the block size `threads` (a multiple of 32 up to 128) and the
 // dynamic shared memory `smem` in bytes, and allocates every output and,

@@ -203,14 +203,30 @@ __device__ __forceinline__ void backward_step(
     int sr) {
   constexpr int MSB = Cap<SB_>::value;
   constexpr int MSR = Cap<SR_>::value;
+  // The generic instantiation keeps z = ell + llo for the guard instead of
+  // forming it again there.  Forming it again, nvcc 12.9 (build 36037853)
+  // at -O3 gave the guard's x[] the local-memory slot of B1's ell[][],
+  // still live (both at offset 0 of the float32 generic body's frame), so
+  // the guard's stores overwrote ell's first row (PERF.md section 6;
+  // tools/guard_repro.py builds both and writes their PTX).
+  constexpr bool kKeepZ = SB_ == 0 || SR_ == 0;
   T w[MSB][MSR];
+  T zs[kKeepZ ? MSB : 1][kKeepZ ? MSR : 1];
   T mc[MSB];
+  auto z_of = [&](int c, int rc) -> T {
+    if constexpr (kKeepZ) {
+      return zs[c][rc];
+    } else {
+      return ell[c][rc] + llo[c][rc];
+    }
+  };
 #pragma unroll
   for (int c = 0; c < sb; ++c) {
     T mx = neg_inf<T>();
 #pragma unroll
     for (int rc = 0; rc < sr; ++rc) {
       w[c][rc] = ell[c][rc] + llo[c][rc];
+      if constexpr (kKeepZ) zs[c][rc] = w[c][rc];
       mx = dmax(mx, w[c][rc]);
     }
     mx = finite_or_zero(mx);
@@ -260,7 +276,7 @@ __device__ __forceinline__ void backward_step(
         T mx = neg_inf<T>();
 #pragma unroll
         for (int rc = 0; rc < sr; ++rc) {
-          x[rc] = red.log_a[rp * sr + rc] + (ell[c][rc] + llo[c][rc]);
+          x[rc] = red.log_a[rp * sr + rc] + z_of(c, rc);
           mx = dmax(mx, x[rc]);
         }
         mx = finite_or_zero(mx);
@@ -272,7 +288,7 @@ __device__ __forceinline__ void backward_step(
 #pragma unroll
       for (int rc = 0; rc < sr; ++rc)
         slot[(c * sr + rc) * stride] =
-            ((ell[c][rc] + llo[c][rc]) - mc[c]) - static_cast<T>(1);
+            (z_of(c, rc) - mc[c]) - static_cast<T>(1);
     }
   }
   // LL_new[b][rp] = sum_c trans[b][c] (lse[rp][c] + m_c + sh[c]): the
@@ -556,6 +572,319 @@ __device__ __forceinline__ void pair_recursion(
     for (int b = 0; b < sb; ++b)
       stn_out[static_cast<size_t>((j * sr + r) * sb + b) * skb + i] = stn[r][b];
   }
+}
+
+// ---------------------------------------------------------------------------
+// The wide body: Sb or Sr above kMaxS
+// ---------------------------------------------------------------------------
+//
+// The bodies above keep a pair's vectors in registers sized by kMaxS.  Past
+// it, one generic body per kernel runs the same arithmetic, in the same
+// order, on vectors that live in device memory: every step's w in the
+// scratch [tau-1, Sb*Sr, L*Kr, Kb] of the scratch design, and the pair's
+// working vectors (carry, shifts, lse, nu, sums) in a workspace that the
+// wrapper appends to that scratch, [wide_work_values, L*Kr, Kb], value-major
+// so a warp's accesses fall on consecutive words.  The reduced model is
+// staged in dynamic shared memory, 2 Sr^2 + 2 Sr values (B1 adds its
+// emission constants).  So the sizes it takes are those whose reduced model
+// fits a block's shared memory and whose scratch fits the card's memory.
+// It is written to be right, not fast: every value goes through memory.
+
+// A strided view of a pair's vector: element q at p[q * s].
+template <typename T>
+struct Strided {
+  T* p;
+  size_t s;
+  __device__ __forceinline__ T& operator[](int q) const {
+    return p[static_cast<size_t>(q) * s];
+  }
+};
+
+// Reduced model j in dynamic shared memory (pair_smem): log_pi [Sr],
+// log_a [Sr, Sr], a [Sr, Sr], amax [Sr].
+template <typename T>
+struct WideReduced {
+  T* log_pi;
+  T* log_a;
+  T* a;
+  T* amax;
+  __device__ __forceinline__ explicit WideReduced(T* base, int sr)
+      : log_pi(base), log_a(base + sr), a(base + sr + sr * sr),
+        amax(base + sr + 2 * sr * sr) {}
+};
+
+__host__ __device__ __forceinline__ int wide_reduced_values(int sr) {
+  return 2 * sr * sr + 2 * sr;
+}
+
+// Stage reduced model j as stage_reduced does; the caller synchronizes.
+template <typename T>
+__device__ __forceinline__ void stage_reduced_wide(
+    const WideReduced<T>& red, const T* __restrict__ log_pi,
+    const T* __restrict__ log_a, int j, int sr) {
+  for (int q = threadIdx.x; q < sr; q += blockDim.x) {
+    red.log_pi[q] = log_pi[static_cast<size_t>(j) * sr + q];
+    const T* row = log_a + (static_cast<size_t>(j) * sr + q) * sr;
+    T mx = neg_inf<T>();
+    for (int rc = 0; rc < sr; ++rc) mx = dmax(mx, row[rc]);
+    mx = finite_or_zero(mx);
+    red.amax[q] = mx;
+    for (int rc = 0; rc < sr; ++rc) {
+      red.log_a[q * sr + rc] = row[rc];
+      red.a[q * sr + rc] = dexp(row[rc] - mx);
+    }
+  }
+}
+
+// A pair's working vectors in the workspace, [values, L*Kr, Kb]: their
+// count is wide_work_values (ops/pair_estep_cuda.py: wide_work_values).
+template <typename T>
+struct WideWork {
+  Strided<T> llo, sh, mc, lse, nu, stn, hsum, sxi, foo, nn, inv, x;
+  __device__ __forceinline__ WideWork(T* ws, size_t plane, int sb, int sr) {
+    size_t off = 0;
+    auto take = [&](int n) {
+      Strided<T> v{ws + off * plane, plane};
+      off += static_cast<size_t>(n);
+      return v;
+    };
+    llo = take(sb * sr);
+    sh = take(sb);
+    mc = take(sb);
+    lse = take(sr * sb);
+    nu = take(sr * sb);
+    stn = take(sr * sb);
+    hsum = take(sr * sr);
+    sxi = take(sr * sr);
+    foo = take(sr * sb);
+    nn = take(sr * sb);
+    inv = take(sr * sb);
+    x = take(sr);
+  }
+};
+
+__host__ __device__ __forceinline__ int wide_work_values(int sb, int sr) {
+  return 7 * sb * sr + 2 * sr * sr + 2 * sb + sr;
+}
+
+// pair_recursion on the wide body: the same steps in the same order, with
+// pr [Sb], tr [Sb][Sb] and ell [Sb][Sr] strided views, the reduced model in
+// shared memory, the states at st (stride `stride`) and the working
+// vectors in `w`.
+template <typename T>
+__device__ void pair_recursion_wide(
+    Strided<const T> pr, Strided<const T> tr, Strided<const T> ell,
+    const WideReduced<T>& red, T* __restrict__ st, size_t stride,
+    const WideWork<T>& w, T* __restrict__ ll_out, T* __restrict__ nu1_out,
+    T* __restrict__ sxi_out, T* __restrict__ stn_out, int j, int i, int kb,
+    int sb, int sr, int tau) {
+  const size_t skb = static_cast<size_t>(kb);
+  const size_t pix = static_cast<size_t>(j) * skb + i;
+  const size_t slot_len = static_cast<size_t>(sb * sr) * stride;
+  const int ns = tau - 1;
+  for (int b = 0; b < sb; ++b) {
+    w.sh[b] = 0;
+    for (int r = 0; r < sr; ++r) w.llo[b * sr + r] = 0;
+  }
+
+  // ---- backward (backward_step) ----
+  for (int k = 0; k < ns; ++k) {
+    T* slot = st + k * slot_len;
+    for (int c = 0; c < sb; ++c) {
+      T mx = neg_inf<T>();
+      for (int rc = 0; rc < sr; ++rc) {
+        const T z = ell[c * sr + rc] + w.llo[c * sr + rc];
+        slot[(c * sr + rc) * stride] = z;
+        mx = dmax(mx, z);
+      }
+      mx = finite_or_zero(mx);
+      w.mc[c] = mx;
+      for (int rc = 0; rc < sr; ++rc)
+        slot[(c * sr + rc) * stride] = rexp(slot[(c * sr + rc) * stride] - mx);
+    }
+    T smin = static_cast<T>(1);
+    for (int rp = 0; rp < sr; ++rp)
+      for (int c = 0; c < sb; ++c) {
+        T s = 0;
+        for (int rc = 0; rc < sr; ++rc)
+          s += red.a[rp * sr + rc] * slot[(c * sr + rc) * stride];
+        smin = s < smin ? s : smin;
+        w.lse[rp * sb + c] = s;
+      }
+    for (int rp = 0; rp < sr; ++rp)
+      for (int c = 0; c < sb; ++c)
+        w.lse[rp * sb + c] = red.amax[rp] + rlog(w.lse[rp * sb + c]);
+    if (smin < under_floor<T>()) {   // the guard
+      for (int c = 0; c < sb; ++c) {
+        bool low = false;
+        for (int rp = 0; rp < sr; ++rp) {
+          T s = 0;
+          for (int rc = 0; rc < sr; ++rc)
+            s += red.a[rp * sr + rc] * slot[(c * sr + rc) * stride];
+          low = low || s < under_floor<T>();
+        }
+        if (!low) continue;
+        for (int rp = 0; rp < sr; ++rp) {
+          T mx = neg_inf<T>();
+          for (int rc = 0; rc < sr; ++rc) {
+            w.x[rc] = red.log_a[rp * sr + rc] +
+                      (ell[c * sr + rc] + w.llo[c * sr + rc]);
+            mx = dmax(mx, w.x[rc]);
+          }
+          mx = finite_or_zero(mx);
+          T s = 0;
+          for (int rc = 0; rc < sr; ++rc) s += rexp(w.x[rc] - mx);
+          w.lse[rp * sb + c] = (rlog(s) + mx) - w.mc[c];
+        }
+        for (int rc = 0; rc < sr; ++rc)
+          slot[(c * sr + rc) * stride] =
+              ((ell[c * sr + rc] + w.llo[c * sr + rc]) - w.mc[c]) -
+              static_cast<T>(1);
+      }
+    }
+    for (int c = 0; c < sb; ++c) w.mc[c] = w.mc[c] + w.sh[c];   // base
+    for (int b = 0; b < sb; ++b) {
+      for (int rp = 0; rp < sr; ++rp) {
+        T acc = 0;
+        for (int c = 0; c < sb; ++c) acc += tr[b * sb + c] * w.lse[rp * sb + c];
+        w.llo[b * sr + rp] = acc;
+      }
+      T shift = 0;
+      for (int c = 0; c < sb; ++c) shift += tr[b * sb + c] * w.mc[c];
+      w.sh[b] = shift;
+    }
+  }
+
+  // ---- terminate ----
+  T ll = 0;
+  for (int b = 0; b < sb; ++b) {
+    T mx = neg_inf<T>();
+    for (int r = 0; r < sr; ++r) {
+      w.x[r] = (red.log_pi[r] + ell[b * sr + r]) + w.llo[b * sr + r];
+      mx = dmax(mx, w.x[r]);
+    }
+    mx = finite_or_zero(mx);
+    T s = 0;
+    for (int r = 0; r < sr; ++r) {
+      w.x[r] = rexp(w.x[r] - mx);
+      s += w.x[r];
+    }
+    ll += pr[b] * ((rlog(s) + mx) + w.sh[b]);
+    const T f = pr[b] * rrcp(s);
+    for (int r = 0; r < sr; ++r) w.nu[r * sb + b] = f * w.x[r];
+  }
+  ll_out[pix] = ll;
+  for (int r = 0; r < sr; ++r) {
+    T n1 = 0;
+    for (int b = 0; b < sb; ++b) {
+      w.stn[r * sb + b] = w.nu[r * sb + b];
+      n1 += w.nu[r * sb + b];
+    }
+    nu1_out[static_cast<size_t>(j * sr + r) * skb + i] = n1;
+    for (int rc = 0; rc < sr; ++rc) {
+      w.hsum[r * sr + rc] = 0;
+      w.sxi[r * sr + rc] = 0;
+    }
+  }
+
+  // ---- forward (load_step, forward_step) ----
+  for (int o = ns - 1; o >= 0; --o) {
+    const T* slot = st + o * slot_len;
+    bool logged = false;
+    for (int c = 0; c < sb; ++c)
+      logged = logged || slot[(c * sr) * stride] < static_cast<T>(0);
+    for (int rp = 0; rp < sr; ++rp)
+      for (int c = 0; c < sb; ++c) {
+        T s = 0;
+        for (int rc = 0; rc < sr; ++rc)
+          s += red.a[rp * sr + rc] * slot[(c * sr + rc) * stride];
+        w.inv[rp * sb + c] = rrcp(s);
+      }
+    for (int rp = 0; rp < sr; ++rp)
+      for (int c = 0; c < sb; ++c) {
+        T f = 0;
+        for (int b = 0; b < sb; ++b) f += w.nu[rp * sb + b] * tr[b * sb + c];
+        w.foo[rp * sb + c] = f;
+      }
+    if (!logged) {
+      for (int c = 0; c < sb; ++c)
+        for (int rc = 0; rc < sr; ++rc) {
+          T t = 0;
+          for (int rp = 0; rp < sr; ++rp)
+            t += (w.foo[rp * sb + c] * w.inv[rp * sb + c]) *
+                 red.a[rp * sr + rc];
+          w.nn[rc * sb + c] = slot[(c * sr + rc) * stride] * t;
+        }
+      for (int rp = 0; rp < sr; ++rp)
+        for (int rc = 0; rc < sr; ++rc) {
+          T acc = w.hsum[rp * sr + rc];
+          for (int c = 0; c < sb; ++c)
+            acc += (w.foo[rp * sb + c] * w.inv[rp * sb + c]) *
+                   slot[(c * sr + rc) * stride];
+          w.hsum[rp * sr + rc] = acc;
+        }
+    } else {   // a guarded column: this step column by column
+      for (int c = 0; c < sb; ++c) {
+        for (int rc = 0; rc < sr; ++rc) w.nn[rc * sb + c] = 0;
+        const bool col_logged = slot[(c * sr) * stride] < static_cast<T>(0);
+        for (int rp = 0; rp < sr; ++rp) {
+          T s = 0;
+          if (col_logged) {   // the state holds log w - 1
+            T mx = neg_inf<T>();
+            for (int rc = 0; rc < sr; ++rc) {
+              w.x[rc] = red.log_a[rp * sr + rc] + slot[(c * sr + rc) * stride];
+              mx = dmax(mx, w.x[rc]);
+            }
+            mx = finite_or_zero(mx);
+            for (int rc = 0; rc < sr; ++rc) {
+              w.x[rc] = rexp(w.x[rc] - mx);
+              s += w.x[rc];
+            }
+          } else {
+            for (int rc = 0; rc < sr; ++rc) {
+              w.x[rc] = red.a[rp * sr + rc] * slot[(c * sr + rc) * stride];
+              s += w.x[rc];
+            }
+          }
+          const T f = w.foo[rp * sb + c] / s;
+          for (int rc = 0; rc < sr; ++rc) {
+            const T xi = f * w.x[rc];
+            w.sxi[rp * sr + rc] += xi;
+            w.nn[rc * sb + c] += xi;
+          }
+        }
+      }
+    }
+    for (int r = 0; r < sr; ++r)
+      for (int b = 0; b < sb; ++b) {
+        w.nu[r * sb + b] = w.nn[r * sb + b];
+        w.stn[r * sb + b] += w.nn[r * sb + b];
+      }
+  }
+
+  for (int r = 0; r < sr; ++r) {
+    for (int rc = 0; rc < sr; ++rc)
+      sxi_out[static_cast<size_t>((j * sr + r) * sr + rc) * skb + i] =
+          red.a[r * sr + rc] * w.hsum[r * sr + rc] + w.sxi[r * sr + rc];
+    for (int b = 0; b < sb; ++b)
+      stn_out[static_cast<size_t>((j * sr + r) * sb + b) * skb + i] =
+          w.stn[r * sb + b];
+  }
+}
+
+// Host side: the wide body's launch checks (the scratch design, a block
+// of 32-128 threads, the shared memory it asks for within a block's), and
+// the shared memory beyond 48 KB granted.
+template <typename Kernel>
+inline int prepare_wide_launch(Kernel kernel, int design, int threads,
+                               size_t smem, bool has_scratch) {
+  if (design != kScratch || !has_scratch || threads < 32 ||
+      threads > kMaxThreads || threads % 32 != 0 ||
+      smem > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
 }
 
 // Host side: lets a kernel of the resident design take `smem` bytes of

@@ -1,6 +1,7 @@
-"""Model selection for the synthetic ground-truth benchmark: the VHEM
-baseline over a (K, S) grid with AIC/BIC, and DIC over the learned VBHEM
-grid — the counterpart of ``RecoveryScore``, ``run_vhem``,
+"""Model selection for the synthetic ground-truth benchmark: VBHEM over
+the padded (K, S) grid, the VHEM baseline over a (K, S) grid with
+AIC/BIC, and DIC over the learned VBHEM grid — the counterpart of
+``RecoveryScore``, ``default_vbhem_config``, ``run_vbhem``, ``run_vhem``,
 ``run_vhem_grid`` and ``run_vbhem_dic`` in
 :mod:`vbhem_tpu.experiments.synthetic`.
 
@@ -16,7 +17,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..config import HEMConfig
+from ..config import HEMConfig, VBHEMConfig
 from ..models import vbhem, vhem
 from ..utils.metrics import purity, rand_index
 
@@ -43,6 +44,42 @@ def _bank(results):
     """The point-estimate base bank of ``results``, on their device."""
     return vbhem.h3m_from_results(results, use_post=False,
                                   device=results[0].model.mean.device)
+
+
+def default_vbhem_config(trials: int = 50) -> VBHEMConfig:
+    """VBHEM settings of `exprmt1_demo.m:66-79`, as the JAX package sets
+    them: ``learn_hyps`` on (the reference default), with a 5-survivor cap
+    per grid cell.  Hyperparameter learning is not ported yet (ROADMAP
+    A4): pass ``dataclasses.replace(default_vbhem_config(),
+    learn_hyps=False)``."""
+    return VBHEMConfig(alpha0=1e6, m0=(1.5, 1.5), w0=1.0, nv=100,
+                       tau=50, trials=trials, initmode="baseem",
+                       learn_hyps=True, max_hyp_solutions=5,
+                       hyp_max_steps=50)
+
+
+def run_vbhem(gen: torch.Generator, results, labels, k_grid=range(1, 7),
+              s_grid=range(1, 6), config: Optional[VBHEMConfig] = None):
+    """VBHEM over the (K, S) grid and its recovery scoring
+    (`exprmt1_demo.m:64-108` + `evaluate_vbhem_jounarl.m:86-118`), on the
+    padded grid (:func:`..models.vbhem.cluster_batched`), on the device
+    of ``results``.  As the reference scores it, K, S and the labels come
+    after ``vbh3m_remove_empty``: K the surviving clusters, S each
+    surviving HMM's pruned state count (`evaluate_vbhem_jounarl.m:92-105`).
+    Returns (result, info, RecoveryScore)."""
+    config = config or default_vbhem_config()
+    base = vbhem.h3m_from_results(results, use_post=config.use_post,
+                                  covar_type=config.covar_type,
+                                  device=results[0].post.alpha.device)
+    res, info = vbhem.cluster_batched(gen, base, list(k_grid),
+                                      list(s_grid), config)
+    res, hmm_list = vbhem.vbh3m_remove_empty(res)
+    lab = _labels(res)
+    s_list = [int(h.model.prior.shape[0]) for h in hmm_list]
+    return res, info, RecoveryScore(
+        rand_index=rand_index(lab, labels)[0], purity=purity(lab, labels),
+        best_k=len(hmm_list), best_s=int(np.median(s_list)), labels=lab,
+        s_list=s_list)
 
 
 def run_vhem(gen: torch.Generator, results, labels, k: int = 2, s: int = 2,

@@ -1,7 +1,9 @@
 """VBHEM: clustering a bank of HMMs into K reduced cluster-center HMMs
 with S states each, without touching raw data — the PyTorch counterpart
 of :mod:`vbhem_tpu.models.vbhem` (the main path: baseem initialization,
-restart trials, the EM loop, (K, S) selection and pruning).
+restart trials, the EM loop, (K, S) selection and pruning; and the padded
+(K, S) grid, :func:`cluster_batched`, whose cells and trials are the
+lanes of one masked EM loop).
 
 Where the JAX package vmaps restart trials, the reduced posterior here
 carries an explicit leading lane axis [L, Kr, ...]; every function of the
@@ -25,10 +27,12 @@ from ..config import VBHEMConfig
 from ..containers import (H3M, HMM, H3MPosterior, HMMPosterior, NIW,
                           VBHMMResult, resolve_device, tree_map)
 from ..ops.pair_estep import PairStats
+from ..ops import pair_estep_cuda
 from ..ops.pair_estep_cuda import pair_estep_fused_auto
 from ..utils.numeric import (e_log_det_lambda, e_log_dirichlet, inv_psd,
-                             log_dirichlet_const, log_wishart_b, logdet_psd,
-                             logsumexp, sym, tiny)
+                             log_wishart_b, logdet_psd, logsumexp,
+                             masked_e_log_dirichlet,
+                             masked_log_dirichlet_const, sym, tiny)
 from . import vbhmm
 
 
@@ -205,13 +209,27 @@ class ReducedExpectations(NamedTuple):
     log_lam: torch.Tensor    # [..., Kr, Sr]  E[log |Lambda|]
 
 
-def reduced_expectations(post: H3MPosterior) -> ReducedExpectations:
+def reduced_expectations(post: H3MPosterior,
+                         cmask: Optional[torch.Tensor] = None,
+                         smask: Optional[torch.Tensor] = None
+                         ) -> ReducedExpectations:
     """Digamma expectations of the reduced model
-    (`vbhem_h3m_c_step_fc.m:118-165, 270-273`)."""
+    (`vbhem_h3m_c_step_fc.m:118-165, 270-273`).  With cmask [..., Kr] and
+    smask [..., Sr] (bool, broadcasting against the posterior's lanes) the
+    model is PADDED (`vbhem_tpu.models.vbhem.reduced_expectations_masked`):
+    normalizers run over active entries only, and masked entries carry
+    -1e30, finite, so every downstream exp() is exactly 0."""
+    if cmask is None:
+        return ReducedExpectations(
+            log_omega=e_log_dirichlet(post.alpha),
+            log_pi=e_log_dirichlet(post.eta),
+            log_a=e_log_dirichlet(post.epsilon),
+            log_lam=e_log_det_lambda(post.niw.v, post.niw.w))
     return ReducedExpectations(
-        log_omega=e_log_dirichlet(post.alpha),
-        log_pi=e_log_dirichlet(post.eta),
-        log_a=e_log_dirichlet(post.epsilon),
+        log_omega=masked_e_log_dirichlet(post.alpha, cmask),
+        log_pi=masked_e_log_dirichlet(post.eta, smask[..., None, :]),
+        log_a=masked_e_log_dirichlet(post.epsilon,
+                                     smask[..., None, None, :]),
         log_lam=e_log_det_lambda(post.niw.v, post.niw.w))
 
 
@@ -318,60 +336,92 @@ def m_step(stats: ClusterStats, hyps: VBHEMHyps,
 
 def elbo(post: H3MPosterior, exps: ReducedExpectations, pair: PairStats,
          hat_z: torch.Tensor, z_ni: torch.Tensor, nj: torch.Tensor,
-         hyps: VBHEMHyps) -> torch.Tensor:
+         hyps: VBHEMHyps, cmask: Optional[torch.Tensor] = None,
+         smask: Optional[torch.Tensor] = None, return_terms: bool = False):
     """The 10-term VBHEM lower bound (`vbhemh3m_lb.m:88-186`), one value
-    per lane: [...]."""
+    per lane: [...].  With cmask [..., Kr] and smask [..., Sr] (bool) it
+    is the bound over the ACTIVE sub-grid of each padded lane, equal to
+    the bound of the unpadded (K, S) model
+    (`vbhem_tpu.models.vbhem.elbo_masked`); without them every entry is
+    active.  Every sum multiplies by the mask before it meets a masked
+    -1e30 expectation, as the JAX package does: (mask * count) * log_a is
+    0 * -1e30, while count * -1e30 first can overflow float32 to -inf and
+    then 0 * inf is NaN.  With ``return_terms`` also the dict of the ten
+    terms (lt1..lt10 in `vbhemh3m_lb.m` order, before their signs)."""
     dtype = hat_z.dtype
-    kr = post.num_clusters
-    sr = post.num_states
     d = post.niw.dim
     niw = post.niw
     two_pi = 2.0 * math.pi
     ks = (-2, -1)           # the (Kr, Sr) axes of each lane
+    if cmask is None:
+        cmask = torch.ones(post.alpha.shape, dtype=torch.bool,
+                           device=hat_z.device)
+        smask = torch.ones(post.alpha.shape[:-1] + (post.num_states,),
+                           dtype=torch.bool, device=hat_z.device)
+    cm = cmask.to(dtype)                                      # [..., Kr]
+    sm = smask.to(dtype)                                      # [..., Sr]
+    cs = cm[..., :, None] * sm[..., None, :]                  # [..,Kr,Sr]
+    css = cs[..., :, :, None] * sm[..., None, None, :]        # [..,Kr,Sr,Sr]
+    kr_a = torch.sum(cm, dim=-1)
+    sr_a = torch.sum(sm, dim=-1)
 
     logdet_w0inv = torch.sum(torch.log(hyps.w0inv_diag))
-    log_c_alpha0 = torch.lgamma(kr * hyps.alpha0) - kr * torch.lgamma(hyps.alpha0)
-    log_c_eta0 = torch.lgamma(sr * hyps.eta0) - sr * torch.lgamma(hyps.eta0)
-    log_c_eps0 = (torch.lgamma(sr * hyps.epsilon0)
-                  - sr * torch.lgamma(hyps.epsilon0))
+    log_c_alpha0 = (torch.lgamma(kr_a * hyps.alpha0)
+                    - kr_a * torch.lgamma(hyps.alpha0))
+    log_c_eta0 = torch.lgamma(sr_a * hyps.eta0) - sr_a * torch.lgamma(hyps.eta0)
+    log_c_eps0 = (torch.lgamma(sr_a * hyps.epsilon0)
+                  - sr_a * torch.lgamma(hyps.epsilon0))
     log_b0 = log_wishart_b(logdet_w0inv, hyps.v0, d)
 
-    lt1 = torch.sum(z_ni * pair.ll_elbo, dim=(-2, -1))
-    lt7 = torch.sum(hat_z * torch.log(hat_z), dim=(-2, -1))
-    lt2 = torch.sum(nj * exps.log_omega, dim=-1)
-    lt3 = kr * log_c_eta0 + (hyps.eta0 - 1.0) * torch.sum(exps.log_pi, dim=ks)
-    lt4 = (kr * sr * log_c_eps0
-           + (hyps.epsilon0 - 1.0) * torch.sum(exps.log_a, dim=(-3, -2, -1)))
+    lt1 = torch.sum(cm[..., None, :] * z_ni * pair.ll_elbo, dim=ks)
+    lt7 = torch.sum(cm[..., None, :] * hat_z * torch.log(hat_z), dim=ks)
+    lt2 = torch.sum(cm * nj * exps.log_omega, dim=-1)
+    lt3 = kr_a * log_c_eta0 + (hyps.eta0 - 1.0) * torch.sum(
+        cs * exps.log_pi, dim=ks)
+    lt4 = kr_a * sr_a * log_c_eps0 + (hyps.epsilon0 - 1.0) * torch.sum(
+        css * exps.log_a, dim=(-3, -2, -1))
 
-    # Lt5: E[log p(mu, Lambda)] over all (j, k)
+    # Lt5: E[log p(mu, Lambda)] over all active (j, k)
     dm = niw.m - hyps.m0                                       # [..,Kr,Sr,D]
     m_w_m = torch.einsum("...d,...de,...e->...", dm, niw.w, dm)
     w0inv_diag = hyps.w0inv_diag.to(dtype)
     tr_w0inv_w = torch.sum(w0inv_diag * torch.diagonal(niw.w, dim1=-2,
                                                        dim2=-1), dim=-1)
     const2 = d * torch.log(hyps.lambda0 / two_pi)
-    lt51 = 0.5 * torch.sum(const2 + exps.log_lam - d * hyps.lambda0 / niw.beta
-                           - hyps.lambda0 * niw.v * m_w_m, dim=ks)
-    lt52 = (kr * sr * log_b0
-            + 0.5 * (hyps.v0 - d - 1.0) * torch.sum(exps.log_lam, dim=ks)
-            - 0.5 * torch.sum(niw.v * tr_w0inv_w, dim=ks))
+    lt51 = 0.5 * torch.sum(cs * (const2 + exps.log_lam
+                                 - d * hyps.lambda0 / niw.beta
+                                 - hyps.lambda0 * niw.v * m_w_m), dim=ks)
+    lt52 = (kr_a * sr_a * log_b0
+            + 0.5 * (hyps.v0 - d - 1.0) * torch.sum(cs * exps.log_lam,
+                                                     dim=ks)
+            - 0.5 * torch.sum(cs * niw.v * tr_w0inv_w, dim=ks))
     lt5 = lt51 + lt52
 
-    lt6 = log_c_alpha0 + (hyps.alpha0 - 1.0) * torch.sum(exps.log_omega, dim=-1)
-    lt8 = log_dirichlet_const(post.alpha) \
-        + torch.sum((post.alpha - 1.0) * exps.log_omega, dim=-1)
-    lt9 = (torch.sum(log_dirichlet_const(post.eta), dim=-1)
-           + torch.sum((post.eta - 1.0) * exps.log_pi, dim=ks)
-           + torch.sum(log_dirichlet_const(post.epsilon), dim=ks)
-           + torch.sum((post.epsilon - 1.0) * exps.log_a, dim=(-3, -2, -1)))
+    lt6 = log_c_alpha0 + (hyps.alpha0 - 1.0) * torch.sum(
+        cm * exps.log_omega, dim=-1)
+    lt8 = (masked_log_dirichlet_const(post.alpha, cmask)
+           + torch.sum(cm * (post.alpha - 1.0) * exps.log_omega, dim=-1))
+    lt9 = (torch.sum(cm * masked_log_dirichlet_const(
+               post.eta, smask[..., None, :]), dim=-1)
+           + torch.sum(cs * (post.eta - 1.0) * exps.log_pi, dim=ks)
+           + torch.sum(cs * masked_log_dirichlet_const(
+               post.epsilon, smask[..., None, None, :]), dim=ks)
+           + torch.sum(css * (post.epsilon - 1.0) * exps.log_a,
+                       dim=(-3, -2, -1)))
 
     log_bk = log_wishart_b(-logdet_psd(niw.w), niw.v, d)       # [..,Kr,Sr]
-    h_ent = torch.sum(-log_bk - 0.5 * (niw.v - d - 1.0) * exps.log_lam
-                      + 0.5 * niw.v * d, dim=ks)
-    lt10 = 0.5 * torch.sum(exps.log_lam + d * torch.log(niw.beta / two_pi),
-                           dim=ks) - 0.5 * d * kr * sr - h_ent
+    h_ent = torch.sum(cs * (-log_bk - 0.5 * (niw.v - d - 1.0) * exps.log_lam
+                            + 0.5 * niw.v * d), dim=ks)
+    lt10 = (0.5 * torch.sum(cs * (exps.log_lam
+                                  + d * torch.log(niw.beta / two_pi)),
+                            dim=ks)
+            - 0.5 * d * kr_a * sr_a - h_ent)
 
-    return lt1 + lt2 + lt3 + lt4 + lt5 + lt6 - lt7 - lt8 - lt9 - lt10
+    total = lt1 + lt2 + lt3 + lt4 + lt5 + lt6 - lt7 - lt8 - lt9 - lt10
+    if return_terms:
+        terms = (lt1, lt2, lt3, lt4, lt5, lt6, lt7, lt8, lt9, lt10)
+        return total, {f"lt{i}": t for i, t in enumerate(terms, 1)}
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -397,13 +447,16 @@ class VBHEMState(NamedTuple):
 
 
 def _em_iteration(base: H3M, post: H3MPosterior, hyps: VBHEMHyps,
-                  tilde_n: torch.Tensor, tau: int, covar_type: str = "full"):
+                  tilde_n: torch.Tensor, tau: int, covar_type: str = "full",
+                  masks=None):
     """One EM iteration on every lane: returns (new posterior, ELBO of
-    ``post``, pair ll_elbo, hat_z, stats)."""
-    exps = reduced_expectations(post)
+    ``post``, pair ll_elbo, hat_z, stats).  ``masks`` (cmask, smask)
+    confines each lane to its active sub-grid (the padded grid)."""
+    masks = masks or (None, None)
+    exps = reduced_expectations(post, *masks)
     pair = e_step(base, post, exps, tau)
     hat_z, z_ni, nj = soft_assignments(tilde_n, exps.log_omega, pair.ll_elbo)
-    ll = elbo(post, exps, pair, hat_z, z_ni, nj, hyps)
+    ll = elbo(post, exps, pair, hat_z, z_ni, nj, hyps, *masks)
     stats = aggregate_stats(base, pair, z_ni, nj)
     return m_step(stats, hyps, covar_type), ll, pair.ll_elbo, hat_z, stats
 
@@ -415,9 +468,14 @@ def _lane(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def vbhem_em(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
              nv: int, tau: int, max_iter: int = 200,
-             min_diff: float = 1e-5, covar_type: str = "full") -> VBHEMState:
+             min_diff: float = 1e-5, covar_type: str = "full",
+             cmask: Optional[torch.Tensor] = None,
+             smask: Optional[torch.Tensor] = None) -> VBHEMState:
     """The VBHEM EM loop (`vbhem_h3m_c_step_fc.m:115-433`) over every lane
-    of ``init_post`` at once.
+    of ``init_post`` at once.  With ``cmask`` [..., Kr] and ``smask``
+    [..., Sr] (bool, the lanes leading; each lane its own) it is
+    :func:`vbhem_em_masked`: every lane's mass stays on its active
+    (K, S) sub-grid.
 
     Virtual counts: tilde_N_i = Nv * Kb * omega_i.  Per iteration:
     expectations, pair E-step, hat_Z, ELBO, convergence check, M-step —
@@ -432,10 +490,12 @@ def vbhem_em(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
     if covar_type == "diag":
         init_post = _project_diag(init_post)
     lanes = init_post.alpha.shape[:-1]
+    if (cmask is None) != (smask is None):
+        raise ValueError("cmask and smask go together")
 
     def body(st: VBHEMState) -> VBHEMState:
         new_post, ll, ll_elbo, hat_z, stats = _em_iteration(
-            base, st.post, hyps, tilde_n, tau, covar_type)
+            base, st.post, hyps, tilde_n, tau, covar_type, (cmask, smask))
         unstable = torch.isnan(ll)
         ll = torch.where(unstable, torch.full_like(ll, -math.inf), ll)
         lik_incr = torch.abs((ll - st.ll) / st.ll)
@@ -463,6 +523,20 @@ def vbhem_em(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
     return st
 
 
+def vbhem_em_masked(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
+                    nv: int, tau: int, cmask: torch.Tensor,
+                    smask: torch.Tensor, max_iter: int = 200,
+                    min_diff: float = 1e-5,
+                    covar_type: str = "full") -> VBHEMState:
+    """:func:`vbhem_em` over PADDED (Kmax, Smax) lanes: the cluster and
+    state masks cmask [..., Kmax], smask [..., Smax] confine every lane's
+    mass to its active sub-grid, so every (K, S) cell of the grid runs in
+    the same loop (`vbhem_tpu.models.vbhem.vbhem_em_masked`)."""
+    return vbhem_em(base, init_post, hyps, nv, tau, max_iter=max_iter,
+                    min_diff=min_diff, covar_type=covar_type, cmask=cmask,
+                    smask=smask)
+
+
 def em_trace(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
              nv: int, tau: int, n_iter: int = 50):
     """Run exactly ``n_iter`` EM iterations recording the ELBO before each
@@ -487,40 +561,43 @@ def _emission_w_from_cov(cov: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def init_baseem(gen: torch.Generator, base: H3M, kr: int, sr: int,
-                hyps: VBHEMHyps, nv: int) -> H3MPosterior:
+                hyps: VBHEMHyps, nv: int, lanes: tuple = ()) -> H3MPosterior:
     """'baseem' initializer (`vbhemhmm_init.m:58-100`): each reduced
     emission copies a random base emission; priors/transitions uniform
     (initopt mode 'u'); cluster weights random.  Draws on the generator's
-    device, then moves to the bank's."""
+    device, then moves to the bank's.  ``lanes`` draws that many
+    independent starts at once, as leading axes."""
     dtype = base.hmm.mean.dtype
     dev = base.hmm.mean.device
     kb, sb_max = base.state_mask.shape
     nv_total = nv * kb
     nlr = nv_total / kr
+    lanes = tuple(lanes)
+    shp = lanes + (kr, sr)
 
-    rand_b = torch.randint(0, kb, (kr, sr), generator=gen,
+    rand_b = torch.randint(0, kb, shp, generator=gen,
                            device=gen.device).to(dev)
     # random valid state of the chosen base HMM
     n_states = torch.sum(base.state_mask, dim=-1)              # [Kb]
-    u = torch.rand((kr, sr), generator=gen, device=gen.device,
+    u = torch.rand(shp, generator=gen, device=gen.device,
                    dtype=torch.float64).to(dev)
     rand_g = torch.floor(u * n_states[rand_b]).to(torch.int64)
     rand_g = torch.clamp(rand_g, max=sb_max - 1)
 
-    v = torch.full((kr, sr), float(hyps.v0) + nlr / sr + 1.0, dtype=dtype,
+    v = torch.full(shp, float(hyps.v0) + nlr / sr + 1.0, dtype=dtype,
                    device=dev)
-    lam = torch.full((kr, sr), float(hyps.lambda0) + nlr / sr, dtype=dtype,
+    lam = torch.full(shp, float(hyps.lambda0) + nlr / sr, dtype=dtype,
                      device=dev)
-    m = base.hmm.mean[rand_b, rand_g]                          # [Kr,Sr,D]
+    m = base.hmm.mean[rand_b, rand_g]                      # [..,Kr,Sr,D]
     w = _emission_w_from_cov(base.hmm.cov[rand_b, rand_g], v)
 
-    eta = torch.full((kr, sr), 1.0 / sr, dtype=dtype, device=dev) * nlr \
+    eta = torch.full(shp, 1.0 / sr, dtype=dtype, device=dev) * nlr \
         + hyps.eta0
-    epsilon = torch.full((kr, sr, sr), 1.0 / sr, dtype=dtype,
+    epsilon = torch.full(shp + (sr,), 1.0 / sr, dtype=dtype,
                          device=dev) * nlr / sr + hyps.epsilon0
-    omega = torch.rand((kr,), generator=gen, device=gen.device,
+    omega = torch.rand(lanes + (kr,), generator=gen, device=gen.device,
                        dtype=dtype).to(dev)
-    omega = omega / torch.sum(omega)
+    omega = omega / torch.sum(omega, dim=-1, keepdim=True)
     alpha = hyps.alpha0 + omega * nv_total
     return H3MPosterior(alpha=alpha, eta=eta, epsilon=epsilon,
                         niw=NIW(beta=lam, v=v, m=m, w=w))
@@ -529,14 +606,20 @@ def init_baseem(gen: torch.Generator, base: H3M, kr: int, sr: int,
 _INITIALIZERS = {"baseem": init_baseem}
 # initializers of the JAX package that this package does not have yet
 _NOT_PORTED = {
-    "gmmNew": "ROADMAP.md queue A item 'other initializers' (ops/gmm.py)",
-    "gmmNew2": "ROADMAP.md queue A item 'other initializers' (ops/gmm.py)",
-    "wtkmeans": "ROADMAP.md queue A item 'other initializers' "
+    "gmmNew": "ROADMAP.md queue A item A3, 'other initializers' "
+              "(ops/gmm.py)",
+    "gmmNew2": "ROADMAP.md queue A item A3, 'other initializers' "
+               "(ops/gmm.py)",
+    "wtkmeans": "ROADMAP.md queue A item A3, 'other initializers' "
                 "(ops/kmeans.py)",
-    "random": "ROADMAP.md queue A item 'other initializers' (ops/gmm.py)",
-    "auto": "ROADMAP.md queue A item 'other initializers' (the 'auto' "
+    "random": "ROADMAP.md queue A item A3, 'other initializers' "
+              "(ops/gmm.py)",
+    "auto": "ROADMAP.md queue A item A3, 'other initializers' (the 'auto' "
             "try-all needs gmmNew and wtkmeans)",
 }
+_NO_HYP_LEARNING = ("learn_hyps=True is not ported yet: ROADMAP.md queue A "
+                    "item A4, 'hyperparameter learning'; pass "
+                    "learn_hyps=False")
 
 
 def resolve_initmode(mode: str) -> str:
@@ -621,9 +704,7 @@ def cluster(gen: torch.Generator, base: H3M, k, s,
     two-stage rule (:func:`_two_stage_select`).  Returns
     (VBHEMResult, info dict)."""
     if config.learn_hyps:
-        raise NotImplementedError(
-            "learn_hyps=True is not ported yet: ROADMAP.md queue A item "
-            "'hyperparameter learning'; pass learn_hyps=False")
+        raise NotImplementedError(_NO_HYP_LEARNING)
     resolve_initmode(config.initmode)
     ks = list(k) if isinstance(k, (list, tuple, range)) else [int(k)]
     ss = list(s) if isinstance(s, (list, tuple, range)) else [int(s)]
@@ -670,6 +751,213 @@ def _two_stage_select(scores, ks, ss):
         return ks[0], ss[0], model_ll_k, [ss[i] for i in s_star]
     bi = int(np.argmax(model_ll_k))
     return ks[bi], ss[s_star[bi]], model_ll_k, [ss[i] for i in s_star]
+
+
+# ---------------------------------------------------------------------------
+# the padded (K, S) grid as one masked EM loop (vbhem_tpu: fit_grid_batched,
+# cluster_batched)
+# ---------------------------------------------------------------------------
+
+# Share of the card's free memory that one lane chunk of the grid may fill
+# (:func:`lane_chunk`); the rest is headroom for what the reckoning of
+# :func:`grid_lane_bytes` leaves out.
+GRID_MEMORY_SHARE = 0.5
+
+
+def grid_lane_bytes(kb: int, sb: int, kmax: int, smax: int, tau: int,
+                    itemsize: int, lanes: int, sms: int = pair_estep_cuda.SMS
+                    ) -> int:
+    """Device bytes one lane of the padded grid takes during an EM
+    iteration, when ``lanes`` lanes run together, reckoned from the pair
+    E-step's launch at the padded shape (P = Kb * Kmax pairs a lane):
+
+      * kernel B1's outputs, 1 + Smax + Smax^2 + Smax * Sb values a pair;
+      * B1's scratch, (tau - 1) * Sb * Smax values a pair, where
+        ``pair_estep_cuda.design`` takes the scratch design for the
+        launch (the padded grid's usual case; 0 where it is resident);
+      * the EM iteration's plain tensors of that size: the assignment
+        logits, hat_z and z_ni, the state's copies of hat_z and ll_elbo
+        under the lane freeze, the count and moment contractions of
+        ``aggregate_stats`` (the weighted sum_t_nu, Smax * Sb a pair, and
+        the layouts its einsums copy), 12 + Smax + Smax^2 + 3 Smax * Sb
+        values a pair in all."""
+    pairs = kb * kmax
+    values = 1 + smax + smax * smax + smax * sb
+    des = pair_estep_cuda.design(sb, smax, tau, itemsize, pairs * lanes, sms)
+    if des.kind == "scratch":
+        values += (tau - 1) * sb * smax
+    values += 12 + smax + smax * smax + 3 * smax * sb
+    return pairs * values * itemsize
+
+
+def lane_chunk(base: H3M, kmax: int, smax: int, tau: int,
+               n_lanes: int) -> Optional[int]:
+    """The default ``trial_chunk`` of :func:`fit_grid_batched`: how many
+    of the grid's ``n_lanes`` (cell, trial) lanes run together, so that
+    their bytes (:func:`grid_lane_bytes`) fill at most GRID_MEMORY_SHARE of
+    the card's free memory (``torch.cuda.mem_get_info``), and their
+    L*Kmax stays within the kernels' launch grid.  None (no chunking)
+    where everything fits, and on the CPU."""
+    dev = base.hmm.mean.device
+    if dev.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(dev)
+    kb, sb = base.state_mask.shape
+    per = grid_lane_bytes(kb, sb, kmax, smax, tau,
+                          base.hmm.mean.element_size(), n_lanes,
+                          torch.cuda.get_device_properties(dev)
+                          .multi_processor_count)
+    lanes = max(1, int(free * GRID_MEMORY_SHARE) // per)
+    lanes = min(lanes, pair_estep_cuda.MAX_GRID_Y // kmax)
+    return None if lanes >= n_lanes else int(lanes)
+
+
+def fit_grid_batched(gen: torch.Generator, base: H3M, ks, ss,
+                     config: VBHEMConfig, hyps: VBHEMHyps,
+                     initmode: Optional[str] = None,
+                     trial_chunk: Optional[int] = None):
+    """The whole (K, S) x trials sweep as the lanes of one masked EM loop.
+
+    Every cell is padded to (max K, max S) with cluster and state masks;
+    (cell, trial) pairs are flattened into lanes, each with its own masks,
+    and their initial posteriors drawn at the padded size up front, in
+    cell-major order.  ``trial_chunk`` lanes (a count of flattened lanes,
+    as in the JAX package) run together, one chunk after another; None
+    takes :func:`lane_chunk`'s default from the card's memory (no
+    chunking on the CPU).  Chunking changes nothing but memory and time:
+    each lane's arithmetic is the same.
+
+    Returns (VBHEMState with leading [n_cells, trials] axes, cells list,
+    cmasks [n_cells, Kmax], smasks [n_cells, Smax])."""
+    ks, ss = list(ks), list(ss)
+    kmax, smax = max(ks), max(ss)
+    cells = [(k, s) for k in ks for s in ss]
+    dev = base.hmm.mean.device
+    cmasks = (torch.arange(kmax, device=dev)
+              < torch.tensor([k for k, _ in cells], device=dev)[:, None])
+    smasks = (torch.arange(smax, device=dev)
+              < torch.tensor([s for _, s in cells], device=dev)[:, None])
+    init_fn = _INITIALIZERS[resolve_initmode(initmode or config.initmode)]
+
+    n_cells, trials = len(cells), config.trials
+    n_lanes = n_cells * trials
+    post0 = init_fn(gen, base, kmax, smax, hyps, config.nv,
+                    lanes=(n_lanes,))
+    ci = torch.arange(n_cells, device=dev).repeat_interleave(trials)
+    cm, sm = cmasks[ci], smasks[ci]
+    if trial_chunk is None:
+        trial_chunk = lane_chunk(base, kmax, smax, config.tau, n_lanes)
+    chunk = trial_chunk or n_lanes
+    parts = []
+    for a in range(0, n_lanes, chunk):
+        sl = slice(a, min(a + chunk, n_lanes))
+        parts.append(vbhem_em_masked(
+            base, tree_map(lambda x: x[sl], post0), hyps, nv=config.nv,
+            tau=config.tau, cmask=cm[sl], smask=sm[sl],
+            max_iter=config.max_iter, min_diff=config.min_diff,
+            covar_type=config.covar_type))
+    states = parts[0] if len(parts) == 1 else tree_map(
+        lambda *xs: torch.cat(xs), *parts)
+    states = tree_map(lambda x: x.reshape((n_cells, trials) + x.shape[1:]),
+                      states)
+    return states, cells, cmasks, smasks
+
+
+def chunk_iterations(it: torch.Tensor, chunk: Optional[int]) -> list:
+    """The EM iterations each lane chunk ran (its slowest lane's), from the
+    lanes' iteration counts ``it`` in lane order; one pair E-step each."""
+    flat = it.reshape(-1).cpu()
+    step = chunk or flat.numel()
+    return [int(flat[a:a + step].max()) for a in range(0, flat.numel(), step)]
+
+
+def cluster_batched(gen: torch.Generator, base: H3M, k, s,
+                    config: VBHEMConfig = VBHEMConfig(),
+                    hyps: Optional[VBHEMHyps] = None):
+    """(K, S) model selection over the padded grid (:func:`fit_grid_batched`:
+    every cell and trial a lane of one masked EM loop).  The same
+    selection rule and return contract as :func:`cluster`
+    (`vbhem_tpu.models.vbhem.cluster_batched`): each cell's best trial,
+    sliced down to its (K, S), scored by LL + lgamma(K+1) + lgamma(S+1)
+    and selected by :func:`_two_stage_select`.
+
+    On a float32 bank every finite cell winner is re-evaluated in float64
+    (:func:`.rescore.elbo_f64`, on the bank's device) and selection uses
+    those scores: ``info['model_ll']`` holds them, ``model_ll_device`` the
+    float32 ones.  Beside the JAX package's keys, ``info`` has
+    ``model_em_iters`` (each cell's slowest trial), ``grid_trial_chunk``
+    (the lanes per chunk, None for one chunk) and ``grid_chunk_iters``
+    (the EM iterations, one pair E-step each, of every chunk).
+
+    Hyperparameter learning (ROADMAP A4) and the initializers other than
+    baseem, 'auto' among them (A3), raise NotImplementedError."""
+    from . import rescore as rescore_mod
+    if config.learn_hyps:
+        raise NotImplementedError(_NO_HYP_LEARNING)
+    resolve_initmode(config.initmode)
+    ks = list(k) if isinstance(k, (list, tuple, range)) else [int(k)]
+    ss = list(s) if isinstance(s, (list, tuple, range)) else [int(s)]
+    dim = base.hmm.mean.shape[-1]
+    dtype = base.hmm.mean.dtype
+    hyps0 = hyps if hyps is not None else VBHEMHyps.from_config(
+        config, dim, dtype, base.hmm.mean.device)
+
+    n_lanes = len(ks) * len(ss) * config.trials
+    chunk = lane_chunk(base, max(ks), max(ss), config.tau, n_lanes)
+    states, cells, _, _ = fit_grid_batched(gen, base, ks, ss, config, hyps0,
+                                           trial_chunk=chunk)
+    lls = states.ll.double().cpu().numpy()                  # [cells, trials]
+    best_trial = lls.argmax(axis=1)
+    its = states.it.cpu().numpy()
+
+    rescore_f64 = dtype == torch.float32
+    scores = np.full((len(ks), len(ss)), -np.inf)
+    scores_device = np.full((len(ks), len(ss)), -np.inf)
+    results, em_iters = {}, {}
+    for ci, (kk, sv) in enumerate(cells):
+        st = tree_map(lambda a: a[ci, int(best_trial[ci])], states)
+        em_iters[(kk, sv)] = int(its[ci].max())
+        p = st.post
+        post = H3MPosterior(
+            alpha=p.alpha[:kk].clone(), eta=p.eta[:kk, :sv].clone(),
+            epsilon=p.epsilon[:kk, :sv, :sv].clone(),
+            niw=NIW(beta=p.niw.beta[:kk, :sv].clone(),
+                    v=p.niw.v[:kk, :sv].clone(),
+                    m=p.niw.m[:kk, :sv].clone(),
+                    w=p.niw.w[:kk, :sv].clone()))
+        hat_z = st.hat_z[:, :kk].clone()
+        stats = st.stats
+        results[(kk, sv)] = VBHEMResult(
+            post=post, h3m=post.to_h3m(), ll=st.ll.clone(), hat_z=hat_z,
+            ll_elbo=st.ll_elbo[:, :kk].clone(), nj=stats.nj[:kk].clone(),
+            label=torch.argmax(hat_z, dim=-1),
+            counts_n1=stats.nj_rho1[:kk, :sv].clone(),
+            counts=stats.nj_rho[:kk, :sv].clone(),
+            trans_counts=stats.nj_rho2rho[:kk, :sv, :sv].clone())
+        ki, si = ks.index(kk), ss.index(sv)
+        corr = math.lgamma(kk + 1) + math.lgamma(sv + 1)
+        ll = float(lls[ci, best_trial[ci]])
+        scores_device[ki, si] = ll + corr
+        if rescore_f64 and np.isfinite(ll):
+            scores[ki, si] = rescore_mod.elbo_f64(
+                base, post, hyps0, config.nv, config.tau) + corr
+        else:
+            scores[ki, si] = scores_device[ki, si]
+    del states
+
+    best_k, best_s, model_ll_k, s_star = _two_stage_select(scores, ks, ss)
+    from .. import __version__
+    info = {"model_ll": scores, "model_ll_device": scores_device,
+            "model_ll_k": model_ll_k, "model_best_s_per_k": s_star,
+            "model_k": ks, "model_s": ss,
+            "model_best_k": best_k, "model_best_s": best_s,
+            "model_all": results,
+            "model_hyps": {c: hyps0 for c in cells},
+            "model_em_iters": em_iters, "grid_trial_chunk": chunk,
+            "grid_chunk_iters": chunk_iterations(
+                torch.as_tensor(its), chunk),
+            "vbhemopt": config, "version": __version__}
+    return results[(best_k, best_s)], info
 
 
 def to_hmm_list(res: VBHEMResult, state_thresh: float = 1e-3):

@@ -6,7 +6,8 @@ B2 has two entries:
 
 * :func:`forward_backward_auto` (entry 1), the counterpart of
   ``vbhem_tpu.ops.fb_pallas.forward_backward_auto``: the forward-backward
-  of given emission scores ``log_rho``;
+  of given emission scores ``log_rho``, at any K (above 8 in the wide
+  body ``csrc/fb_wide.cu``, whose vectors live in device memory);
 * :func:`e_step_fused`, which forms the emission scores from the data
   ``x`` and the per-state constants of :func:`.fb.emission_constants`
   inside the kernel, so ``log_rho`` is never read from device memory.
@@ -18,7 +19,8 @@ takes the shape (D <= 3 and a shape the resident design holds), else
 launches B2 or raises.
 
 :func:`design` picks, from the shape alone, the kernel's resident design
-(whole sequences held in shared memory) or its streamed one (long T).
+(whole sequences held in shared memory), its streamed one (long T) or,
+for K above 8, the wide body.
 Restart lanes ride as leading axes; the kernel reads shared scores per
 lane, and a mask and an ``x`` shared by the restarts of a subject without
 expanding either, so all lanes go in one launch.
@@ -40,6 +42,8 @@ from .fb import (FBStats, emission_constants, expected_log_gauss,
 LAUNCHES = 0
 FUSED_LAUNCHES = 0
 
+# the states the register bodies of csrc/fb.cuh take; above, the wide
+# body of csrc/fb_wide.cu, limited only by the memory its workspace takes
 MAX_STATES = 8
 MAX_FUSED_DIM = 3
 
@@ -58,16 +62,20 @@ BLOCK_BYTES = 16
 _C_FN = {torch.float32: "vbhem_fb_f32", torch.float64: "vbhem_fb_f64"}
 _C_FUSED = {torch.float32: "vbhem_fb_fused_f32",
             torch.float64: "vbhem_fb_fused_f64"}
+_C_WIDE = {torch.float32: "vbhem_fb_wide_f32",
+           torch.float64: "vbhem_fb_wide_f64"}
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong]
              + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 _FUSED_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong]
                    + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+_WIDE_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+                  + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 class Design(NamedTuple):
     """How B2 runs a shape: ``kind`` 'resident' (``rows`` sequences per
-    block, ``smem_bytes`` of dynamic shared memory) or 'streamed'
-    (``rows`` = 0)."""
+    block, ``smem_bytes`` of dynamic shared memory), 'streamed' or 'wide'
+    (K above 8; ``rows`` = 0 for both)."""
     kind: str
     rows: int
     smem_bytes: int
@@ -114,7 +122,9 @@ def design(t: int, k: int, itemsize: int, d: int = 0) -> Design:
     resident design with the rows of ROW_CHOICES that hold the most (the
     fewest rows among equals: smaller blocks interleave their load, compute
     and store phases more finely), if a block of 32 fits; else the
-    streamed design."""
+    streamed design.  K above MAX_STATES takes the wide body."""
+    if k > MAX_STATES:
+        return Design("wide", 0, 0)
     per = resident_row_bytes(t, k, itemsize, d)
     best = Design("streamed", 0, 0)
     most = 0
@@ -155,10 +165,9 @@ def _check_tensors(named: dict, dtype, device):
 def _check_shapes(named: dict, lanes, n, t_max, k, log_rho_dim):
     """The scores (shared or per sequence) and the mask against the lanes;
     returns (pz1_per_seq, trans_per_seq)."""
-    if not 1 <= k <= MAX_STATES:
-        raise ValueError(f"K={k}: the kernel takes 1..{MAX_STATES}")
-    if t_max < 1 or n < 1 or math.prod(lanes) < 1:
-        raise ValueError(f"empty batch: lanes={lanes}, N={n}, T={t_max}")
+    if t_max < 1 or n < 1 or k < 1 or math.prod(lanes) < 1:
+        raise ValueError(f"empty batch: lanes={lanes}, N={n}, T={t_max}, "
+                         f"K={k}")
     if math.prod(lanes) * n >= 2 ** 31:
         raise ValueError(f"{math.prod(lanes) * n} sequences: the kernel "
                          f"takes fewer than 2**31")
@@ -238,9 +247,10 @@ def validate_fused(x, mask, log_pz1, log_trans, emis):
     per_seq = _check_shapes(named, lanes, n, t_max, k, len(lanes) + 3)
     des = design(t_max, k, emis.element_size(), d)
     if des.kind != "resident":
-        raise ValueError(f"T={t_max}, K={k}, D={d}: the tiles do not fit "
-                         f"in shared memory; the fused E-step takes only "
-                         f"the resident design (use forward_backward_auto)")
+        raise ValueError(f"T={t_max}, K={k}, D={d}: the fused E-step takes "
+                         f"only the resident design (K <= {MAX_STATES} and "
+                         f"tiles that fit in shared memory); use "
+                         f"e_step_auto or forward_backward_auto")
     return (lanes, n, t_max, k, d) + per_seq + (des,)
 
 
@@ -316,8 +326,11 @@ def _launch(log_pz1, log_trans, log_rho, mask, lanes, n, t_max, k,
     global LAUNCHES
     dev, dt = log_rho.device, log_rho.dtype
     _needs_cuda(dev)
-    fn = _build.c_function(_C_FN[dt], _ARGTYPES)
     des = design(t_max, k, log_rho.element_size())
+    if des.kind == "wide":
+        return _launch_wide(log_pz1, log_trans, log_rho, mask, lanes, n,
+                            t_max, k, pz1_per_seq, trans_per_seq)
+    fn = _build.c_function(_C_FN[dt], _ARGTYPES)
     pz1, trans = _scores(log_pz1, log_trans, lanes, n, k, pz1_per_seq,
                          trans_per_seq)
     m8, rep = (_mask_bits(mask, lanes) if des.rows > 0
@@ -335,6 +348,40 @@ def _launch(log_pz1, log_trans, log_rho, mask, lanes, n, t_max, k,
     return FBStats(*out)
 
 
+def wide_work_values(k: int) -> int:
+    """Values of the wide body's workspace per sequence: exp(log_trans),
+    px, beta and a scratch vector (``csrc/fb_wide.cu``)."""
+    return k * k + 3 * k
+
+
+def _launch_wide(log_pz1, log_trans, log_rho, mask, lanes, n, t_max, k,
+                 pz1_per_seq, trans_per_seq) -> FBStats:
+    """One launch of entry 1's wide body (K above MAX_STATES), counted
+    as an entry-1 launch."""
+    global LAUNCHES
+    dev, dt = log_rho.device, log_rho.dtype
+    fn = _build.c_function(_C_WIDE[dt], _WIDE_ARGTYPES)
+    pz1, trans = _scores(log_pz1, log_trans, lanes, n, k, pz1_per_seq,
+                         trans_per_seq)
+    m8, rep = _mask_lanes(mask, lanes)
+    n_seq = math.prod(lanes) * n
+    with torch.cuda.device(dev):
+        out = _outputs(lanes, n, t_max, k, dt, dev)
+        work = torch.empty((wide_work_values(k) * n_seq,), dtype=dt,
+                           device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(log_rho.data_ptr(), m8.data_ptr(), pz1.data_ptr(),
+                 trans.data_ptr(), *[o.data_ptr() for o in out],
+                 work.data_ptr(), n_seq, n, t_max, k, rep,
+                 int(pz1_per_seq), int(trans_per_seq), stream)
+        if err != 0:
+            raise RuntimeError(f"fb wide kernel launch failed: cudaError "
+                               f"{err}")
+        LAUNCHES += 1
+        del work   # freed on the stream, after the kernel
+    return FBStats(*out)
+
+
 def forward_backward_cuda(log_pz1, log_trans, log_rho, mask) -> FBStats:
     """Scaled forward-backward in one launch of entry 1.  Arguments and
     results as :func:`forward_backward_auto`; every tensor must be on one
@@ -349,7 +396,7 @@ def forward_backward_auto(log_pz1, log_trans, log_rho, mask) -> FBStats:
     log_pz1 [..., K] or [..., N, K], log_trans [..., K, K] or
     [..., N, K, K], log_rho [..., N, T, K] (contiguous), all float32 or all
     float64; mask [..., N, T] bool, broadcasting against log_rho's lanes,
-    with every sequence's step 0 unmasked; K in 1..8; all on one device.
+    with every sequence's step 0 unmasked; K >= 1; all on one device.
 
     CPU tensors take the plain version; CUDA tensors launch entry 1 of the
     kernel (or raise)."""
@@ -407,7 +454,7 @@ def e_step_auto(x, mask, log_pz1, log_trans, niw) -> FBStats:
     CPU tensors take the plain version (:func:`.fb.expected_log_gauss`,
     then :func:`.fb.forward_backward`).  CUDA tensors launch B2: the fused
     entry where D <= 3 and the resident design holds the shape, else
-    entry 1 on log_rho formed in PyTorch."""
+    entry 1 on log_rho formed in PyTorch (its wide body for K above 8)."""
     if x.device.type == "cpu":
         return forward_backward(log_pz1, log_trans,
                                 expected_log_gauss(x, niw), mask)

@@ -18,6 +18,14 @@ Both kernels keep the recursion's per-step state (Sb*Sr values a step and
 pair) where :func:`design` puts it for the shape: in shared memory for all
 tau-1 steps ('resident') where a block holds it at enough pairs per SM,
 else in a device-memory scratch ('scratch').
+
+Sizes: Sb and Sr up to :data:`MAX_STATES` run bodies that keep a pair's
+vectors in registers; above it, each kernel's wide body keeps them in a
+workspace after the scratch (the scratch design only) and its reduced
+model in shared memory, so it takes what fits there
+(:func:`wide_smem_bytes`) and in the card's memory.  B1 forms E3logN in
+registers for D up to :data:`MAX_DIM`; for wider data
+:func:`pair_estep_fused_auto` forms it in PyTorch and launches B3.
 """
 from __future__ import annotations
 
@@ -39,8 +47,8 @@ DESIGNS = ("resident", "scratch")   # the kernels' codes 0 and 1
 DESIGN_LAUNCHES = {"B1": dict.fromkeys(DESIGNS, 0),
                    "B3": dict.fromkeys(DESIGNS, 0)}
 
-MAX_STATES = 8
-MAX_DIM = 4
+MAX_STATES = 8   # the register bodies' states; above, the wide bodies
+MAX_DIM = 4      # B1's emission dims; above, E3logN in PyTorch and B3
 MAX_GRID_Y = 65535
 
 # Shared memory of one sm_90 SM (228 KB), of which each resident block
@@ -100,6 +108,8 @@ def design_of(kind: str, sb: int, sr: int, tau: int,
         return PairDesign("scratch", THREAD_CHOICES[0], 0)
     if kind != "resident":
         raise ValueError(f"unknown design {kind!r}")
+    if is_wide(sb, sr):
+        return None
     best = None
     for threads in sorted(THREAD_CHOICES):
         smem = threads * (tau - 1) * sb * sr * itemsize
@@ -112,6 +122,29 @@ def design_of(kind: str, sb: int, sr: int, tau: int,
     return best
 
 
+def is_wide(sb: int, sr: int) -> bool:
+    """Whether Sb, Sr take the kernels' wide body."""
+    return sb > MAX_STATES or sr > MAX_STATES
+
+
+def wide_work_values(sb: int, sr: int, fused: bool) -> int:
+    """Values per pair of the wide body's workspace after the scratch's
+    states (``wide_work_values`` in ``csrc/pair_recursion.cuh``; B1 adds
+    E3logN, Sb*Sr)."""
+    return 7 * sb * sr + 2 * sr * sr + 2 * sb + sr + (sb * sr if fused
+                                                        else 0)
+
+
+def wide_smem_bytes(sr: int, d: int, itemsize: int) -> int:
+    """Dynamic shared memory of a wide block: the reduced model (log_pi,
+    log_a, exp(log_a) and the row maxima) and, for B1 (``d`` > 0), its
+    emission constants."""
+    n = 2 * sr * sr + 2 * sr
+    if d:
+        n += sr * d + sr * d * d + 2 * sr
+    return n * itemsize
+
+
 def design(sb: int, sr: int, tau: int, itemsize: int, pairs: int,
            sms: int = SMS) -> PairDesign:
     """The design B1 and B3 take for Sb, Sr, tau, ``itemsize`` and
@@ -121,7 +154,8 @@ def design(sb: int, sr: int, tau: int, itemsize: int, pairs: int,
     in flight per SM hide.  The resident design keeps every step's state
     in shared memory, which caps the pairs an SM holds: it is taken where
     it holds RESIDENT_PAIRS_PER_SM pairs per SM, or all of the launch's.
-    Else the scratch, whose pairs in flight only registers limit."""
+    Else the scratch, whose pairs in flight only registers limit.  The
+    wide body (:func:`is_wide`) has only the scratch design."""
     res = design_of("resident", sb, sr, tau, itemsize)
     if res is not None and pairs_per_sm(res.threads, res.smem_bytes) >= min(
             RESIDENT_PAIRS_PER_SM, -(-pairs // sms)):
@@ -158,8 +192,8 @@ def _check_shapes(named: dict, want: dict):
 
 
 def _check_ranges(kb, sb, kr, sr, lanes, tau):
-    if not (1 <= sb <= MAX_STATES and 1 <= sr <= MAX_STATES):
-        raise ValueError(f"Sb={sb}, Sr={sr}: the kernel takes 1..{MAX_STATES}")
+    if sb < 1 or sr < 1:
+        raise ValueError(f"Sb={sb}, Sr={sr}: no states")
     if int(tau) != tau or tau < 1:
         raise ValueError(f"tau={tau}: must be an integer >= 1")
     if kb < 1 or kr < 1:
@@ -194,8 +228,8 @@ def validate(prior_b, trans_b, mean_b, cov_b, log_pi_r, log_a_r, m_r, w_r,
         w_r=lanes + (kr, sr, d, d), v_r=lanes + (kr, sr),
         lam_r=lanes + (kr, sr), log_lam_r=lanes + (kr, sr)))
     _check_ranges(kb, sb, kr, sr, lanes, tau)
-    if not 1 <= d <= MAX_DIM:
-        raise ValueError(f"D={d}: the kernel takes 1..{MAX_DIM}")
+    if d < 1:
+        raise ValueError(f"D={d}: no dimensions")
     return kb, sb, d, lanes, kr, sr
 
 
@@ -207,17 +241,18 @@ def _outputs(dev, dt, lkr, kb, sb, sr):
             torch.empty((lkr, sr, sb, kb), dtype=dt, device=dev))
 
 
-def _state_args(des: PairDesign, dev, dt, lkr, kb, sb, sr, tau):
+def _state_args(des: PairDesign, dev, dt, lkr, kb, sb, sr, tau, work=0):
     """The design's arguments of the C interface after the outputs: the
-    scratch [tau-1, Sb*Sr, L*Kr, Kb] (allocated for the scratch design
-    only, else None) and, after the shape, the design's code, block size
-    and shared memory.  Returns (scratch tensor or None, pointer, tail)."""
+    scratch [tau-1, Sb*Sr, L*Kr, Kb] followed by ``work`` values a pair
+    (the wide body's workspace), allocated for the scratch design only,
+    else None; and, after the shape, the design's code, block size and
+    shared memory.  Returns (scratch tensor or None, pointer, tail)."""
     if des.kind not in DESIGNS:
         raise ValueError(f"unknown design {des.kind!r}")
     scratch = None
     if des.kind == "scratch":
-        scratch = torch.empty(((tau - 1) * sb * sr * lkr * kb,), dtype=dt,
-                              device=dev)
+        scratch = torch.empty((((tau - 1) * sb * sr + work) * lkr * kb,),
+                              dtype=dt, device=dev)
     ptr = None if scratch is None else scratch.data_ptr()
     tail = (DESIGNS.index(des.kind), des.threads, des.smem_bytes)
     return scratch, ptr, tail
@@ -232,19 +267,42 @@ def _unfold(ll, nu1, sxi, stn, lanes, kr, kb, sb, sr) -> PairStats:
         sum_t_nu=stn.view(lanes + (kr, sr, sb, kb)).movedim(-1, -4))
 
 
+def _wide_checks(des, sb, sr, d, itemsize):
+    """The wide body takes the scratch design and a reduced model that
+    fits a block's shared memory."""
+    if des.kind != "scratch":
+        raise ValueError(f"Sb={sb}, Sr={sr}: the wide body has only the "
+                         f"scratch design, not {des.kind!r}")
+    need = wide_smem_bytes(sr, d, itemsize)
+    if need > SMEM_DYNAMIC_MAX:
+        raise ValueError(f"Sr={sr}: the reduced model takes {need} bytes of "
+                         f"shared memory, more than a block's "
+                         f"{SMEM_DYNAMIC_MAX}")
+
+
 def _launch(prior_b, trans_b, mean_b, cov_b, reduced, tau, kb, sb, lanes,
             kr, sr, des: Optional[PairDesign] = None) -> PairStats:
     """One launch on arguments :func:`validate` has accepted, in ``des``
-    or the design :func:`design` picks."""
+    or the design :func:`design` picks.  For D above MAX_DIM, E3logN is
+    formed in PyTorch and B3 launched on it (counted as B3's launch)."""
     global LAUNCHES
     dev, dt = mean_b.device, mean_b.dtype
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    d = mean_b.shape[-1]
+    if d > MAX_DIM:
+        log_pi_r, log_a_r, m_r, w_r, v_r, lam_r, log_lam_r = reduced
+        ell = expected_pair_ll_variational(mean_b, cov_b, m_r, w_r, v_r,
+                                           lam_r, log_lam_r)
+        return _launch_bwd_fwd(prior_b, trans_b, log_pi_r, log_a_r, ell,
+                               tau, kb, sb, lanes, kr, sr, des)
     fn = _build.c_function(_C_FN[dt], _ARGTYPES)
     lkr = math.prod(lanes) * kr
-    d = mean_b.shape[-1]
     des = des or design(sb, sr, tau, mean_b.element_size(), kb * lkr,
                         _sms(dev))
+    wide = is_wide(sb, sr)
+    if wide:
+        _wide_checks(des, sb, sr, d, mean_b.element_size())
 
     with torch.cuda.device(dev):
         # base bank with Kb last, so the kernel's loads coalesce
@@ -253,7 +311,9 @@ def _launch(prior_b, trans_b, mean_b, cov_b, reduced, tau, kb, sb, lanes,
                   mean_b.permute(1, 2, 0).contiguous(),
                   cov_b.permute(1, 2, 3, 0).contiguous())
         outs = _outputs(dev, dt, lkr, kb, sb, sr)
-        scratch, ptr, tail = _state_args(des, dev, dt, lkr, kb, sb, sr, tau)
+        scratch, ptr, tail = _state_args(
+            des, dev, dt, lkr, kb, sb, sr, tau,
+            wide_work_values(sb, sr, True) if wide else 0)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*[t.data_ptr() for t in base_t + tuple(reduced) + outs],
                  ptr, kb, lkr, sb, sr, d, int(tau), *tail, stream)
@@ -353,6 +413,9 @@ def _launch_bwd_fwd(prior_b, trans_b, log_pi_r, log_a_r, ell, tau, kb, sb,
     lkr = math.prod(lanes) * kr
     des = des or design(sb, sr, tau, ell.element_size(), kb * lkr,
                         _sms(dev))
+    wide = is_wide(sb, sr)
+    if wide:
+        _wide_checks(des, sb, sr, 0, ell.element_size())
 
     with torch.cuda.device(dev):
         # [..., Kb, Kr, Sb, Sr] -> [L*Kr, Sb, Sr, Kb]: no copy when ell is
@@ -362,7 +425,9 @@ def _launch_bwd_fwd(prior_b, trans_b, log_pi_r, log_a_r, ell, tau, kb, sb,
                trans_b.permute(1, 2, 0).contiguous(), log_pi_r.contiguous(),
                log_a_r.contiguous())
         outs = _outputs(dev, dt, lkr, kb, sb, sr)
-        scratch, ptr, tail = _state_args(des, dev, dt, lkr, kb, sb, sr, tau)
+        scratch, ptr, tail = _state_args(
+            des, dev, dt, lkr, kb, sb, sr, tau,
+            wide_work_values(sb, sr, False) if wide else 0)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*[t.data_ptr() for t in ins + outs], ptr, kb, lkr, sb, sr,
                  int(tau), *tail, stream)

@@ -1,6 +1,7 @@
 """Numeric primitives shared by the engines (the counterpart of
 :mod:`vbhem_tpu.utils.numeric`): log-sum-exp, digamma expectations,
-Dirichlet / Wishart normalizers, and small symmetric positive-definite
+Dirichlet / Wishart normalizers (with masked forms for the padded (K, S)
+grid), and small symmetric positive-definite
 inverses and log-determinants.  Dtype-polymorphic: float64 for the CPU
 parity tests, float32 on the card.
 """
@@ -13,9 +14,12 @@ import torch
 __all__ = [
     "tiny",
     "logsumexp",
+    "masked_logsumexp",
     "e_log_det_lambda",
     "e_log_dirichlet",
     "log_dirichlet_const",
+    "masked_e_log_dirichlet",
+    "masked_log_dirichlet_const",
     "log_wishart_b",
     "sym",
     "solve_psd",
@@ -42,6 +46,24 @@ def logsumexp(a: torch.Tensor, dim=-1, keepdim: bool = False) -> torch.Tensor:
     return out if keepdim else out.squeeze(dim)
 
 
+def masked_logsumexp(a: torch.Tensor, mask: torch.Tensor, dim=-1,
+                     keepdim: bool = False) -> torch.Tensor:
+    """log-sum-exp over the entries where ``mask`` (broadcasting against
+    ``a``) is True; a slice with no finite active entry gives -inf.
+    Masked entries are set to -inf before the max shift, and the shift is
+    0 where the max is not finite, so no inf - inf arises."""
+    neg_inf = torch.full_like(a, -math.inf)
+    am = torch.where(mask, a, neg_inf)
+    amax = torch.amax(am, dim=dim, keepdim=True)
+    finite = torch.isfinite(amax)
+    safe = torch.where(finite, amax, torch.zeros_like(amax))
+    s = torch.sum(torch.where(mask, torch.exp(am - safe),
+                              torch.zeros_like(am)), dim=dim, keepdim=True)
+    out = torch.where(finite, torch.log(s) + safe,
+                      torch.full_like(s, -math.inf))
+    return out if keepdim else out.squeeze(dim)
+
+
 def e_log_det_lambda(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """E[log |Lambda|] for Lambda ~ Wishart(W, v); Bishop (10.65):
     sum_i psi((v + 1 - i)/2) + D log 2 + log det W.  v [...], w [..., D, D]."""
@@ -62,6 +84,33 @@ def log_dirichlet_const(conc: torch.Tensor, dim=-1) -> torch.Tensor:
     """log C(conc) of a Dirichlet: lgamma(sum conc) - sum lgamma(conc)."""
     return (torch.lgamma(torch.sum(conc, dim=dim))
             - torch.sum(torch.lgamma(conc), dim=dim))
+
+
+def masked_e_log_dirichlet(conc: torch.Tensor, mask: torch.Tensor,
+                           dim=-1, big: float = 1e30) -> torch.Tensor:
+    """E[log pi_k] over the active entries of a padded Dirichlet (the
+    padded (K, S) grid): the normalizer sums active concentrations only,
+    and masked entries get -big, finite, so every downstream exp() is
+    exactly 0 with no inf arithmetic.  ``mask`` broadcasts against
+    ``conc``."""
+    mask = torch.broadcast_to(mask, conc.shape)
+    conc_safe = torch.where(mask, conc, torch.ones_like(conc))
+    total = torch.sum(torch.where(mask, conc, torch.zeros_like(conc)),
+                      dim=dim, keepdim=True)
+    val = torch.special.digamma(conc_safe) - torch.special.digamma(total)
+    return torch.where(mask, val, torch.full_like(val, -big))
+
+
+def masked_log_dirichlet_const(conc: torch.Tensor, mask: torch.Tensor,
+                               dim=-1) -> torch.Tensor:
+    """log C(conc) over the active entries of a padded Dirichlet."""
+    mask = torch.broadcast_to(mask, conc.shape)
+    conc_safe = torch.where(mask, conc, torch.ones_like(conc))
+    total = torch.sum(torch.where(mask, conc, torch.zeros_like(conc)),
+                      dim=dim)
+    return torch.lgamma(total) - torch.sum(
+        torch.where(mask, torch.lgamma(conc_safe),
+                    torch.zeros_like(conc_safe)), dim=dim)
 
 
 def log_wishart_b(logdet_winv, v, d: int) -> torch.Tensor:
