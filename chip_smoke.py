@@ -79,9 +79,38 @@ Phases (any failure exits non-zero and prints no result line):
      followed by entry 1; B1 at the grid's launch (one lane chunk, with
      and without masked states), B3 float64 at the rescoring's launch,
      one grid EM iteration, and the wide bodies at S=9 and K=9, each
-     beside its bound.
+     beside its bound;
+  11. hyp gradient (after phase 9): each engine's hyperparameter objective
+     (``vbhmm.neg_elbo_objective`` on 4 subjects of phase 4's bank, one
+     lane each; ``vbhem.neg_elbo_objective`` on lanes of the padded
+     protocol grid with their cells' masks), its value and theta-gradient
+     at hyps0, from restart solutions (the starts run to convergence
+     first, as on the hyp path; the objective's EM then runs
+     HYP_GRAD_ITERS iterations), with the kernels in float64 and float32
+     and with the kernel's dispatch rebound to its plain version; the
+     gap is the value's relative one and the gradient's in max norm: within
+     1e-10 of the plain float64 run (f64), and in f32 within twice the
+     plain version's own float32 run's gap to it plus 5e-5 (an EM run and
+     its bound in float32 stray from float64 whatever computes the
+     E-step); B2 (VBEM) and B1 (VBHEM) launched
+     once per EM iteration and final E-step of the objective;
+  12. protocol with hyps on (last): 20 subjects per planted group drawn
+     with a seed of their own (PROTOCOL_HYPS_SEED), then
+     ``synthetic.learn_subject_hmms`` at ``default_vb_config()`` and
+     ``synthetic.run_vbhem`` at ``default_vbhem_config()`` (K=1..6 x
+     S=1..5, 50 restarts, tau=50, Nv=100), both with hyps on: B2 launched
+     on every EM iteration of the VBEM stage, B1 on every one of the
+     VBHEM stage (restarts, hyp objective, rerun), B3 float64 once per
+     rescored cell; every kept lane's bound at least its pre-optimization
+     bound minus the monotone contract's tolerance; the learned hyps
+     inside their bounds; every score finite; the (2, 2) cell's Rand index
+     1.0 and the selection K=2, S=[2, 2], Rand index 1.0; each stage's
+     wall time, lanes, L-BFGS steps, objective calls, EM iterations,
+     reverted lanes, the selected cell's hyps and each cell's float32
+     against float64 gap printed.
 
-B3 is checked in phase 2 like B1 and B2.  Each of phases 3-9 sets every
+B3 is checked in phase 2 like B1 and B2.  Each of phases 3-9 and 11-12
+sets every
 kernel's launch count (B1's and B3's also by design) to 0 just before it
 runs its path and reads the counts just after.  Prints a JSON line
 describing each kernel, the ``nvidia-smi`` name and power-limit line, and
@@ -105,7 +134,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from vbhem_tpu_torch import HEMConfig, SeqBatch, VBConfig, VBHEMConfig
+from vbhem_tpu_torch import HEMConfig, SeqBatch, VBConfig, VBHEMConfig, hyp
 from vbhem_tpu_torch.containers import NIW, tree_map
 from vbhem_tpu_torch.experiments import synthetic
 from vbhem_tpu_torch.models import batch as vbem_batch
@@ -1403,6 +1432,320 @@ def phase_protocol(fails: Failures, device, vbem, per_group=20) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# hyperparameter learning (ROADMAP A4): the objective's gradient on the
+# card, and the protocol with hyps on in both stages
+# ---------------------------------------------------------------------------
+
+# The gradient phase runs each objective's EM for a fixed number of
+# iterations (min_diff 0): the kernel and the plain runs then take the same
+# steps, so their gap is the arithmetic's, not a convergence test's flip.
+# Its VBHEM lanes keep the config's default alpha0=1: at the protocol's
+# alpha0=1e6 the float32 bound's lgamma(K alpha0) - K lgamma(alpha0) and
+# its derivative cancel to noise (the alpha0 gradient off by 3.4 against
+# float64 in the plain version alone, on the CPU), whatever the kernel does.
+HYP_GRAD_ITERS = 30
+HYP_GRAD_VB = VBConfig(mu0=(1.5, 1.5), w0=1.0, max_iter=HYP_GRAD_ITERS,
+                       min_diff=0.0)
+HYP_GRAD_VBHEM = VBHEMConfig(m0=(1.5, 1.5), w0=1.0, nv=100, tau=50,
+                             max_iter=HYP_GRAD_ITERS, min_diff=0.0)
+# the padded grid's cells of the VBHEM lanes (at the grid's (6, 5))
+HYP_GRAD_CELLS = [(2, 2), (1, 1), (6, 5), (3, 2)]
+HYP_GRAD_SEED = 3
+PROTOCOL_HYPS_SEED = 7     # the hyps-on protocol's own data draw
+
+
+def _value_grad(fun, hyps0, specs, n, dtype):
+    """Every lane's objective value and theta-gradient at hyps0 (theta in
+    float64, the hyps in ``dtype``)."""
+    t0 = torch.as_tensor(hyp.pack(hyps0, specs), device=hyps0.alpha0.device)
+    theta = t0.expand(n, -1).clone().requires_grad_(True)
+    h = tree_map(lambda a: a.to(dtype), hyps0)
+    v = fun(hyp.unpack(theta, h, specs),
+            torch.arange(n, device=theta.device))
+    (g,) = torch.autograd.grad(v.sum(), theta)
+    return torch.cat([v.detach().double()[:, None], g.double()], dim=1)
+
+
+def _objective_runs(make, hyps0, specs, n, module, name, plain_fn):
+    """The objective's [value, gradient] per lane: with the kernel in
+    float64 and float32, and with the kernel's dispatch rebound to its
+    plain version in float64 and float32; with the kernel runs' launch
+    counts and the objective's own counts of its EM iterations and
+    E-steps."""
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        stats = {}
+        reset_counts()
+        out[dtype] = _value_grad(make(dtype, stats), hyps0, specs, n, dtype)
+        out[f"launches_{dtype}"] = read_counts()
+        out[f"stats_{dtype}"] = stats
+        with rebound(module, name, plain_fn):
+            out[f"plain_{dtype}"] = _value_grad(make(dtype, {}), hyps0,
+                                                specs, n, dtype)
+    return out
+
+
+def _rel_err(got, want) -> float:
+    """[value, gradient] rows: the larger, over lanes, of the value's
+    |got - want| / (|want| + 1) and the gradient's max-norm error over its
+    max norm plus 1 (the direction L-BFGS steps along; a component far
+    below the others, such as m0's near a fixed point, is a difference of
+    nearly cancelling per-state sums, and float32 leaves no relative
+    digits in it)."""
+    v = torch.abs(got[:, 0] - want[:, 0]) / (torch.abs(want[:, 0]) + 1.0)
+    g = torch.amax(torch.abs(got[:, 1:] - want[:, 1:]), dim=1) / (
+        torch.amax(torch.abs(want[:, 1:]), dim=1) + 1.0)
+    return float(torch.max(torch.maximum(v, g)))
+
+
+def _gate_objective(fails, what, runs, counter):
+    """By :func:`_rel_err`: float64, the kernel run within 1e-10 of the
+    plain run; float32, an objective is a whole EM run and a bound summed
+    over every observation, so the plain version's own float32 run
+    strays from float64 too, and the E-step is one float32 stage of
+    several: the kernel's float32 run may stray up to twice the plain
+    float32 run's gap, plus 5e-5.  The element-wise gaps are printed."""
+    want = runs[f"plain_{torch.float64}"]
+    for dtype in (torch.float64, torch.float32):
+        err = _rel_err(runs[dtype], want)
+        allowed = TOL[dtype]
+        own = ""
+        if dtype == torch.float32:
+            plain32 = _rel_err(runs[f"plain_{dtype}"], want)
+            allowed += 2.0 * plain32
+            own = f" (the plain version's float32 run: {plain32:.3e})"
+        fails.check(bool(torch.all(torch.isfinite(runs[dtype])))
+                    and err <= allowed,
+                    f"hyp gradient {what} {str(dtype)[6:]}: value and theta-"
+                    f"gradient of {want.shape[0]} lanes vs the plain version"
+                    f" in float64, value and gradient-norm relative gap "
+                    f"{err:.3e} <= {allowed:.3e}{own}")
+        for key, name in ((dtype, "kernel"), (f"plain_{dtype}", "plain")):
+            elem = torch.amax(torch.abs(runs[key] - want)
+                              / (torch.abs(want) + 1.0), dim=0)
+            print(f"hyp gradient {what} {str(dtype)[6:]} {name}: element-"
+                  f"wise |got - want| / (|want| + 1) by [value, theta] "
+                  f"{elem.cpu().numpy().tolist()}", flush=True)
+        st = runs[f"stats_{dtype}"]
+        n = sum(runs[f"launches_{dtype}"][c] for c in counter)
+        want_n = st["em_iters"] + st["e_steps"]
+        fails.check(n == want_n > 0,
+                    f"hyp gradient {what} {str(dtype)[6:]}: {n} kernel "
+                    f"launches for the objective's {st['em_iters']} EM "
+                    f"iterations and {st['e_steps']} final E-steps")
+    print(f"hyp gradient {what}: [value, d/dtheta] per lane (plain, float64)"
+          f" {want.cpu().numpy().round(6).tolist()}", flush=True)
+    return {str(dtype)[6:]: _rel_err(runs[dtype], want)
+            for dtype in (torch.float64, torch.float32)}
+
+
+def phase_hyp_gradient(fails: Failures, device, vbem, n_vb=4,
+                       per_group=20) -> dict:
+    """The hyp objective of each engine, value and theta-gradient at hyps0,
+    through the kernels and through their plain versions: VBEM on
+    ``n_vb`` subjects of phase 4's bank (one lane each, random starts;
+    kernel B2), VBHEM on lanes of the padded protocol grid (HYP_GRAD_CELLS,
+    baseem starts on the protocol's 40-subject bank; kernel B1 with
+    per-lane masks).  The objective's EM runs HYP_GRAD_ITERS iterations."""
+    f64 = torch.float64
+    bank = vbem["bank"]
+    data = SeqBatch(x=bank.x[:n_vb].to(f64), lengths=bank.lengths[:n_vb])
+    gen = torch.Generator(device="cpu").manual_seed(HYP_GRAD_SEED)
+    h64 = vbhmm.VBHyps.from_config(HYP_GRAD_VB, 2, f64, device)
+    posts = tree_map(lambda a: a[:, 0], vbhmm.random_init(
+        gen, data, 2, h64, lanes=(1,)))
+    # the objective starts from restart solutions, as on the hyp path
+    posts = vbhmm.vbem_em(data, posts, h64).post
+    specs = hyp.vb_specs(2, HYP_GRAD_VB.bounds, HYP_GRAD_VB.learn_hyps_keys)
+
+    def make_vb(dtype, stats):
+        d = SeqBatch(x=data.x.to(dtype), lengths=data.lengths)
+        return vbhmm.neg_elbo_objective(
+            d, tree_map(lambda a: a.to(dtype), posts), HYP_GRAD_VB,
+            per_lane_data=True, stats=stats)
+
+    vb = _objective_runs(make_vb, h64, specs, n_vb, vbhmm, "e_step",
+                         plain_vbem_e_step)
+    errs = {"VBEM": _gate_objective(fails, "VBEM", vb, ("B2", "B2_fused"))}
+
+    labels = vbem["labels"]
+    idx = np.concatenate([np.flatnonzero(labels == g)[:per_group]
+                          for g in (0, 1)])
+    base = tree_map(lambda a: a.to(f64) if a.is_floating_point() else a,
+                    vbhem.h3m_from_results([vbem["results"][i] for i in idx],
+                                           device=device))
+    kmax, smax = max(GRID[0]), max(GRID[1])
+    hh = vbhem.VBHEMHyps.from_config(HYP_GRAD_VBHEM, 2, f64, device)
+    n = len(HYP_GRAD_CELLS)
+    hposts = vbhem.init_baseem(gen, base, kmax, smax, hh, HYP_GRAD_VBHEM.nv,
+                               lanes=(n,))
+    cm, sm = cell_masks(HYP_GRAD_CELLS, kmax, smax, device)
+    hposts = vbhem.vbhem_em_masked(base, hposts, hh, HYP_GRAD_VBHEM.nv,
+                                   HYP_GRAD_VBHEM.tau, cm, sm).post
+    hspecs = hyp.vbhem_specs(2, HYP_GRAD_VBHEM.bounds,
+                             HYP_GRAD_VBHEM.learn_hyps_keys)
+
+    def make_vbhem(dtype, stats):
+        b = tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a,
+                     base)
+        return vbhem.neg_elbo_objective(
+            b, tree_map(lambda a: a.to(dtype), hposts), HYP_GRAD_VBHEM,
+            cmask=cm, smask=sm, stats=stats)
+
+    vh = _objective_runs(make_vbhem, hh, hspecs, n, vbhem, "e_step",
+                         plain_e_step)
+    errs["VBHEM"] = _gate_objective(fails, "VBHEM (masked)", vh, ("B1",))
+    return {"launches": vb[f"launches_{torch.float32}"],
+            "launches_vbhem": vh[f"launches_{torch.float32}"],
+            "errors": errs}
+
+
+def _hyps_in_bounds(hyps_lanes, specs) -> bool:
+    """Every learned leaf of every lane within its box (hyp space)."""
+    ok = True
+    for s in specs:
+        v = getattr(hyps_lanes, s.name).double()
+        ok &= bool(torch.all((v >= s.lo * (1 - 1e-6))
+                             & (v <= s.hi * (1 + 1e-6))))
+    return ok
+
+
+def _monotone(pre, post) -> tuple:
+    """(every lane's post >= pre - max(1e-6 |pre|, 1e-3), the largest
+    shortfall)."""
+    tol = np.maximum(1e-6 * np.abs(pre), 1e-3)
+    short = float(np.max(pre - post))
+    return bool(np.all(post >= pre - tol)), short
+
+
+def _hyp_stage_line(what, st) -> str:
+    steps = np.asarray(st["hyp_steps"])
+    return (f"{what}: {st['hyp_lanes']} lanes, L-BFGS steps per lane max "
+            f"{int(steps.max())} median {float(np.median(steps))}, "
+            f"objective calls {st['hyp_calls']} ({st['hyp_lane_evals']} lane"
+            f" evaluations), EM iterations {st['hyp_em_iters']} + "
+            f"{st['hyp_e_steps']} final E-steps, reverted lanes "
+            f"{st['hyp_reverted']}")
+
+
+def phase_protocol_hyps(fails: Failures, device,
+                        per_group=20) -> dict:
+    """The synthetic protocol at its reference settings with hyps on in both
+    stages: ``per_group`` subjects per planted group drawn with a seed of
+    their own (PROTOCOL_HYPS_SEED), ``synthetic.learn_subject_hmms`` at
+    ``default_vb_config()``, then ``synthetic.run_vbhem`` at
+    ``default_vbhem_config()`` over K=1..6 x S=1..5."""
+    batches, labels = synthetic_subjects(per_group, seed=PROTOCOL_HYPS_SEED,
+                                         device=device)
+    vcfg = synthetic.default_vb_config()
+    reset_counts()
+    t0 = time.perf_counter()
+    vinfo = {}
+    results = synthetic.learn_subject_hmms(
+        torch.Generator(device=device).manual_seed(PROTOCOL_HYPS_SEED),
+        batches, 2, vcfg, info=vinfo)
+    torch.cuda.synchronize()
+    vb_wall = time.perf_counter() - t0
+    vb_launches = read_counts()
+    vb_iters = vinfo["model_em_iters"] + vinfo["hyp_em_iters"]
+    print(f"protocol hyps VBEM: {len(results)} subjects x {vcfg.numtrials} "
+          f"restarts (25 sequences, T=50, D=2, K=2, float32), hyps on, "
+          f"max_hyp_solutions={vcfg.max_hyp_solutions} hyp_max_steps="
+          f"{vcfg.hyp_max_steps}: wall={vb_wall:.3f}s restarts' EM "
+          f"iterations {vinfo['model_em_iters']} launches={vb_launches}",
+          flush=True)
+    print(_hyp_stage_line("protocol hyps VBEM", vinfo), flush=True)
+    b2 = vb_launches["B2"] + vb_launches["B2_fused"]
+    fails.check(b2 >= vb_iters + vinfo["hyp_e_steps"] > 0,
+                f"protocol hyps VBEM: B2 launched {b2} times for the "
+                f"stage's {vb_iters} EM iterations (restarts and hyp "
+                f"objective) and {vinfo['hyp_e_steps']} final E-steps")
+    ok, short = _monotone(vinfo["hyp_ll_pre"], vinfo["hyp_ll_post"])
+    fails.check(ok, f"protocol hyps VBEM: every kept lane's bound at least "
+                    f"its pre-optimization bound minus the C2 tolerance "
+                    f"(largest shortfall {short:.3e})")
+    vspecs = hyp.vb_specs(2, vcfg.bounds, vcfg.learn_hyps_keys)
+    fails.check(_hyps_in_bounds(vinfo["learned_hyps"], vspecs),
+                "protocol hyps VBEM: every subject's learned hyps inside "
+                "their bounds")
+    fails.check(bool(torch.all(torch.isfinite(
+        torch.stack([r.ll for r in results])))),
+        f"protocol hyps VBEM: all {len(results)} ELBOs finite")
+
+    hcfg = synthetic.default_vbhem_config()
+    reset_counts()
+    t0 = time.perf_counter()
+    res, info, score = synthetic.run_vbhem(
+        torch.Generator(device="cpu").manual_seed(PROTOCOL_HYPS_SEED),
+        results, labels, *GRID, hcfg)
+    torch.cuda.synchronize()
+    vh_wall = time.perf_counter() - t0
+    launches = read_counts()
+    st = info["hyp"]
+    print(f"protocol hyps VBHEM: Kb={len(results)} K={GRID[0]} x S={GRID[1]}"
+          f" trials={hcfg.trials} nv={hcfg.nv} tau={hcfg.tau} "
+          f"initmode={hcfg.initmode} hyps on, max_hyp_solutions="
+          f"{hcfg.max_hyp_solutions} hyp_max_steps={hcfg.hyp_max_steps}: "
+          f"wall={vh_wall:.3f}s restarts' chunks "
+          f"{info['grid_chunk_iters']} launches={launches}", flush=True)
+    print(_hyp_stage_line("protocol hyps VBHEM", st), flush=True)
+    b1_want = sum(info["grid_chunk_iters"]) + st["hyp_em_iters"] \
+        + st["hyp_e_steps"]
+    fails.check(launches["B1"] == b1_want > 0,
+                f"protocol hyps VBHEM: B1 launched {launches['B1']} times "
+                f"for the {sum(info['grid_chunk_iters'])} EM iterations of "
+                f"the restarts, {st['hyp_em_iters']} of the hyp objective and"
+                f" rerun and {st['hyp_e_steps']} final E-steps")
+    rescored = int(np.sum(np.isfinite(info["model_ll_device"])))
+    fails.check(launches["B3"] == rescored,
+                f"protocol hyps VBHEM: B3 (float64) launched "
+                f"{launches['B3']} times for {rescored} rescored cells")
+    ok, short = _monotone(st["hyp_ll_pre"], st["hyp_ll_post"])
+    fails.check(ok, f"protocol hyps VBHEM: every kept lane's bound at least"
+                    f" its pre-optimization bound minus the C2 tolerance "
+                    f"(largest shortfall {short:.3e})")
+    hspecs = hyp.vbhem_specs(2, hcfg.bounds, hcfg.learn_hyps_keys)
+    cell_hyps = info["model_hyps"]
+    fails.check(all(_hyps_in_bounds(h, hspecs) for h in cell_hyps.values()),
+                "protocol hyps VBHEM: every cell's learned hyps inside "
+                "their bounds")
+    fails.check(bool(np.all(np.isfinite(info["model_ll"])))
+                and bool(np.all(np.isfinite(info["model_ll_device"]))),
+                "protocol hyps VBHEM: every score finite (float32 and "
+                "float64)")
+    print(f"protocol hyps VBHEM: scores (float64, select) "
+          f"{info['model_ll'].tolist()}", flush=True)
+    print(f"protocol hyps VBHEM: scores (device float32) "
+          f"{info['model_ll_device'].tolist()}", flush=True)
+    gaps = _cell_gaps(info)
+    print(f"protocol hyps VBHEM: per-cell (f32 - f64) / |f64| under each "
+          f"cell's learned hyps {json.dumps(gaps)}", flush=True)
+    sel = (info["model_best_k"], info["model_best_s"])
+    print(f"protocol hyps VBHEM: selected cell's learned hyps "
+          f"{ {f: getattr(cell_hyps[sel], f).double().cpu().numpy().tolist() for f in cell_hyps[sel]._fields} }",
+          flush=True)
+    print(f"protocol hyps VBHEM: per-cell learned hyps "
+          f"{ {f'{k},{s_}': {f: getattr(h, f).double().cpu().numpy().tolist() for f in ('alpha0', 'eta0', 'epsilon0', 'lambda0', 'v0')} for (k, s_), h in cell_hyps.items()} }",
+          flush=True)
+    ri22 = rand_index(info["model_all"][(2, 2)].label.cpu().numpy(), labels)
+    fails.check(ri22 == 1.0, f"protocol hyps (K=2, S=2) labels vs planted "
+                             f"groups: Rand index {ri22}")
+    sel_ri = rand_index(score.labels, labels)
+    print(f"protocol hyps: selected cell K={sel[0]} S={sel[1]}; after "
+          f"vbh3m_remove_empty {_selection(score)} (Rand index {sel_ri})",
+          flush=True)
+    fails.check((score.best_k, list(score.s_list)) == (2, [2, 2])
+                and sel_ri == 1.0,
+                f"protocol hyps: selection K={score.best_k} "
+                f"S={score.s_list}, Rand index {sel_ri} (want K=2, S=[2, 2],"
+                f" Rand index 1.0)")
+    return {"launches": launches, "vbem_launches": vb_launches,
+            "vbem_wall_s": vb_wall, "vbhem_wall_s": vh_wall,
+            "best_k": score.best_k, "s_list": score.s_list,
+            "rand_index": sel_ri}
+
+
+# ---------------------------------------------------------------------------
 # phase 10: timing
 # ---------------------------------------------------------------------------
 
@@ -1911,6 +2254,7 @@ def main() -> int:
             fails.check(False, "the grid chunk's parity and padded vs "
                                "unpadded need the grid's bank")
         run("protocol", lambda: phase_protocol(fails, device, vbem))
+        run("hyp gradient", lambda: phase_hyp_gradient(fails, device, vbem))
         run("timing B2", lambda: timing_b2(device, vbem))
         run("timing B3", lambda: timing_b3(device, vbem))
         if "grid" in results:
@@ -1923,6 +2267,7 @@ def main() -> int:
                            "VBEM path")
     run("timing B1", lambda: timing_b1(device))
     run("timing wide bodies", lambda: timing_wide(device))
+    run("protocol hyps", lambda: phase_protocol_hyps(fails, device))
 
     lines = []
     for key, parity, path, timing, field in (
@@ -1952,7 +2297,13 @@ def main() -> int:
             path: results[path]["launches"].get(key) + (
                 results[path]["launches"]["B2_fused"] if key == "B2" else 0)
             for path in ("VBHEM path", "VBEM path", "pipeline", "VHEM path",
-                         "grid", "protocol") if path in results}
+                         "grid", "protocol", "protocol hyps")
+            if path in results}
+        if "protocol hyps" in results:   # its VBEM stage's own counts
+            lines[-1]["launches_by_path"]["protocol hyps VBEM"] = (
+                results["protocol hyps"]["vbem_launches"].get(key) + (
+                    results["protocol hyps"]["vbem_launches"]["B2_fused"]
+                    if key == "B2" else 0))
         grid_t = results.get("timing grid", {})
         wide_t = results.get("timing wide bodies", {}).get(key, {})
         if key == "B1" and grid_t:   # the grid's own launch

@@ -213,8 +213,6 @@ def _jax_h3m(base):
 def test_cluster_rejects_what_is_not_ported():
     base, _ = planted.planted_bank(8, torch.device("cpu"), torch.float64)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="hyperparameter"):
-        tv.cluster(gen, base, 2, 2, VBHEMConfig(initmode="baseem"))
     for mode in ("auto", "wtkmeans", "gmmNew", "gmmNew2", "random"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tv.cluster(gen, base, 2, 2,

@@ -342,8 +342,6 @@ def test_learn_initmodes_and_what_is_not_ported():
                         inithmm=res_g.post)
     # inithmm restarts from the initgmm solution: the same optimum
     np.testing.assert_allclose(res_h.ll.numpy(), res_g.ll.numpy(), rtol=1e-4)
-    with pytest.raises(NotImplementedError, match="A4"):
-        tv.learn(gen, tb, 2, VBConfig(learn_hyps=True))
     with pytest.raises(ValueError, match="initgmm"):
         tv.learn(gen, tb, 2, VBConfig(learn_hyps=False, initmode="initgmm"))
 
@@ -400,11 +398,6 @@ def test_learn_bank_and_learn_batch_reject_what_is_not_ported():
         tbatch.learn_bank(gen, [batches[0], tc.SeqBatch(
             x=batches[1].x[:3], lengths=batches[1].lengths[:3])], 2,
             VBConfig(learn_hyps=False))
-    with pytest.raises(NotImplementedError, match="A4"):
-        tbatch.learn_bank(gen, batches, 2, VBConfig(learn_hyps=True))
-    with pytest.raises(NotImplementedError, match="A4"):
-        tbatch.learn_batch(gen, batches, 2, VBConfig(learn_hyps=False),
-                           learn_hyps_batch=True)
     res, _ = tbatch.learn_batch(gen, batches, 2, VBConfig(
         mu0=(1.5, 1.5), w0=1.0, numtrials=2, learn_hyps=False))
     assert len(res) == 2 and res[0].model.trans.shape == (2, 2)

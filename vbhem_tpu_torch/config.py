@@ -11,6 +11,13 @@ every learned model echoes its config for provenance, like the
 reference stamps `hmm.vbopt` / `h3m_r.vbhemopt`.  Fields that select
 JAX-package machinery (``use_pallas``) are kept so that the two
 packages' configs stay interchangeable; the port ignores them.
+
+One deliberate difference from the JAX package: ``max_hyp_solutions``
+below 1 raises ValueError here.  There, 0 has two meanings: "none" in
+``vbhmm.learn`` and ``vbhem.cluster``/``cluster_batched`` (the survivor
+slice is emptied and falls back to the best restart) and "no cap" in
+``batch.learn_bank`` (``max_hyp_solutions or numtrials``).  Here it is a
+positive cap, or None for every uniqueLL survivor, in every engine.
 """
 from __future__ import annotations
 
@@ -40,6 +47,15 @@ class HypBounds:
     w0_max: float = EXP30
 
 
+def _check_max_hyp_solutions(config):
+    """Reject a cap below 1 on the hyp-optimized survivors (see the
+    module docstring: 0 meant "none" or "no cap" by engine)."""
+    n = config.max_hyp_solutions
+    if n is not None and n < 1:
+        raise ValueError(f"max_hyp_solutions must be None (every uniqueLL "
+                         f"survivor) or at least 1, got {n}")
+
+
 @dataclasses.dataclass(frozen=True)
 class VBConfig:
     """Options for VBEM HMM learning (reference `vbopt`)."""
@@ -59,8 +75,9 @@ class VBConfig:
     # --- hyp learning ---
     learn_hyps: bool = False
     learn_hyps_keys: Tuple[str, ...] = ("alpha0", "epsilon0", "v0", "beta0", "w0", "mu0")
-    # unique restart solutions to hyp-optimize; None = all uniqueLL
-    # survivors (the reference optimizes every one, `vbhmm_learn.m:498`)
+    # unique restart solutions to hyp-optimize, at least 1; None = all
+    # uniqueLL survivors (the reference optimizes every one,
+    # `vbhmm_learn.m:498`)
     max_hyp_solutions: Optional[int] = None
     # L-BFGS iterations for the batched hyp optimizer (the reference's
     # minimize_new runs p.length=100 line searches, `vbhmm_em_hyp.m:73`)
@@ -73,6 +90,9 @@ class VBConfig:
     keep_suboptimal: bool = False
     verbose: int = 1
     use_pallas: bool = True       # Pallas FB kernel when on TPU (MEX analog)
+
+    def __post_init__(self):
+        _check_max_hyp_solutions(self)
 
     def default_mu0(self, dim: int) -> Tuple[float, ...]:
         """Image-center default for eye-fixation data (vbhmm_learn.m:261-269)."""
@@ -110,8 +130,8 @@ class VBHEMConfig:
     learn_hyps: bool = True
     learn_hyps_keys: Tuple[str, ...] = (
         "alpha0", "eta0", "epsilon0", "v0", "lambda0", "w0", "m0")
-    # unique restart solutions to hyp-optimize per cell; None = all
-    # (the reference optimizes every uniqueLL survivor,
+    # unique restart solutions to hyp-optimize per cell, at least 1;
+    # None = all (the reference optimizes every uniqueLL survivor,
     # `vbhem_h3m_c.m:96-160`)
     max_hyp_solutions: Optional[int] = None
     # L-BFGS iterations for the batched hyp optimizer
@@ -124,6 +144,9 @@ class VBHEMConfig:
     covar_type: str = "full"      # full | diag emission covariances
     verbose: int = 1
     use_pallas: bool = True
+
+    def __post_init__(self):
+        _check_max_hyp_solutions(self)
 
     def default_m0(self, dim: int) -> Tuple[float, ...]:
         if self.m0 is not None:

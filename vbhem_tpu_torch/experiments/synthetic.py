@@ -1,9 +1,11 @@
-"""Model selection for the synthetic ground-truth benchmark: VBHEM over
-the padded (K, S) grid, the VHEM baseline over a (K, S) grid with
-AIC/BIC, and DIC over the learned VBHEM grid — the counterpart of
-``RecoveryScore``, ``default_vbhem_config``, ``run_vbhem``, ``run_vhem``,
-``run_vhem_grid`` and ``run_vbhem_dic`` in
-:mod:`vbhem_tpu.experiments.synthetic`.
+"""The synthetic ground-truth benchmark's two stages and its model
+selection: per-subject VBEM (``learn_subject_hmms``), VBHEM over the
+padded (K, S) grid, the VHEM baseline over a (K, S) grid with AIC/BIC,
+and DIC over the learned VBHEM grid — the counterpart of
+``RecoveryScore``, ``default_vb_config``, ``default_vbhem_config``,
+``learn_subject_hmms``, ``run_vbhem``, ``run_vhem``, ``run_vhem_grid`` and
+``run_vbhem_dic`` in :mod:`vbhem_tpu.experiments.synthetic` (its dataset
+sampling is not ported yet: ROADMAP.md queue A, item A6).
 
 Parity map: `Synthetic_experiment/exprmt1_demo.m:114-148` (VHEM grid) and
 the recovery scoring of `evaluate_vbhem_jounarl.m` (Rand index, purity,
@@ -17,8 +19,8 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..config import HEMConfig, VBHEMConfig
-from ..models import vbhem, vhem
+from ..config import HEMConfig, VBConfig, VBHEMConfig
+from ..models import vbhem, vbhmm, vhem
 from ..utils.metrics import purity, rand_index
 
 
@@ -46,24 +48,57 @@ def _bank(results):
                                   device=results[0].model.mean.device)
 
 
+def default_vb_config() -> VBConfig:
+    """VBEM settings of `exprmt1_demo.m:28-47` (S=2, default hyps with
+    the synthetic data's m0 and W0), as the JAX package sets them:
+    ``learn_hyps`` on (`exprmt1_demo.m:38`), with the uniqueLL survivors
+    that get hyp-optimized capped at 5 per subject (the reference
+    optimizes every survivor)."""
+    return VBConfig(mu0=(1.5, 1.5), w0=1.0, numtrials=20,
+                    learn_hyps=True, max_hyp_solutions=5,
+                    hyp_max_steps=50)
+
+
 def default_vbhem_config(trials: int = 50) -> VBHEMConfig:
     """VBHEM settings of `exprmt1_demo.m:66-79`, as the JAX package sets
-    them: ``learn_hyps`` on (the reference default), with a 5-survivor cap
-    per grid cell.  Hyperparameter learning is not ported yet (ROADMAP
-    A4): pass ``dataclasses.replace(default_vbhem_config(),
-    learn_hyps=False)``."""
+    them: ``learn_hyps`` on (the reference default,
+    `vbhem_h3m_cluster.m:188`), with the same 5-survivor cap per grid cell
+    as the VBEM stage."""
     return VBHEMConfig(alpha0=1e6, m0=(1.5, 1.5), w0=1.0, nv=100,
                        tau=50, trials=trials, initmode="baseem",
                        learn_hyps=True, max_hyp_solutions=5,
                        hyp_max_steps=50)
 
 
+def learn_subject_hmms(gen: torch.Generator, ds, s: int = 2,
+                       config: Optional[VBConfig] = None,
+                       info: Optional[dict] = None):
+    """Per-subject VBEM (`exprmt1_demo.m:47`, vbhmm_learn_batch): ``ds`` is
+    a sequence of ``SeqBatch`` (one per subject) or has them as
+    ``.batches``.  Subjects of one shape are learned as one bank
+    (:func:`..models.batch.learn_bank`: all subjects' restarts in one EM
+    loop, every subject's hyp optimization in one lane-batched L-BFGS);
+    otherwise one at a time.  Returns the list of results; ``info``, if
+    given, receives the bank's info (``learn_bank``'s keys)."""
+    from ..models import batch as batch_mod
+    config = config or default_vb_config()
+    batches = list(getattr(ds, "batches", ds))
+    shapes = {(tuple(b.x.shape), tuple(b.lengths.shape)) for b in batches}
+    if len(shapes) == 1:
+        results, bank_info = batch_mod.learn_bank(gen, batches, s, config)
+        if info is not None:
+            info.update(bank_info)
+        return results
+    return [vbhmm.learn(gen, b, s, config)[0] for b in batches]
+
+
 def run_vbhem(gen: torch.Generator, results, labels, k_grid=range(1, 7),
               s_grid=range(1, 6), config: Optional[VBHEMConfig] = None):
     """VBHEM over the (K, S) grid and its recovery scoring
     (`exprmt1_demo.m:64-108` + `evaluate_vbhem_jounarl.m:86-118`), on the
-    padded grid (:func:`..models.vbhem.cluster_batched`), on the device
-    of ``results``.  As the reference scores it, K, S and the labels come
+    padded grid (:func:`..models.vbhem.cluster_batched`, with the grid's
+    hyp optimization where ``config.learn_hyps``, as at the default
+    settings), on the device of ``results``.  As the reference scores it, K, S and the labels come
     after ``vbh3m_remove_empty``: K the surviving clusters, S each
     surviving HMM's pruned state count (`evaluate_vbhem_jounarl.m:92-105`).
     Returns (result, info, RecoveryScore)."""

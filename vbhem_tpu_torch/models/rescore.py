@@ -28,7 +28,9 @@ def vbem_rescore_lanes(batch: SeqBatch, posts: HMMPosterior,
                        hyps: vbhmm.VBHyps) -> torch.Tensor:
     """The 8-term VBEM bound (`vbhmm_em_lb.m:120-257`) in float64 of every
     lane of ``posts`` (lanes [*X, *L] over the data's axes X, as in
-    :mod:`.vbhmm`), with one set of hyperparameters.  A lane whose bound is
+    :mod:`.vbhmm`), with one set of hyperparameters or one per lane
+    (leaves [*X, *L] and [*X, *L, D], as the hyp path learns them;
+    `vbhem_tpu.models.rescore.vbem_rescore_lanes`).  A lane whose bound is
     NaN scores -inf.  Returns float64 [*X, *L] on the lanes' device."""
     vbhmm.check_lengths(batch)
     f64 = torch.float64

@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import hyp as hypmod
 from ..config import VBHEMConfig
 from ..containers import (H3M, HMM, H3MPosterior, HMMPosterior, NIW,
                           VBHMMResult, resolve_device, tree_map)
@@ -30,7 +31,7 @@ from ..ops.pair_estep import PairStats
 from ..ops import pair_estep_cuda
 from ..ops.pair_estep_cuda import pair_estep_fused_auto
 from ..utils.numeric import (e_log_det_lambda, e_log_dirichlet, inv_psd,
-                             log_wishart_b, logdet_psd, logsumexp,
+                             lane_hyp, log_wishart_b, logdet_psd, logsumexp,
                              masked_e_log_dirichlet,
                              masked_log_dirichlet_const, sym, tiny)
 from . import vbhmm
@@ -304,18 +305,22 @@ def m_step(stats: ClusterStats, hyps: VBHEMHyps,
     """Conjugate natural-parameter updates (`vbhem_mstep_component.m:42-72`
     + the alpha update of `vbhem_h3m_c_step_fc.m:394-397`).  With
     ``covar_type='diag'`` the scatter enters as diag(S_plus_C) and the
-    Wishart scale is kept as a diagonal matrix."""
+    Wishart scale is kept as a diagonal matrix.  ``hyps`` is one set (0-d
+    and [D] leaves) or one per lane ([*lanes] and [*lanes, D], the lanes
+    of ``stats``)."""
     dtype = stats.y_bar.dtype
-    alpha = hyps.alpha0 + stats.nj
-    eta = hyps.eta0 + stats.nj_rho1
-    epsilon = hyps.epsilon0 + stats.nj_rho2rho
-    lam = hyps.lambda0 + stats.nj_rho
-    v = hyps.v0 + stats.nj_rho + 1.0
-    m = (hyps.lambda0 * hyps.m0 + stats.nj_rho[..., None] * stats.y_bar) \
-        / lam[..., None]
-    mult1 = hyps.lambda0 * stats.nj_rho / lam
-    diff3 = stats.y_bar - hyps.m0                              # [..,Kr,Sr,D]
-    w0inv = torch.diag(hyps.w0inv_diag.to(dtype))
+    lam0 = lane_hyp(hyps.lambda0, 0, 2)                    # against [..,Kr,Sr]
+    m0 = lane_hyp(hyps.m0, 1, 2)                           # [.., 1, 1, D]
+    alpha = lane_hyp(hyps.alpha0, 0, 1) + stats.nj
+    eta = lane_hyp(hyps.eta0, 0, 2) + stats.nj_rho1
+    epsilon = lane_hyp(hyps.epsilon0, 0, 3) + stats.nj_rho2rho
+    lam = lam0 + stats.nj_rho
+    v = lane_hyp(hyps.v0, 0, 2) + stats.nj_rho + 1.0
+    m = (lane_hyp(hyps.lambda0, 0, 3) * m0
+         + stats.nj_rho[..., None] * stats.y_bar) / lam[..., None]
+    mult1 = lam0 * stats.nj_rho / lam
+    diff3 = stats.y_bar - m0                                   # [..,Kr,Sr,D]
+    w0inv = lane_hyp(torch.diag_embed(hyps.w0inv_diag.to(dtype)), 2, 2)
     d = stats.y_bar.shape[-1]
     eye = torch.eye(d, dtype=dtype, device=stats.y_bar.device)
     s_pc = stats.s_plus_c
@@ -347,7 +352,8 @@ def elbo(post: H3MPosterior, exps: ReducedExpectations, pair: PairStats,
     -1e30 expectation, as the JAX package does: (mask * count) * log_a is
     0 * -1e30, while count * -1e30 first can overflow float32 to -inf and
     then 0 * inf is NaN.  With ``return_terms`` also the dict of the ten
-    terms (lt1..lt10 in `vbhemh3m_lb.m` order, before their signs)."""
+    terms (lt1..lt10 in `vbhemh3m_lb.m` order, before their signs).
+    ``hyps`` is one set or one per lane, as in :func:`m_step`."""
     dtype = hat_z.dtype
     d = post.niw.dim
     niw = post.niw
@@ -365,7 +371,7 @@ def elbo(post: H3MPosterior, exps: ReducedExpectations, pair: PairStats,
     kr_a = torch.sum(cm, dim=-1)
     sr_a = torch.sum(sm, dim=-1)
 
-    logdet_w0inv = torch.sum(torch.log(hyps.w0inv_diag))
+    logdet_w0inv = torch.sum(torch.log(hyps.w0inv_diag), dim=-1)
     log_c_alpha0 = (torch.lgamma(kr_a * hyps.alpha0)
                     - kr_a * torch.lgamma(hyps.alpha0))
     log_c_eta0 = torch.lgamma(sr_a * hyps.eta0) - sr_a * torch.lgamma(hyps.eta0)
@@ -382,15 +388,16 @@ def elbo(post: H3MPosterior, exps: ReducedExpectations, pair: PairStats,
         css * exps.log_a, dim=(-3, -2, -1))
 
     # Lt5: E[log p(mu, Lambda)] over all active (j, k)
-    dm = niw.m - hyps.m0                                       # [..,Kr,Sr,D]
+    dm = niw.m - lane_hyp(hyps.m0, 1, 2)                       # [..,Kr,Sr,D]
     m_w_m = torch.einsum("...d,...de,...e->...", dm, niw.w, dm)
-    w0inv_diag = hyps.w0inv_diag.to(dtype)
+    w0inv_diag = lane_hyp(hyps.w0inv_diag.to(dtype), 1, 2)
     tr_w0inv_w = torch.sum(w0inv_diag * torch.diagonal(niw.w, dim1=-2,
                                                        dim2=-1), dim=-1)
-    const2 = d * torch.log(hyps.lambda0 / two_pi)
+    lam0 = lane_hyp(hyps.lambda0, 0, 2)                        # [.., 1, 1]
+    const2 = d * torch.log(lam0 / two_pi)
     lt51 = 0.5 * torch.sum(cs * (const2 + exps.log_lam
-                                 - d * hyps.lambda0 / niw.beta
-                                 - hyps.lambda0 * niw.v * m_w_m), dim=ks)
+                                 - d * lam0 / niw.beta
+                                 - lam0 * niw.v * m_w_m), dim=ks)
     lt52 = (kr_a * sr_a * log_b0
             + 0.5 * (hyps.v0 - d - 1.0) * torch.sum(cs * exps.log_lam,
                                                      dim=ks)
@@ -617,9 +624,6 @@ _NOT_PORTED = {
     "auto": "ROADMAP.md queue A item A3, 'other initializers' (the 'auto' "
             "try-all needs gmmNew and wtkmeans)",
 }
-_NO_HYP_LEARNING = ("learn_hyps=True is not ported yet: ROADMAP.md queue A "
-                    "item A4, 'hyperparameter learning'; pass "
-                    "learn_hyps=False")
 
 
 def resolve_initmode(mode: str) -> str:
@@ -694,6 +698,141 @@ def select_best_trial(states: VBHEMState) -> VBHEMState:
     return tree_map(lambda a: a[best], states)
 
 
+def _chunks(base: H3M, posts: H3MPosterior, tau: int):
+    """Lane slices of ``posts`` (leading lane axis) that run together: as
+    many lanes as :func:`lane_chunk` lets share the card's memory at the
+    posterior's (K, S); all of them on the CPU."""
+    n = posts.alpha.shape[0]
+    kr, sr = posts.eta.shape[-2:]
+    step = lane_chunk(base, kr, sr, tau, n) or n
+    return [slice(a, min(a + step, n)) for a in range(0, n, step)]
+
+
+def em_lanes(base: H3M, posts: H3MPosterior, hyps: VBHEMHyps,
+             config: VBHEMConfig, cmask=None, smask=None,
+             stats: Optional[dict] = None) -> VBHEMState:
+    """:func:`vbhem_em` (masked where ``cmask``/``smask`` [n, ...] are
+    given) over the lanes of ``posts``, each lane under its own hyps or
+    all under one set, in the lane chunks of :func:`_chunks`; lanes are
+    independent, so chunking changes nothing but memory.  ``stats``
+    counts the EM iterations ('em_iters', each chunk's slowest lane)."""
+    parts = []
+    for sl in _chunks(base, posts, config.tau):
+        st = vbhem_em(base, tree_map(lambda a: a[sl], posts),
+                      hypmod.lane_slice(hyps, sl), nv=config.nv,
+                      tau=config.tau, max_iter=config.max_iter,
+                      min_diff=config.min_diff, covar_type=config.covar_type,
+                      cmask=None if cmask is None else cmask[sl],
+                      smask=None if smask is None else smask[sl])
+        hypmod.tally(stats, "em_iters", int(torch.max(st.it)))
+        parts.append(st)
+    return parts[0] if len(parts) == 1 else tree_map(
+        lambda *xs: torch.cat(xs), *parts)
+
+
+def neg_elbo_objective(base: H3M, init_posts: H3MPosterior,
+                       config: VBHEMConfig, cmask=None, smask=None,
+                       stats: Optional[dict] = None):
+    """The hyp objective over lanes (`vbhem_h3m_c_hyp.m:105-137`):
+    ``fun(hyps, lanes) -> -elbo [k]`` re-runs the (masked) EM from
+    ``init_posts[lanes]`` under the hyps (detached), in lane chunks, then
+    takes the bound at the fixed point with the posterior, the pair
+    E-step (kernel B1 on the card) and the soft assignments held fixed,
+    so autograd reaches only the prior terms, as the JAX package's
+    ``stop_gradient`` does.  ``stats`` counts the EM iterations
+    ('em_iters') and the E-steps outside EM ('e_steps')."""
+    tilde_n = (config.nv * base.num_hmms) * base.omega
+
+    def fun(hyps, lanes):
+        posts = tree_map(lambda a: a[lanes], init_posts)
+        cm = None if cmask is None else cmask[lanes]
+        sm = None if smask is None else smask[lanes]
+        vals = []
+        for sl in _chunks(base, posts, config.tau):
+            h = hypmod.lane_slice(hyps, sl)
+            masks = (None, None) if cm is None else (cm[sl], sm[sl])
+            with torch.no_grad():
+                st = vbhem_em(base, tree_map(lambda a: a[sl], posts),
+                              tree_map(torch.Tensor.detach, h),
+                              nv=config.nv, tau=config.tau,
+                              max_iter=config.max_iter,
+                              min_diff=config.min_diff,
+                              covar_type=config.covar_type, cmask=masks[0],
+                              smask=masks[1])
+                post = st.post
+                exps = reduced_expectations(post, *masks)
+                pair = e_step(base, post, exps, config.tau)
+                hat_z, z_ni, nj = soft_assignments(tilde_n, exps.log_omega,
+                                                   pair.ll_elbo)
+            hypmod.tally(stats, "em_iters", int(torch.max(st.it)))
+            hypmod.tally(stats, "e_steps", 1)
+            vals.append(-elbo(post, exps, pair, hat_z, z_ni, nj, h, *masks))
+        return torch.cat(vals)
+    return fun
+
+
+def optimize_solution_hyps(base: H3M, init_post: H3MPosterior,
+                           hyps0: VBHEMHyps, config: VBHEMConfig):
+    """Empirical-Bayes hyp optimization for one VBHEM solution
+    (`vbhem_h3m_c_hyp.m`): SciPy's L-BFGS-B, each objective evaluation the
+    EM re-run from the same initial posterior (the reference's 'inith3m'
+    restart, `vbhem_h3m_c_hyp.m:105-137`).  Returns (optimized hyps, final
+    VBHEMState, info)."""
+    specs = hypmod.vbhem_specs(base.hmm.mean.shape[-1], config.bounds,
+                               config.learn_hyps_keys)
+    fun = neg_elbo_objective(base, tree_map(lambda a: a[None], init_post),
+                             config)
+    one = torch.zeros(1, dtype=torch.int64, device=base.hmm.mean.device)
+    hyps_opt, info = hypmod.optimize_hyps(
+        lambda h: fun(tree_map(lambda a: a[None], h), one)[0], hyps0, specs)
+    st = vbhem_em(base, init_post, hyps_opt, nv=config.nv, tau=config.tau,
+                  max_iter=config.max_iter, min_diff=config.min_diff,
+                  covar_type=config.covar_type)
+    return hyps_opt, st, info
+
+
+def optimize_solution_hyps_batched(base: H3M, init_posts: H3MPosterior,
+                                   hyps0: VBHEMHyps, config: VBHEMConfig,
+                                   cmask=None, smask=None,
+                                   stats: Optional[dict] = None):
+    """Hyp-optimize a bank of solutions (leading lane axis on
+    ``init_posts``; with ``cmask``/``smask`` [n, ...] padded lanes of the
+    grid) together: one L-BFGS per lane, every probe of every lane still
+    searching one (chunked) EM over those lanes (`vbhem_h3m_c.m:96-160`, a
+    parfor there); then every lane re-runs EM from its start under its
+    learned hyps.  Returns (hyps with a lane axis, final VBHEMStates with
+    a lane axis); ``stats`` receives the optimizer's counts, its steps per
+    lane ('steps') and the EM iterations ('em_iters', 'e_steps')."""
+    specs = hypmod.vbhem_specs(base.hmm.mean.shape[-1], config.bounds,
+                               config.learn_hyps_keys)
+    fun = neg_elbo_objective(base, init_posts, config, cmask, smask, stats)
+    hyps_b, _, steps = hypmod.optimize_hyps_batched(
+        fun, hyps0, specs, init_posts.alpha.shape[0],
+        max_steps=config.hyp_max_steps, stats=stats)
+    if stats is not None:
+        stats["steps"] = steps.cpu().numpy()
+    sts = em_lanes(base, init_posts, hyps_b, config, cmask, smask, stats)
+    return hyps_b, sts
+
+
+def hyp_lanes(base: H3M, states: VBHEMState, idx, hyps0: VBHEMHyps,
+              config: VBHEMConfig, cmask=None, smask=None):
+    """The hyp stage shared by :func:`cluster` (one cell) and
+    :func:`optimize_hyps_grid_batched` (every cell): the restart solutions
+    ``states[idx]`` (``idx`` indexes the leading lane axes) hyp-optimized
+    together, on the masked EM where ``cmask``/``smask`` give each lane's
+    cell, then the lanes whose bound degraded or went degenerate reverted
+    with their hyps (:func:`..hyp.revert_lanes`, `vbhem_h3m_c.m:175-180`
+    made a rejection).  Returns (final states, hyps per lane, the stage's
+    counts under 'hyp_*' keys)."""
+    stats = {}
+    pre = tree_map(lambda a: a[idx], states)
+    hyps_b, sts = optimize_solution_hyps_batched(base, pre.post, hyps0,
+                                                 config, cmask, smask, stats)
+    return hypmod.revert_lanes(sts, pre, hyps_b, hyps0, stats,
+                               config.verbose)
+
+
 def cluster(gen: torch.Generator, base: H3M, k, s,
             config: VBHEMConfig = VBHEMConfig(),
             hyps: Optional[VBHEMHyps] = None):
@@ -701,10 +840,14 @@ def cluster(gen: torch.Generator, base: H3M, k, s,
 
     ``k``/``s`` may be ints or sequences.  Grid cells are scored by
     ``LL + lgamma(K+1) + lgamma(S+1)`` and selected by the reference's
-    two-stage rule (:func:`_two_stage_select`).  Returns
-    (VBHEMResult, info dict)."""
-    if config.learn_hyps:
-        raise NotImplementedError(_NO_HYP_LEARNING)
+    two-stage rule (:func:`_two_stage_select`).
+
+    With ``config.learn_hyps`` every cell's unique restart solutions are
+    hyp-optimized together (:func:`optimize_solution_hyps_batched`), the
+    degraded and degenerate lanes revert, and the cell keeps its best
+    lane; ``info['model_hyps']`` holds each cell's kept hyps and
+    ``info['hyp_stages']`` each cell's counts.  Returns (VBHEMResult, info
+    dict)."""
     resolve_initmode(config.initmode)
     ks = list(k) if isinstance(k, (list, tuple, range)) else [int(k)]
     ss = list(s) if isinstance(s, (list, tuple, range)) else [int(s)]
@@ -712,14 +855,19 @@ def cluster(gen: torch.Generator, base: H3M, k, s,
     hyps0 = hyps if hyps is not None else VBHEMHyps.from_config(
         config, dim, base.hmm.mean.dtype, base.hmm.mean.device)
 
-    results, em_iters = {}, {}
+    results, em_iters, cell_hyps, stages = {}, {}, {}, {}
     scores = np.full((len(ks), len(ss)), -np.inf)
     for ki, kk in enumerate(ks):
         for si, sv in enumerate(ss):
             states = fit_single_ks(gen, base, kk, sv, config, hyps0)
             # the lanes run together until the slowest is done
             em_iters[(kk, sv)] = int(torch.max(states.it))
-            st = select_best_trial(states)
+            cell_hyps[(kk, sv)] = hyps0
+            if config.learn_hyps:
+                st, cell_hyps[(kk, sv)], stages[(kk, sv)] = _cell_hyps(
+                    base, states, hyps0, config)
+            else:
+                st = select_best_trial(states)
             ll = float(st.ll)
             # every trial unstable: coalesce to -inf, keep the state so
             # finalize() has a model to package
@@ -733,8 +881,31 @@ def cluster(gen: torch.Generator, base: H3M, k, s,
             "model_best_s_per_k": s_star, "model_k": ks, "model_s": ss,
             "model_best_k": best_k, "model_best_s": best_s,
             "model_all": results, "model_em_iters": em_iters,
-            "vbhemopt": config, "version": __version__}
+            "model_hyps": cell_hyps, "vbhemopt": config,
+            "version": __version__}
+    if config.learn_hyps:
+        info["hyp_stages"] = stages
     return results[(best_k, best_s)], info
+
+
+def _cell_hyps(base: H3M, states: VBHEMState, hyps0: VBHEMHyps,
+               config: VBHEMConfig):
+    """The hyp stage of one :func:`cluster` cell (`vbhem_h3m_c.m:96-160`):
+    its unique restart solutions (at most ``max_hyp_solutions``, padded
+    to a multiple of 4 by the best one) through :func:`hyp_lanes`.
+    Returns (the best lane's state, its hyps, the stage's counts)."""
+    uniq = hypmod.unique_ll(states.ll.detach().cpu().numpy(),
+                            config.min_diff)
+    if config.max_hyp_solutions is not None:
+        uniq = uniq[:config.max_hyp_solutions]
+    if len(uniq) == 0:
+        uniq = np.asarray([int(torch.argmax(states.ll))])
+    idx = torch.as_tensor(hypmod.pad_lanes(uniq, bucket=4),
+                          device=states.ll.device)
+    sts, hyps_b, stage = hyp_lanes(base, states, idx, hyps0, config)
+    best = int(torch.argmax(sts.ll))
+    return (tree_map(lambda a: a[best], sts),
+            tree_map(lambda a: a[best], hyps_b), stage)
 
 
 def _two_stage_select(scores, ks, ss):
@@ -871,6 +1042,46 @@ def chunk_iterations(it: torch.Tensor, chunk: Optional[int]) -> list:
     return [int(flat[a:a + step].max()) for a in range(0, flat.numel(), step)]
 
 
+def optimize_hyps_grid_batched(base: H3M, states: VBHEMState, cells,
+                               cmasks: torch.Tensor, smasks: torch.Tensor,
+                               config: VBHEMConfig, hyps0: VBHEMHyps,
+                               info: Optional[dict] = None):
+    """Hyp-optimize every cell's uniqueLL survivors across the whole padded
+    (K, S) grid together (`vbhem_tpu.models.vbhem.optimize_hyps_grid_batched`;
+    the reference nests the grid recursion and a parfor over unique
+    solutions, `vbhem_h3m_cluster.m:261-354` + `vbhem_h3m_c.m:96-160`).
+
+    One lane per (cell, survivor), at most ``max_hyp_solutions`` a cell,
+    the lane count padded to a multiple of 16 by the first lane; each lane
+    keeps its cell's masks and runs the masked EM.  The lanes share one
+    lane-batched L-BFGS (:func:`optimize_solution_hyps_batched`: every
+    evaluation one EM over the lanes still probing, in the lane chunks
+    that :func:`lane_chunk` sizes from the card's memory), then re-run
+    under their learned hyps; degraded and degenerate lanes revert to
+    their pre-optimization state and hyps.  Returns (final VBHEMStates
+    with a lane axis, the lanes' cell indices, hyps with a lane axis);
+    ``info``, if given, receives the stage's counts (:func:`hyp_lanes`)."""
+    lls = states.ll.detach().cpu().double().numpy()     # [n_cells, trials]
+    lanes = []
+    for ci in range(len(cells)):
+        uniq = hypmod.unique_ll(lls[ci], config.min_diff)
+        if config.max_hyp_solutions is not None:
+            uniq = uniq[:config.max_hyp_solutions]
+        if len(uniq) == 0:
+            uniq = [int(np.argmax(lls[ci]))]
+        lanes.extend((ci, int(t)) for t in uniq)
+    while len(lanes) % 16:
+        lanes.append(lanes[0])
+    dev = states.ll.device
+    ci_idx = torch.as_tensor([c for c, _ in lanes], device=dev)
+    tr_idx = torch.as_tensor([t for _, t in lanes], device=dev)
+    sts, hyps_b, stage = hyp_lanes(base, states, (ci_idx, tr_idx), hyps0,
+                                   config, cmasks[ci_idx], smasks[ci_idx])
+    if info is not None:
+        info.update(stage)
+    return sts, np.asarray([c for c, _ in lanes]), hyps_b
+
+
 def cluster_batched(gen: torch.Generator, base: H3M, k, s,
                     config: VBHEMConfig = VBHEMConfig(),
                     hyps: Optional[VBHEMHyps] = None):
@@ -881,19 +1092,24 @@ def cluster_batched(gen: torch.Generator, base: H3M, k, s,
     sliced down to its (K, S), scored by LL + lgamma(K+1) + lgamma(S+1)
     and selected by :func:`_two_stage_select`.
 
-    On a float32 bank every finite cell winner is re-evaluated in float64
-    (:func:`.rescore.elbo_f64`, on the bank's device) and selection uses
-    those scores: ``info['model_ll']`` holds them, ``model_ll_device`` the
-    float32 ones.  Beside the JAX package's keys, ``info`` has
-    ``model_em_iters`` (each cell's slowest trial), ``grid_trial_chunk``
-    (the lanes per chunk, None for one chunk) and ``grid_chunk_iters``
-    (the EM iterations, one pair E-step each, of every chunk).
+    With ``config.learn_hyps`` the cells' unique restart solutions are
+    hyp-optimized as lanes of one L-BFGS over the whole grid
+    (:func:`optimize_hyps_grid_batched`) and each cell keeps its best lane
+    and that lane's learned hyps (``info['model_hyps']``); the stage's
+    counts are in ``info['hyp']`` ('hyp_*' keys, :func:`hyp_lanes`).
 
-    Hyperparameter learning (ROADMAP A4) and the initializers other than
-    baseem, 'auto' among them (A3), raise NotImplementedError."""
+    On a float32 bank every finite cell winner is re-evaluated in float64
+    under its cell's hyps (:func:`.rescore.elbo_f64`, one launch of kernel
+    B3's float64 body on the card) and selection uses those scores:
+    ``info['model_ll']`` holds them, ``model_ll_device`` the float32 ones.
+    Beside the JAX package's keys, ``info`` has ``model_em_iters`` (each
+    cell's slowest trial), ``grid_trial_chunk`` (the lanes per chunk, None
+    for one chunk) and ``grid_chunk_iters`` (the EM iterations, one pair
+    E-step each, of every chunk of the restarts).
+
+    The initializers other than baseem, 'auto' among them (A3), raise
+    NotImplementedError."""
     from . import rescore as rescore_mod
-    if config.learn_hyps:
-        raise NotImplementedError(_NO_HYP_LEARNING)
     resolve_initmode(config.initmode)
     ks = list(k) if isinstance(k, (list, tuple, range)) else [int(k)]
     ss = list(s) if isinstance(s, (list, tuple, range)) else [int(s)]
@@ -904,18 +1120,33 @@ def cluster_batched(gen: torch.Generator, base: H3M, k, s,
 
     n_lanes = len(ks) * len(ss) * config.trials
     chunk = lane_chunk(base, max(ks), max(ss), config.tau, n_lanes)
-    states, cells, _, _ = fit_grid_batched(gen, base, ks, ss, config, hyps0,
-                                           trial_chunk=chunk)
-    lls = states.ll.double().cpu().numpy()                  # [cells, trials]
-    best_trial = lls.argmax(axis=1)
+    states, cells, cmasks, smasks = fit_grid_batched(
+        gen, base, ks, ss, config, hyps0, trial_chunk=chunk)
     its = states.it.cpu().numpy()
+    hyp_stats = {}
+    if config.learn_hyps:
+        sts, lane_cell, hyps_lanes = optimize_hyps_grid_batched(
+            base, states, cells, cmasks, smasks, config, hyps0, hyp_stats)
+        lane_ll = sts.ll.double().cpu().numpy()
+
+        def cell_state(ci):
+            lanes = np.flatnonzero(lane_cell == ci)
+            best = int(lanes[int(np.argmax(lane_ll[lanes]))])
+            return (tree_map(lambda a: a[best], sts),
+                    tree_map(lambda a: a[best], hyps_lanes))
+    else:
+        best_trial = states.ll.double().cpu().numpy().argmax(axis=1)
+
+        def cell_state(ci):
+            return (tree_map(lambda a: a[ci, int(best_trial[ci])], states),
+                    hyps0)
 
     rescore_f64 = dtype == torch.float32
     scores = np.full((len(ks), len(ss)), -np.inf)
     scores_device = np.full((len(ks), len(ss)), -np.inf)
-    results, em_iters = {}, {}
+    results, em_iters, cell_hyps = {}, {}, {}
     for ci, (kk, sv) in enumerate(cells):
-        st = tree_map(lambda a: a[ci, int(best_trial[ci])], states)
+        st, cell_hyps[(kk, sv)] = cell_state(ci)
         em_iters[(kk, sv)] = int(its[ci].max())
         p = st.post
         post = H3MPosterior(
@@ -936,11 +1167,12 @@ def cluster_batched(gen: torch.Generator, base: H3M, k, s,
             trans_counts=stats.nj_rho2rho[:kk, :sv, :sv].clone())
         ki, si = ks.index(kk), ss.index(sv)
         corr = math.lgamma(kk + 1) + math.lgamma(sv + 1)
-        ll = float(lls[ci, best_trial[ci]])
+        ll = float(st.ll)
         scores_device[ki, si] = ll + corr
         if rescore_f64 and np.isfinite(ll):
             scores[ki, si] = rescore_mod.elbo_f64(
-                base, post, hyps0, config.nv, config.tau) + corr
+                base, post, cell_hyps[(kk, sv)], config.nv,
+                config.tau) + corr
         else:
             scores[ki, si] = scores_device[ki, si]
     del states
@@ -951,12 +1183,13 @@ def cluster_batched(gen: torch.Generator, base: H3M, k, s,
             "model_ll_k": model_ll_k, "model_best_s_per_k": s_star,
             "model_k": ks, "model_s": ss,
             "model_best_k": best_k, "model_best_s": best_s,
-            "model_all": results,
-            "model_hyps": {c: hyps0 for c in cells},
+            "model_all": results, "model_hyps": cell_hyps,
             "model_em_iters": em_iters, "grid_trial_chunk": chunk,
             "grid_chunk_iters": chunk_iterations(
                 torch.as_tensor(its), chunk),
             "vbhemopt": config, "version": __version__}
+    if config.learn_hyps:
+        info["hyp"] = hyp_stats
     return results[(best_k, best_s)], info
 
 

@@ -27,18 +27,13 @@ import torch
 from ..config import VBConfig
 from ..containers import (HMMPosterior, NIW, SeqBatch, VBHMMResult,
                           resolve_device, tree_map)
-from ..hyp import unique_ll
+from .. import hyp as hypmod
 from ..ops.fb import FBStats
 from ..ops.fb_cuda import e_step_auto
 from ..ops.gmm import GMM, fit_gmm, fit_gmm_split
 from ..utils.numeric import (e_log_det_lambda, e_log_dirichlet, inv_psd,
-                             lane_contract, log_dirichlet_const,
+                             lane_contract, lane_hyp, log_dirichlet_const,
                              log_wishart_b, logdet_psd, sym, tiny)
-
-_HYPS_NOT_PORTED = ("learn_hyps=True is not ported yet: ROADMAP.md queue A "
-                    "item 'hyperparameter learning' (A4); pass "
-                    "learn_hyps=False")
-
 
 class VBHyps(NamedTuple):
     """Prior hyperparameters (the learnable set of `get_hypinfo.m`)."""
@@ -143,19 +138,23 @@ def m_step(stats: SuffStats, hyps: VBHyps,
            covar_type: str = "full") -> HMMPosterior:
     """Conjugate Dirichlet / NIW updates (`vbhmm_em.m:352-408`).
     ``covar_type='diag'`` keeps the Wishart scales diagonal
-    (`vbhem_mstep_component.m:55-63`)."""
+    (`vbhem_mstep_component.m:55-63`).  ``hyps`` is one set (0-d and [D]
+    leaves) or one per lane ([*lanes] and [*lanes, D], the lanes of
+    ``stats``)."""
     dtype = stats.xbar.dtype
     d = stats.xbar.shape[-1]
     eye = torch.eye(d, dtype=dtype, device=stats.xbar.device)
-    alpha = hyps.alpha0 + stats.nk1 + tiny(dtype)
-    epsilon = hyps.epsilon0 + stats.m_trans
-    beta = hyps.beta0 + stats.nk
-    v = hyps.v0 + stats.nk + 1.0
-    m = (hyps.beta0 * hyps.m0 + stats.nk[..., None] * stats.xbar) \
+    beta0 = lane_hyp(hyps.beta0, 0, 1)                 # against [..., K]
+    m0 = lane_hyp(hyps.m0, 1, 1)                       # against [..., K, D]
+    alpha = lane_hyp(hyps.alpha0, 0, 1) + stats.nk1 + tiny(dtype)
+    epsilon = lane_hyp(hyps.epsilon0, 0, 2) + stats.m_trans
+    beta = beta0 + stats.nk
+    v = lane_hyp(hyps.v0, 0, 1) + stats.nk + 1.0
+    m = (lane_hyp(hyps.beta0, 0, 2) * m0 + stats.nk[..., None] * stats.xbar) \
         / beta[..., None]
-    mult1 = hyps.beta0 * stats.nk / (hyps.beta0 + stats.nk)
-    diff3 = stats.xbar - hyps.m0
-    w0inv = torch.diag(hyps.w0inv_diag.to(dtype))
+    mult1 = beta0 * stats.nk / (beta0 + stats.nk)
+    diff3 = stats.xbar - m0
+    w0inv = lane_hyp(torch.diag_embed(hyps.w0inv_diag.to(dtype)), 2, 1)
     s = stats.s * eye if covar_type == "diag" else stats.s
     winv = (w0inv + stats.nk[..., None, None] * s
             + mult1[..., None, None] * diff3[..., :, None]
@@ -170,7 +169,8 @@ def m_step(stats: SuffStats, hyps: VBHyps,
 def elbo(batch: SeqBatch, post: HMMPosterior, fb: FBStats,
          stats: SuffStats, hyps: VBHyps) -> torch.Tensor:
     """The 8-term variational lower bound (`vbhmm_em_lb.m:120-257`), one
-    value per lane: [...]."""
+    value per lane: [...].  ``hyps`` is one set or one per lane, as in
+    :func:`m_step`."""
     k = post.num_states
     d = batch.x.shape[-1]
     niw = post.niw
@@ -180,17 +180,18 @@ def elbo(batch: SeqBatch, post: HMMPosterior, fb: FBStats,
     log_pi = e_log_dirichlet(post.alpha)                   # [..., K]
     log_a = e_log_dirichlet(post.epsilon)                  # [..., K, K]
 
-    logdet_w0inv = torch.sum(torch.log(hyps.w0inv_diag))
+    logdet_w0inv = torch.sum(torch.log(hyps.w0inv_diag), dim=-1)
     log_c_alpha0 = torch.lgamma(k * hyps.alpha0) - k * torch.lgamma(hyps.alpha0)
     log_c_eps0 = (torch.lgamma(k * hyps.epsilon0)
                   - k * torch.lgamma(hyps.epsilon0))
     log_b0 = log_wishart_b(logdet_w0inv, hyps.v0, d)
+    beta0 = lane_hyp(hyps.beta0, 0, 1)                 # against [..., K]
 
     # per-state quadratic/trace statistics (vbhmm_em_lb.m:106-118)
     tr_sw = torch.sum(stats.s * niw.w.transpose(-1, -2), dim=(-2, -1))
     xbar_w_xbar = _quad(stats.xbar - niw.m, niw.w)
-    m_w_m = _quad(niw.m - hyps.m0, niw.w)
-    tr_w0inv_w = torch.sum(hyps.w0inv_diag * torch.diagonal(
+    m_w_m = _quad(niw.m - lane_hyp(hyps.m0, 1, 1), niw.w)
+    tr_w0inv_w = torch.sum(lane_hyp(hyps.w0inv_diag, 1, 1) * torch.diagonal(
         niw.w, dim1=-2, dim2=-1), dim=-1)
 
     # Lt1: E[log p(X|Z, mu, Lambda)], Bishop 10.71
@@ -206,9 +207,9 @@ def elbo(batch: SeqBatch, post: HMMPosterior, fb: FBStats,
     lt4 = k * log_c_eps0 + (hyps.epsilon0 - 1.0) * torch.sum(log_a,
                                                             dim=(-2, -1))
     # Lt5: E[log p(mu, Lambda)], Bishop 10.74
-    lt51 = 0.5 * torch.sum(d * torch.log(hyps.beta0 / two_pi) + log_lam
-                           - d * hyps.beta0 / niw.beta
-                           - hyps.beta0 * niw.v * m_w_m, dim=-1)
+    lt51 = 0.5 * torch.sum(d * torch.log(beta0 / two_pi) + log_lam
+                           - d * beta0 / niw.beta
+                           - beta0 * niw.v * m_w_m, dim=-1)
     lt52 = (k * log_b0 + 0.5 * (hyps.v0 - d - 1.0) * torch.sum(log_lam, -1)
             - 0.5 * torch.sum(niw.v * tr_w0inv_w, dim=-1))
     lt5 = lt51 + lt52
@@ -425,6 +426,104 @@ def finalize(batch: SeqBatch, st: EMState) -> VBHMMResult:
         state_mask=torch.ones_like(post.alpha, dtype=torch.bool))
 
 
+def _lanes_of(batch: SeqBatch, lanes: torch.Tensor) -> SeqBatch:
+    return SeqBatch(x=batch.x[lanes], lengths=batch.lengths[lanes])
+
+
+def neg_elbo_objective(batch: SeqBatch, init_posts: HMMPosterior,
+                       config: VBConfig, per_lane_data: bool = False,
+                       stats: Optional[dict] = None):
+    """The hyp objective over lanes (`vbhmm_em_hyp.m:166-200`):
+    ``fun(hyps, lanes) -> -elbo [k]`` re-runs EM from the initial
+    posteriors ``init_posts[lanes]`` under the hyps (detached), then takes
+    the bound at the fixed point with the posterior, the E-step (kernel B2
+    on the card) and the statistics held fixed, so autograd reaches only
+    the prior terms, as the JAX package's ``stop_gradient`` does.  The
+    data is shared by every lane, or (``per_lane_data``) has the lanes as
+    its leading axis.  ``stats`` counts the EM iterations ('em_iters', the
+    slowest lane's per run) and the E-steps outside EM ('e_steps')."""
+    def fun(hyps, lanes):
+        b = _lanes_of(batch, lanes) if per_lane_data else batch
+        p0 = tree_map(lambda a: a[lanes], init_posts)
+        with torch.no_grad():
+            st = vbem_em(b, p0, tree_map(torch.Tensor.detach, hyps),
+                         max_iter=config.max_iter, min_diff=config.min_diff,
+                         covar_type=config.covar_type)
+            post = st.post
+            fb = e_step(b, post)
+            stats_ = suff_stats(b, fb)
+        hypmod.tally(stats, "em_iters", int(torch.max(st.it)))
+        hypmod.tally(stats, "e_steps", 1)
+        return -elbo(b, post, fb, stats_, hyps)
+    return fun
+
+
+def optimize_solution_hyps(batch: SeqBatch, init_post: HMMPosterior,
+                           hyps0: VBHyps, config: VBConfig):
+    """Empirical-Bayes hyp optimization for one solution (`vbhmm_em_hyp.m`):
+    SciPy's L-BFGS-B over the transformed hyps, each objective evaluation
+    an EM run from the same initial posterior.  Returns (optimized hyps,
+    final EMState, info)."""
+    specs = hypmod.vb_specs(batch.x.shape[-1], config.bounds,
+                            config.learn_hyps_keys)
+    posts = tree_map(lambda a: a[None], init_post)
+    fun = neg_elbo_objective(batch, posts, config)
+    one = torch.zeros(1, dtype=torch.int64, device=batch.x.device)
+    hyps_opt, info = hypmod.optimize_hyps(
+        lambda h: fun(tree_map(lambda a: a[None], h), one)[0], hyps0, specs)
+    st = vbem_em(batch, init_post, hyps_opt, max_iter=config.max_iter,
+                 min_diff=config.min_diff, covar_type=config.covar_type)
+    return hyps_opt, st, info
+
+
+def optimize_solution_hyps_batched(batch: SeqBatch, init_posts: HMMPosterior,
+                                   hyps0: VBHyps, config: VBConfig,
+                                   per_lane_data: bool = False,
+                                   stats: Optional[dict] = None):
+    """Hyp-optimize a bank of solutions together: one L-BFGS per lane of
+    ``init_posts`` (leading lane axis), every probe of every lane still
+    searching one EM over those lanes (`vbhmm_learn.m:498-552`, a parfor
+    there).  The data is shared, or per lane (``per_lane_data``).  Then
+    every lane re-runs EM from its start under its learned hyps.  Returns
+    (hyps with a lane axis, final EMStates with a lane axis); ``stats``
+    receives the optimizer's counts (:func:`..hyp.lbfgs_box`), its steps
+    per lane ('steps') and the EM iterations of the objective and the
+    rerun ('em_iters', 'e_steps')."""
+    specs = hypmod.vb_specs(batch.x.shape[-1], config.bounds,
+                            config.learn_hyps_keys)
+    n = init_posts.alpha.shape[0]
+    fun = neg_elbo_objective(batch, init_posts, config, per_lane_data, stats)
+    hyps_b, _, steps = hypmod.optimize_hyps_batched(
+        fun, hyps0, specs, n, max_steps=config.hyp_max_steps, stats=stats)
+    if stats is not None:
+        stats["steps"] = steps.cpu().numpy()
+    sts = vbem_em(batch, init_posts, hyps_b, max_iter=config.max_iter,
+                  min_diff=config.min_diff, covar_type=config.covar_type)
+    hypmod.tally(stats, "em_iters", int(torch.max(sts.it)))
+    return hyps_b, sts
+
+
+def learn_hyps_lanes(batch: SeqBatch, states: EMState, idx, hyps0: VBHyps,
+                     config: VBConfig, per_lane_data: bool = False,
+                     info: Optional[dict] = None):
+    """The hyp stage shared by :func:`learn` and ``batch.learn_bank``:
+    the restart solutions ``states[idx]`` (``idx`` indexes the leading
+    lane axis, or is a tuple of index arrays) hyp-optimized together, then
+    the lanes whose bound degraded or went degenerate reverted with their
+    hyps (:func:`..hyp.revert_lanes`; `vbhmm_learn.m:567-571` made a
+    rejection).  Returns (final states, hyps per lane); ``info``, if
+    given, receives the stage's counts under 'hyp_*' keys."""
+    stats = {}
+    pre = tree_map(lambda a: a[idx], states)
+    hyps_b, sts = optimize_solution_hyps_batched(
+        batch, pre.post, hyps0, config, per_lane_data, stats)
+    sts, hyps_b, stage = hypmod.revert_lanes(sts, pre, hyps_b, hyps0, stats,
+                                             config.verbose - 1)
+    if info is not None:
+        info.update(stage)
+    return sts, hyps_b
+
+
 def learn(gen: torch.Generator, batch: SeqBatch, k,
           config: VBConfig = VBConfig(), hyps: Optional[VBHyps] = None,
           initgmm=None, inithmm: Optional[HMMPosterior] = None):
@@ -434,13 +533,14 @@ def learn(gen: torch.Generator, batch: SeqBatch, k,
     ``k`` may be an int or a sequence of ints; with a sequence each K runs
     the full single-K path and the winner maximizes ``LL + lgamma(K+1)``
     (`vbhmm_learn.m:391`).  In float32 the restarts and the K are compared
-    on their float64 bound (:func:`..rescore.vbem_rescore_lanes`).
+    on their float64 bound (:func:`..rescore.vbem_rescore_lanes`).  With
+    ``config.learn_hyps`` every unique restart solution is hyp-optimized
+    (:func:`learn_hyps_lanes`) and the best lane kept, its hyps in
+    ``info['learned_hyps']``.
     ``initgmm`` (a (prior, mean, cov) triple or a GMM) and ``inithmm`` (a
     posterior) drive the 'initgmm' / 'inithmm' initmodes
     (`vbhmm_init.m:93-120, 154-161`); 'split' runs the component-splitting
     GMM.  Returns (VBHMMResult, info dict)."""
-    if config.learn_hyps:
-        raise NotImplementedError(_HYPS_NOT_PORTED)
     if isinstance(k, (list, tuple, range)):
         ks = list(k)
         results, sub_infos, lls = [], [], []
@@ -453,10 +553,13 @@ def learn(gen: torch.Generator, batch: SeqBatch, k,
         corrected = np.asarray(lls) + np.array(
             [math.lgamma(kk + 1) for kk in ks])
         best = int(np.argmax(corrected))
-        return results[best], {
-            "model_ll": corrected, "model_k": ks, "model_best_k": ks[best],
-            "model_all": results, "model_infos": sub_infos, "vbopt": config,
-            "version": _version()}
+        info = {"model_ll": corrected, "model_k": ks,
+                "model_best_k": ks[best], "model_all": results,
+                "model_infos": sub_infos, "vbopt": config,
+                "version": _version()}
+        if "learned_hyps" in sub_infos[best]:
+            info["learned_hyps"] = sub_infos[best]["learned_hyps"]
+        return results[best], info
 
     dtype, dev = batch.x.dtype, batch.x.device
     if hyps is None:
@@ -483,17 +586,33 @@ def learn(gen: torch.Generator, batch: SeqBatch, k,
         # every uniqueLL restart solution (`vbhmm_learn.m:417,600`)
         info["suboptimal"] = [
             finalize(batch, tree_map(lambda a, i=int(i): a[i], states))
-            for i in unique_ll(states.ll.cpu().numpy(), config.min_diff)]
+            for i in hypmod.unique_ll(states.ll.cpu().numpy(),
+                                      config.min_diff)]
+    if config.learn_hyps:
+        # hyp-optimize every unique restart solution by LL
+        # (`vbhmm_learn.m:484-552`) together, then keep the best lane
+        uniq = hypmod.unique_ll(states.ll.detach().cpu().numpy(),
+                                config.min_diff)
+        if config.max_hyp_solutions is not None:
+            uniq = uniq[:config.max_hyp_solutions]
+        if len(uniq) == 0:
+            uniq = np.asarray([int(torch.argmax(states.ll))])
+        # the JAX package's lane bucket; duplicate lanes change nothing
+        idx = torch.as_tensor(hypmod.pad_lanes(uniq, bucket=4), device=dev)
+        states, hyps = learn_hyps_lanes(batch, states, idx, hyps, config,
+                                        info=info)
     if dtype == torch.float32:
         # f32 bounds can carry selection-flipping artifacts: pick the
-        # restart on its float64 bound
+        # restart (or hyp-optimized lane) on its float64 bound
         from .rescore import vbem_rescore_lanes
         ll64 = vbem_rescore_lanes(batch, states.post, hyps)
         best = int(torch.argmax(ll64))
-        st = tree_map(lambda a: a[best], states)
         info["ll_f64"] = float(ll64[best])
     else:
-        st = select_best_trial(states)
+        best = int(torch.argmax(states.ll))
+    st = tree_map(lambda a: a[best], states)
+    if config.learn_hyps:
+        info["learned_hyps"] = tree_map(lambda a: a[best], hyps)
     res = finalize(batch, st)
     if config.sortclusters:
         res = standardize(res, config.sortclusters)

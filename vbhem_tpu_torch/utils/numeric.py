@@ -27,6 +27,7 @@ __all__ = [
     "logdet_psd",
     "quad_diff",
     "lane_contract",
+    "lane_hyp",
 ]
 
 
@@ -223,3 +224,16 @@ def lane_contract(wt: torch.Tensor, y: torch.Tensor, nx: int) -> torch.Tensor:
     g = wt.movedim(-2, nx).reshape(lead + (m, -1))            # [*X, M, L*K]
     out = torch.matmul(y.transpose(-1, -2), g)                # [*X, E, L*K]
     return out.transpose(-1, -2).reshape(lead + lanes + (k, y.shape[-1]))
+
+
+def lane_hyp(h: torch.Tensor, own: int, axes: int) -> torch.Tensor:
+    """A hyperparameter leaf against a lane-leading tensor.  ``h`` is
+    unbatched (``own`` axes: 0 for a scalar, 1 for a [D] vector, 2 for a
+    [D, D] matrix), or carries the lanes in front of them; ``axes`` unit
+    axes go between the lanes and its own axes, so that it broadcasts
+    against [*lanes, <axes>, <own>].  An unbatched leaf is returned as it
+    is, so the arithmetic of an unbatched run does not change."""
+    if h.dim() == own:
+        return h
+    cut = h.dim() - own
+    return h.reshape(h.shape[:cut] + (1,) * axes + h.shape[cut:])
