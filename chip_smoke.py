@@ -94,7 +94,7 @@ Phases (any failure exits non-zero and prints no result line):
      its bound in float32 stray from float64 whatever computes the
      E-step); B2 (VBEM) and B1 (VBHEM) launched
      once per EM iteration and final E-step of the objective;
-  12. protocol with hyps on (last): 20 subjects per planted group drawn
+  12. protocol with hyps on: 20 subjects per planted group drawn
      with a seed of their own (PROTOCOL_HYPS_SEED), then
      ``synthetic.learn_subject_hmms`` at ``default_vb_config()`` and
      ``synthetic.run_vbhem`` at ``default_vbhem_config()`` (K=1..6 x
@@ -107,9 +107,25 @@ Phases (any failure exits non-zero and prints no result line):
      1.0 and the selection K=2, S=[2, 2], Rand index 1.0; each stage's
      wall time, lanes, L-BFGS steps, objective calls, EM iterations,
      reverted lanes, the selected cell's hyps and each cell's float32
-     against float64 gap printed.
+     against float64 gap printed;
+  13. runner (after phase 12): ``experiments.runner.run_repeat`` for repeat
+     0 with all four methods (VBHEM with DIC, VHEM with AIC/BIC, CCFD, PPK
+     with AIC/BIC, and the Dunn index) at the reference data scale (20
+     subjects per group, 25 sequences of T=50, K=1..6 x S=1..5), at
+     ``default_vb_config()``, ``default_vbhem_config()`` and the CLI's
+     ``HEMConfig(trials=20, nv=100, tau=50)``, float32, checkpointing under
+     the ignored ``build/``.  Its one cut: hyperparameter learning off in
+     both configs (five hyps-on VBEM banks would take minutes; phase 12
+     drives hyps at this scale).  No stage may leave a ``*_error``; every
+     score and Dunn index finite; B2 launched on every VBEM EM iteration of
+     the five banks, B1 on every VBHEM one, B3 on every VHEM iteration and
+     once per rescored cell and DIC cell; VBHEM's selection K=2, S=[2, 2]
+     with Rand index 1.0.  Then ``run_repeat`` again on the same directory
+     must load every stage, launch no kernel and return the same scores.
+     Every method's selection and Rand index and each stage's wall time
+     printed.
 
-B3 is checked in phase 2 like B1 and B2.  Each of phases 3-9 and 11-12
+B3 is checked in phase 2 like B1 and B2.  Each of phases 3-9 and 11-13
 sets every
 kernel's launch count (B1's and B3's also by design) to 0 just before it
 runs its path and reads the counts just after.  Prints a JSON line
@@ -1745,6 +1761,122 @@ def phase_protocol_hyps(fails: Failures, device,
             "rand_index": sel_ri}
 
 
+RUNNER_METHODS = ("vbhem", "vhem", "ccfd", "ppk")
+RUNNER_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_runner"
+
+
+def _score_finite(sc) -> bool:
+    return all(np.isfinite(float(v)) for v in (
+        sc.rand_index, sc.purity, sc.best_k, sc.best_s))
+
+
+def _same_score(a, b) -> bool:
+    return (a.rand_index == b.rand_index and a.purity == b.purity
+            and a.best_k == b.best_k and a.best_s == b.best_s
+            and np.array_equal(np.asarray(a.labels), np.asarray(b.labels))
+            and a.s_list == b.s_list)
+
+
+def phase_runner(fails: Failures, device) -> dict:
+    """The synthetic benchmark's runner, one repeat of all four methods:
+    ``runner.run_repeat(0, ...)`` at the reference data scale (20 subjects
+    per group, 25 sequences of T=50, K=1..6 x S=1..5), at
+    ``default_vb_config()``, ``default_vbhem_config()`` and the CLI's
+    ``HEMConfig(trials=20, nv=100, tau=50)``, in float32, checkpointing
+    into RUNNER_DIR.  Its one cut: hyperparameter learning is off in both
+    configs (the runner learns five VBEM banks, and phase "protocol hyps"
+    drives hyps at this scale already).  Then ``run_repeat`` again on the
+    same directory, which must load every stage, launch no kernel and
+    return the same scores."""
+    from vbhem_tpu_torch.experiments import runner
+    import shutil
+    shutil.rmtree(RUNNER_DIR, ignore_errors=True)
+    RUNNER_DIR.mkdir(parents=True)
+    kw = dict(
+        vb_config=dataclasses.replace(synthetic.default_vb_config(),
+                                      learn_hyps=False),
+        vbhem_config=dataclasses.replace(synthetic.default_vbhem_config(),
+                                         learn_hyps=False),
+        hem_config=HEMConfig(trials=20, nv=100, tau=50),
+        methods=RUNNER_METHODS, verbose=False, dtype="f32", device=device)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = runner.run_repeat(0, str(RUNNER_DIR), **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        reset_counts()
+        t1 = time.perf_counter()
+        again = runner.run_repeat(0, str(RUNNER_DIR), **kw)
+        torch.cuda.synchronize()
+        resume_wall = time.perf_counter() - t1
+        resume_launches = read_counts()
+        files = sorted(p.name for p in RUNNER_DIR.iterdir())
+    finally:
+        shutil.rmtree(RUNNER_DIR, ignore_errors=True)
+    work, timings, scores = out["work"], out["timings"], out["scores"]
+    print(f"runner: repeat 0, {', '.join(RUNNER_METHODS)}, hyps off, "
+          f"float32: wall={wall:.3f}s stage wall times (s) "
+          f"{json.dumps(timings)} work {json.dumps(work)} "
+          f"launches={launches}; checkpoints {files}", flush=True)
+    errors = {k: v for k, v in timings.items() if k.endswith("_error")}
+    fails.check(not errors, f"runner: no stage error ({errors})")
+    want = {"vbhem", "vbhem_dic", "vhem_aic", "vhem_bic", "ccfd",
+            "ppk_aic", "ppk_bic"}
+    fails.check(set(scores) == want, f"runner: every method scored "
+                                     f"({sorted(scores)})")
+    fails.check(all(_score_finite(sc) for sc in scores.values())
+                and all(np.isfinite(v) for v in out["dunn"].values()),
+                "runner: every score and Dunn index finite")
+    for m, sc in sorted(scores.items()):
+        print(f"runner {m}: {_selection(sc)}; Dunn "
+              f"{out['dunn'].get(m)}", flush=True)
+    vb, vh, hm = (work.get(k, {}) for k in ("vbem", "vbhem", "vhem"))
+    b2 = launches["B2"] + launches["B2_fused"]
+    b2_want = vb.get("em_iters", 0) + vb.get("e_steps", 0)
+    fails.check(b2 >= b2_want > 0,
+                f"runner: B2 launched {b2} times for the VBEM banks' "
+                f"{vb.get('em_iters')} EM iterations and "
+                f"{vb.get('e_steps')} final E-steps")
+    b1_want = vh.get("em_iters", 0) + vh.get("e_steps", 0)
+    fails.check(launches["B1"] == b1_want > 0,
+                f"runner: B1 launched {launches['B1']} times for the VBHEM "
+                f"grid's {vh.get('em_iters')} EM iterations and "
+                f"{vh.get('e_steps')} final E-steps")
+    b3_fixed = vh.get("rescored", 0) + vh.get("dic_cells", 0)
+    fails.check(launches["B3"] >= hm.get("em_iters", 0) + b3_fixed
+                and hm.get("em_iters", 0) > 0 and b3_fixed > 0,
+                f"runner: B3 launched {launches['B3']} times for the VHEM "
+                f"grid's {hm.get('em_iters')} EM iterations, "
+                f"{vh.get('rescored')} rescored VBHEM cells and "
+                f"{vh.get('dic_cells')} DIC cells")
+    sc = scores.get("vbhem")
+    ri = rand_index(sc.labels, np.asarray([0] * 20 + [1] * 20)) \
+        if sc is not None else None
+    fails.check(sc is not None and (sc.best_k, list(sc.s_list)) == (2, [2, 2])
+                and ri == 1.0,
+                f"runner: VBHEM selection "
+                f"{None if sc is None else (sc.best_k, sc.s_list)}, Rand "
+                f"index {ri} (want K=2, S=[2, 2], Rand index 1.0)")
+    print(f"runner resume: wall={resume_wall:.3f}s work "
+          f"{json.dumps(again['work'])} launches={resume_launches}",
+          flush=True)
+    fails.check(again["work"] == {}
+                and all(v == 0 for v in resume_launches.values()),
+                f"runner resume: every stage loaded, no kernel launched "
+                f"({resume_launches})")
+    fails.check(set(again["scores"]) == set(scores) and all(
+        _same_score(again["scores"][m], scores[m]) for m in scores)
+        and again["dunn"] == out["dunn"],
+        "runner resume: the same scores and Dunn indices")
+    return {"launches": launches, "wall_s": wall, "timings": timings,
+            "work": work, "resume_wall_s": resume_wall,
+            "selections": {m: (sc.best_k, sc.best_s, sc.s_list,
+                               sc.rand_index)
+                           for m, sc in scores.items()}}
+
+
 # ---------------------------------------------------------------------------
 # phase 10: timing
 # ---------------------------------------------------------------------------
@@ -2268,6 +2400,7 @@ def main() -> int:
     run("timing B1", lambda: timing_b1(device))
     run("timing wide bodies", lambda: timing_wide(device))
     run("protocol hyps", lambda: phase_protocol_hyps(fails, device))
+    run("runner", lambda: phase_runner(fails, device))
 
     lines = []
     for key, parity, path, timing, field in (
@@ -2297,7 +2430,7 @@ def main() -> int:
             path: results[path]["launches"].get(key) + (
                 results[path]["launches"]["B2_fused"] if key == "B2" else 0)
             for path in ("VBHEM path", "VBEM path", "pipeline", "VHEM path",
-                         "grid", "protocol", "protocol hyps")
+                         "grid", "protocol", "protocol hyps", "runner")
             if path in results}
         if "protocol hyps" in results:   # its VBEM stage's own counts
             lines[-1]["launches_by_path"]["protocol hyps VBEM"] = (

@@ -2,9 +2,12 @@
 
 :func:`to_torch` turns a container whose leaves are numpy (or any
 array-like) values — ``H3M``, ``H3MPosterior``, ``HMM``, ``VBHEMHyps``,
-``VHEMResult`` and the other NamedTuples the two packages share — into this package's
-container of the same field names, on a given device (the card by
-default) and dtype.
+``VHEMResult``, ``SyntheticDataset`` and the other NamedTuples the two
+packages share — into this package's container of the same field names,
+on a given device (the card by default) and dtype.  Lists inside a
+container (a dataset's per-subject batches) are converted item by item;
+fields that this package keeps in NumPy (a dataset's ``labels``) stay
+NumPy.
 :func:`to_numpy` turns one of this package's containers back into the
 same container with numpy leaves.  Containers are matched by their field
 names, so this module never imports the JAX package.
@@ -23,6 +26,7 @@ from .containers import resolve_device
 @functools.lru_cache(maxsize=1)
 def _registry() -> dict:
     from . import containers
+    from .experiments import synthetic
     from .models import vbhem, vbhmm, vhem
     from .ops import fb, gmm, pair_estep
     classes = (containers.NIW, containers.HMM, containers.HMMPosterior,
@@ -32,8 +36,12 @@ def _registry() -> dict:
                vbhem.ReducedExpectations, vbhem.ClusterStats,
                vbhem.VBHEMState, vbhem.VBHEMResult, fb.FBStats, gmm.GMM,
                vbhmm.VBHyps, vbhmm.SuffStats, vbhmm.EMState,
-               vhem.VHEMState, vhem.VHEMResult)
+               vhem.VHEMState, vhem.VHEMResult, synthetic.SyntheticDataset)
     return {tuple(c._fields): c for c in classes}
+
+
+# fields this package keeps on the host, as NumPy arrays
+_HOST_FIELDS = {"SyntheticDataset": ("labels",)}
 
 
 def _is_container(obj) -> bool:
@@ -60,8 +68,12 @@ def to_torch(obj: Any, device="cuda",
         return None
     if _is_container(obj):
         cls = _port_class(obj)
-        return cls(*[to_torch(getattr(obj, f), device, dtype)
+        host = _HOST_FIELDS.get(cls.__name__, ())
+        return cls(*[np.asarray(getattr(obj, f)) if f in host
+                     else to_torch(getattr(obj, f), device, dtype)
                      for f in obj._fields])
+    if isinstance(obj, list):
+        return [to_torch(v, device, dtype) for v in obj]
     t = torch.as_tensor(np.array(obj), device=device)  # a writable copy
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
@@ -75,6 +87,8 @@ def to_numpy(obj: Any):
         return None
     if _is_container(obj):
         return type(obj)(*[to_numpy(getattr(obj, f)) for f in obj._fields])
+    if isinstance(obj, list):
+        return [to_numpy(v) for v in obj]
     if torch.is_tensor(obj):
         return obj.detach().cpu().numpy()
     return np.asarray(obj)

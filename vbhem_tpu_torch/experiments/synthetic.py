@@ -1,27 +1,84 @@
-"""The synthetic ground-truth benchmark's two stages and its model
-selection: per-subject VBEM (``learn_subject_hmms``), VBHEM over the
-padded (K, S) grid, the VHEM baseline over a (K, S) grid with AIC/BIC,
-and DIC over the learned VBHEM grid — the counterpart of
-``RecoveryScore``, ``default_vb_config``, ``default_vbhem_config``,
-``learn_subject_hmms``, ``run_vbhem``, ``run_vhem``, ``run_vhem_grid`` and
-``run_vbhem_dic`` in :mod:`vbhem_tpu.experiments.synthetic` (its dataset
-sampling is not ported yet: ROADMAP.md queue A, item A6).
+"""The synthetic ground-truth benchmark: data generation, the
+multi-method pipeline and its model selection — the counterpart of
+:mod:`vbhem_tpu.experiments.synthetic`: the ground truth and its sampling
+(``gt_hmms``, ``sample_dataset``), per-subject VBEM
+(``learn_subject_hmms``), VBHEM over the padded (K, S) grid
+(``run_vbhem``), the VHEM baseline over a (K, S) grid with AIC/BIC, DIC
+over the learned VBHEM grid, CCFD (``run_ccfd``) and PPK spectral
+clustering over a (K, S) grid with AIC/BIC (``run_ppk_grid``).
 
-Parity map: `Synthetic_experiment/exprmt1_demo.m:114-148` (VHEM grid) and
+Parity map: `Synthetic_experiment/exprmt1_sampledata.m` (ground truth:
+2 HMMs x 2 states, shared Gaussians at (0,0)/(3,3) with identity
+covariance, transition matrices [.6 .4;.4 .6] vs [.4 .6;.6 .4];
+datasets of 2 clusters x 20 HMMs x 25 seqs x T=50 plus N(0, 0.1)
+noise), `exprmt1_demo.m` (VBEM -> VBHEM grid -> VHEM -> CCFD -> PPK) and
 the recovery scoring of `evaluate_vbhem_jounarl.m` (Rand index, purity,
-K and S selected).  Everything here runs on the device of the bank it
-is given; randomness comes from an explicit ``torch.Generator``.
+K and S selected).  Everything here runs on the device of the bank it is
+given; randomness comes from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..config import HEMConfig, VBConfig, VBHEMConfig
-from ..models import vbhem, vbhmm, vhem
+from ..containers import HMM, SeqBatch, resolve_device
+from ..models import hmm_tools, vbhem, vbhmm, vhem
 from ..utils.metrics import purity, rand_index
+
+
+def gt_hmms(dtype=torch.float64, device="cuda"):
+    """The two ground-truth HMMs (`exprmt1_sampledata.m:21-43`), on
+    ``device`` (the card unless the caller names another)."""
+    device = resolve_device(device)
+
+    def t(v):
+        return torch.as_tensor(v, dtype=dtype, device=device)
+    mean = t([[0.0, 0.0], [3.0, 3.0]])
+    cov = torch.eye(2, dtype=dtype, device=device).expand(2, 2, 2).clone()
+    prior = t([0.5, 0.5])
+    h1 = HMM(prior=prior, trans=t([[0.6, 0.4], [0.4, 0.6]]), mean=mean,
+             cov=cov)
+    h2 = HMM(prior=prior, trans=t([[0.4, 0.6], [0.6, 0.4]]), mean=mean,
+             cov=cov)
+    return h1, h2
+
+
+class SyntheticDataset(NamedTuple):
+    batches: List[SeqBatch]     # one per subject (HMM)
+    labels: np.ndarray          # [Kb] ground-truth cluster of each subject
+
+
+def sample_dataset(gen: torch.Generator, n_per_cluster: int = 20,
+                   n_seqs: int = 25, t: int = 50, noise: float = 0.1,
+                   dtype=torch.float64, device="cuda") -> SyntheticDataset:
+    """Sample one dataset (`exprmt1_sampledata.m:51-87`): for each
+    ground-truth HMM in turn, ``n_per_cluster`` subjects of ``n_seqs``
+    sequences of length ``t``, plus N(0, noise^2) noise.
+
+    Every draw comes from ``gen`` in that order (per subject: the chain,
+    the emission noise, the added noise), on the generator's device, and
+    the data is built on the CPU and then moved to ``device`` (the card
+    unless the caller names another).  With a CPU generator a seed gives
+    the same dataset on any device.  The JAX package derives each
+    subject's key by ``fold_in``; ``jax.random`` and torch cannot match
+    bit for bit, so the draws differ from the JAX package's."""
+    device = resolve_device(device)
+    batches, labels = [], []
+    for gi, h in enumerate(gt_hmms(dtype, device="cpu")):
+        for _ in range(n_per_cluster):
+            _, x = hmm_tools.sample(gen, h, t=t, n=n_seqs)
+            x = x + noise * torch.randn(x.shape, generator=gen,
+                                        device=gen.device,
+                                        dtype=dtype).to(x.device)
+            batches.append(SeqBatch(
+                x=x.to(device),
+                lengths=torch.full((n_seqs,), t, dtype=torch.int32,
+                                   device=device)))
+            labels.append(gi)
+    return SyntheticDataset(batches=batches, labels=np.asarray(labels))
 
 
 class RecoveryScore(NamedTuple):
@@ -226,3 +283,91 @@ def run_vbhem_dic(info: Dict, base, tau: int, labels) -> Dict:
         rand_index=rand_index(lab, labels)[0], purity=purity(lab, labels),
         best_k=len(hmm_list), best_s=int(np.median(s_list)),
         labels=lab, s_list=s_list)}
+
+
+def run_ccfd(gen: Optional[torch.Generator], results, labels,
+             ds: Optional[SyntheticDataset] = None,
+             n_samples: int = 100) -> Dict:
+    """CCFD density-peak clustering on symmetric-KL distances
+    (`exprmt1_demo.m:155-178`).  K is selected automatically by the
+    outlier detection, S is the subject-HMM state count."""
+    from ..models import ccfd as ccfd_mod
+    hmms = [r.model for r in results]
+    data = ds.batches if ds is not None else None
+    res = ccfd_mod.ccfd(gen, hmms, data=data, n_samples=n_samples)
+    lab = res.label
+    s = results[0].model.mean.shape[0]
+    return {"result": res, "score": RecoveryScore(
+        rand_index=rand_index(lab, labels)[0], purity=purity(lab, labels),
+        best_k=int(lab.max()) + 1, best_s=s, labels=lab)}
+
+
+def run_ppk_grid(gen: torch.Generator, banks_by_s: Dict[int, list],
+                 ds: SyntheticDataset, labels, k_grid=range(1, 7)) -> Dict:
+    """PPK spectral clustering over the (K, S) grid with AIC/BIC selection
+    from the held-in data log-likelihood
+    (`exprmt1_demo.m:180-258` + `evaluate_vbhem_jounarl.m:239-296`).
+
+    Each bank's log-likelihood table of every sequence under every bank
+    HMM is one :func:`..models.hmm_tools.loglik` call (the reference loops
+    center HMMs x subjects, `exprmt1_demo.m:236-251`); the cells'
+    spectral clusterings draw their k-means seeds from ``gen`` in grid
+    order (S outer, K inner)."""
+    from ..models import ppk as ppk_mod
+    ks = list(k_grid)
+    ss = sorted(banks_by_s)
+    d = banks_by_s[ss[0]][0].model.mean.shape[-1]
+    lengths = [b.lengths.detach().cpu().numpy() for b in ds.batches]
+    n_obs = int(sum(ln.sum() for ln in lengths))
+
+    all_batch = SeqBatch(x=torch.cat([b.x for b in ds.batches], dim=0),
+                         lengths=torch.cat([b.lengths for b in ds.batches],
+                                           dim=0))
+
+    def bank_ll_table(hmms):
+        hb = vbhem.h3m_from_hmms(list(hmms),
+                                 device=all_batch.x.device).hmm
+        return hmm_tools.loglik(all_batch, hb).detach().cpu().numpy()
+
+    cells, ll_grid = {}, np.full((len(ks), len(ss)), -np.inf)
+    for si, s in enumerate(ss):
+        hmms = [r.model for r in banks_by_s[s]]
+        gram = ppk_mod.gram_matrix(hmms)
+        ll_table = bank_ll_table(hmms)                 # [n_hmms, n_seqs]
+        for ki, k in enumerate(ks):
+            assign, centers, u = ppk_mod.spectral_cluster(gen, gram, k)
+            # cluster centers: the input HMM nearest each spectral centroid
+            center_idx = np.zeros((k,), np.int64)
+            for j in range(k):
+                members = np.where(assign == j)[0]
+                pool = members if len(members) else np.arange(len(hmms))
+                d2 = ((u[pool] - centers[j]) ** 2).sum(axis=1)
+                center_idx[j] = pool[int(np.argmin(d2))]
+            weight = np.array([(assign == j).mean() for j in range(k)])
+            # data log-likelihood under the mixture of center HMMs
+            # (exprmt1_demo.m:236-251)
+            lls = ll_table[center_idx].T             # [n_seqs, K]
+            mix = np.log(weight + 1e-300)[None, :] + lls
+            mx = mix.max(axis=1)
+            ll = float(np.sum(mx + np.log(
+                np.exp(mix - mx[:, None]).sum(axis=1))))
+            cells[(k, s)] = {"label": assign, "center_idx": center_idx,
+                             "ll": ll}
+            ll_grid[ki, si] = ll
+
+    out = {"cells": cells, "ll": ll_grid, "k_grid": ks, "s_grid": ss}
+    for crit in ("aic", "bic"):
+        grid = np.full_like(ll_grid, np.inf)
+        for ki, k in enumerate(ks):
+            for si, s in enumerate(ss):
+                pars = _num_params(k, s, d)
+                pen = 2 * pars if crit == "aic" else np.log(n_obs) * pars
+                grid[ki, si] = -2 * ll_grid[ki, si] + pen
+        ki, si = np.unravel_index(np.argmin(grid), grid.shape)
+        lab = cells[(ks[ki], ss[si])]["label"]
+        out[crit] = grid
+        out[crit + "_score"] = RecoveryScore(
+            rand_index=rand_index(lab, labels)[0],
+            purity=purity(lab, labels), best_k=ks[ki], best_s=ss[si],
+            labels=lab)
+    return out
