@@ -125,7 +125,45 @@ Phases (any failure exits non-zero and prints no result line):
      Every method's selection and Rand index and each stage's wall time
      printed.
 
-B3 is checked in phase 2 like B1 and B2.  Each of phases 3-9 and 11-13
+  14. initmodes (after phase 9): each VBHEM initializer (baseem, gmmNew,
+     gmmNew2, wtkmeans, random) at full width, the (K=2, S=2) cell of
+     phase 4's bank (Kb=8192, Sb=2), PIPELINE_TRIALS restarts at the
+     pipeline's settings: the initializer's time and peak memory, the
+     EM's iterations, wall time and B1 launches (one per iteration), the
+     restarts that recover the groups and whether the best-ELBO restart
+     does (findings); the ELBO of 30 EM iterations from the same starts
+     never falling by more than 1e-5 relative, in float32 and in
+     float64, the float32 bound (B1's float32 body) at each float64
+     iterate within 1e-4 of the float64 one (each term's gap printed),
+     and the best lane finite (gates).
+     Then ``cluster`` under the default initmode 'auto' over K in {1,2,3}
+     x S=2 (K=2 with Rand index 1.0) and ``cluster_batched`` under 'auto'
+     over K, S in {1,2,3} with 8 restarts a mode ((2, 2), Rand index 1.0,
+     every cell within 1e-4 of its float64 rescoring);
+  15. grouped (after phase 13): ``vbhmm_groups.learn_grouped`` on two
+     stimulus conditions with shared ROIs and different dynamics (4096
+     sequences of T=50, D=2), K in {1,2,3}, 20 restarts, hyps off: K=2;
+     B2's fused entry (per-sequence scores) once per EM iteration and
+     standardized model; a 30-iteration grouped EM whose ELBO never falls
+     by more than 1e-5 relative; B2 at this launch's own shape held
+     against the plain version in float64 (5e-5 / 1e-10) and timed;
+  16. demo (last): the `vbdemo_face.m` path as the demo CLI runs it on
+     synthetic face-viewing data (40 viewers, 12 trials of 12 fixations
+     on a 512 x 384 face; the reference's demodata.xls is not in the
+     repository) written to a fixation CSV under the ignored ``build/``
+     and read back by the native loader (gated); then
+     ``demo_fixations.demo_path``: per-subject VBEM over S=1..3 with
+     ``VBConfig(numtrials=10, learn_hyps=True)`` and mode 'd' hyps (the
+     subjects as lanes of ``learn_bank``), ``cluster_batched`` over
+     K=1..5 x S=1..3 at the demo's synthetic-data settings (the JAX
+     example's: alpha0=1e6, Nv=50, tau=10, 'auto', 10 restarts, float32
+     with the float64 rescoring) and ``vbh3m_remove_empty``: K_hat=2
+     clusters after pruning with a Rand index of at least 0.9 (at most
+     two viewers off their group's cluster, as the JAX package gives on
+     the same banks) required.  Its cuts, printed: VBEM hyps on 5 survivors
+     a subject with 25 L-BFGS steps; no plots on the card.
+
+B3 is checked in phase 2 like B1 and B2.  Each of phases 3-9 and 11-16
 sets every
 kernel's launch count (B1's and B3's also by design) to 0 just before it
 runs its path and reads the counts just after.  Prints a JSON line
@@ -151,11 +189,12 @@ import numpy as np
 import torch
 
 from vbhem_tpu_torch import HEMConfig, SeqBatch, VBConfig, VBHEMConfig, hyp
-from vbhem_tpu_torch.containers import NIW, tree_map
+from vbhem_tpu_torch.containers import HMM, NIW, tree_map
 from vbhem_tpu_torch.experiments import synthetic
 from vbhem_tpu_torch.models import batch as vbem_batch
 from vbhem_tpu_torch.models import dic as dic_model
-from vbhem_tpu_torch.models import vbhem, vbhmm, vhem
+from vbhem_tpu_torch.models import (hmm_tools, vbhem, vbhmm, vbhmm_groups,
+                                    vhem)
 from vbhem_tpu_torch.ops import _build
 from vbhem_tpu_torch.ops import fb as fb_plain
 from vbhem_tpu_torch.ops import fb_cuda
@@ -1878,6 +1917,462 @@ def phase_runner(fails: Failures, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 14-16: the initializers and 'auto', grouped VBEM, the demo path
+# ---------------------------------------------------------------------------
+
+INIT_MODES = ("baseem", "gmmNew", "gmmNew2", "wtkmeans", "random")
+INIT_CONFIG = VBHEMConfig(alpha0=1e6, m0=(1.5, 1.5), w0=1.0,
+                          trials=PIPELINE_TRIALS, nv=100, tau=50,
+                          learn_hyps=False)
+INIT_TRACE_ITERS = 30
+# the largest relative decrease of the initmodes phase's ELBO traces, in
+# float32 (the path's dtype, as phases 3 and 4 gate theirs) and in float64
+INIT_MONOTONE = 1e-5
+AUTO_GRID = ([1, 2, 3], [1, 2, 3])
+AUTO_GRID_TRIALS = 8
+
+
+def _rel_drops(trace) -> float:
+    """The largest relative decrease of an ELBO trace [iters, ...]."""
+    tr = trace.double().cpu().numpy()
+    return float(np.max((tr[:-1] - tr[1:]) / np.abs(tr[:-1])))
+
+
+def _bound_terms(base, post, hyps, cfg):
+    """The bound of ``post`` and its ten terms, as an EM iteration
+    evaluates them: the pair E-step (kernel B1 in the bank's dtype), the
+    soft assignments and ``vbhem.elbo``."""
+    tilde_n = (cfg.nv * base.num_hmms) * base.omega
+    exps = vbhem.reduced_expectations(post)
+    pair = vbhem.e_step(base, post, exps, cfg.tau)
+    hat_z, z_ni, nj = vbhem.soft_assignments(tilde_n, exps.log_omega,
+                                             pair.ll_elbo)
+    return vbhem.elbo(post, exps, pair, hat_z, z_ni, nj, hyps,
+                      return_terms=True)
+
+
+def f32_bound_gaps(base, post0, hyps, cfg, iters) -> dict:
+    """``iters`` EM iterations in float64 from ``post0``, and at each
+    iteration's posterior the float32 bound (B1's float32 body) beside the
+    float64 one: returns the float64 trace [iters, lanes], the largest
+    relative gap of the float32 bound over lanes and iterations, and each
+    term's largest absolute gap."""
+    base64 = _to_f64(base)
+    hyps64 = vbhem.VBHEMHyps.from_config(cfg, base.hmm.mean.shape[-1],
+                                         torch.float64, base.hmm.mean.device)
+    tilde_n = (cfg.nv * base.num_hmms) * base64.omega
+    post = tree_map(_f64, post0)
+    trace, rel, terms = [], 0.0, {}
+    for _ in range(iters):
+        ll64, t64 = _bound_terms(base64, post, hyps64, cfg)
+        ll32, t32 = _bound_terms(base, tree_map(lambda x: x.float(), post),
+                                 hyps, cfg)
+        rel = max(rel, float(torch.max(torch.abs(ll32.double() - ll64)
+                                       / torch.abs(ll64))))
+        for k in t64:
+            terms[k] = max(terms.get(k, 0.0), float(torch.max(torch.abs(
+                t32[k].double() - t64[k]))))
+        trace.append(ll64)
+        post = vbhem._em_iteration(base64, post, hyps64, tilde_n,
+                                   cfg.tau)[0]
+    return {"trace": torch.stack(trace), "rel_gap": rel, "terms": terms}
+
+
+def phase_initmodes(fails: Failures, device, vbem) -> dict:
+    """Each initializer at full width: the (K=2, S=2) cell of the bank
+    phase 4 learned (Kb=8192, Sb=2), PIPELINE_TRIALS restarts, the
+    pipeline's settings.  Per mode: the initializer's own time and peak
+    memory, the restarts' EM (iterations, wall time, B1 launches), the
+    restarts whose labels recover the planted groups and whether the
+    best-ELBO restart is one of them (findings, not gates); an
+    INIT_TRACE_ITERS-iteration ``em_trace`` from the same starts in
+    float32 and the same iterations in float64 (:func:`f32_bound_gaps`),
+    neither of whose ELBO may fall by more than INIT_MONOTONE relative on
+    any lane; the float32 bound (B1's float32 body) at each float64
+    iterate within GRID_GAP_LIMIT of the float64 one (each term's gap
+    printed); and the best lane finite.  Then ``cluster``
+    under the default initmode 'auto' over K in {1,2,3} x S=2
+    (PIPELINE_TRIALS restarts a mode) must select K=2 with Rand index
+    1.0, and ``cluster_batched`` under 'auto' over
+    AUTO_GRID (AUTO_GRID_TRIALS restarts a mode) must select (2, 2) with
+    every cell within GRID_GAP_LIMIT of its float64 rescoring."""
+    labels = vbem["labels"]
+    base = vbhem.h3m_from_results(vbem["results"], device=device)
+    cfg = INIT_CONFIG
+    assert cfg.initmode == "auto"
+    hyps = vbhem.VBHEMHyps.from_config(cfg, 2, torch.float32, device)
+    n = cfg.trials
+    out = {"modes": {}}
+    # the path's launches: the modes' EM runs, cluster() and the grid
+    # (not the em_trace checks)
+    path = {k: 0 for k in read_counts()}
+    for mode in INIT_MODES:
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        post0 = vbhem.draw_lanes(mode, gen, base, 2, 2, hyps, cfg.nv, n)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_gib = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 30
+        reset_counts()
+        t0 = time.perf_counter()
+        st = vbhem.vbhem_em(base, post0, hyps, nv=cfg.nv, tau=cfg.tau,
+                            max_iter=cfg.max_iter, min_diff=cfg.min_diff)
+        torch.cuda.synchronize()
+        em_s = time.perf_counter() - t0
+        launches = read_counts()
+        path = {k: path[k] + launches[k] for k in path}
+        iters = int(torch.max(st.it))
+        lab = torch.argmax(st.hat_z, dim=-1).cpu().numpy()
+        ris = np.asarray([rand_index(lab[i], labels) for i in range(n)])
+        ll = st.ll.double().cpu().numpy()
+        best = int(np.argmax(ll))
+        _, trace32 = vbhem.em_trace(base, post0, hyps, cfg.nv, cfg.tau,
+                                    n_iter=INIT_TRACE_ITERS)
+        gaps = f32_bound_gaps(base, post0, hyps, cfg, INIT_TRACE_ITERS)
+        trace = gaps["trace"]
+        drop, drop32 = _rel_drops(trace), _rel_drops(trace32)
+        rec = int(np.sum(ris == 1.0))
+        print(f"initmodes {mode}: Kb={base.num_hmms} (K=2, S=2) {n} "
+              f"restarts: init {init_s:.3f}s peak {init_gib:.3f} GiB; EM "
+              f"{iters} iterations {em_s:.3f}s B1 {launches['B1']} "
+              f"launches; {rec}/{n} restarts recover the groups "
+              f"(Rand index 1.0); best-ELBO restart {best} "
+              f"ll={ll[best]:.6g} Rand index {ris[best]:.6f}; trace "
+              f"largest relative decrease f32 {drop32:.3e}, f64 {drop:.3e}; "
+              f"f32 bound at the f64 iterates: largest relative gap "
+              f"{gaps['rel_gap']:.3e}, largest absolute gap by term "
+              f"{ {k: float(f'{v:.3g}') for k, v in gaps['terms'].items()} }",
+              flush=True)
+        fails.check(bool(np.isfinite(ll[best])),
+                    f"initmodes {mode}: best lane's ELBO finite")
+        fails.check(launches["B1"] == iters > 0,
+                    f"initmodes {mode}: B1 launched {launches['B1']} times "
+                    f"for {iters} EM iterations")
+        for what, tr, dr in (("float32", trace32, drop32),
+                             ("float64", trace, drop)):
+            fails.check(bool(torch.all(torch.isfinite(tr)))
+                        and dr <= INIT_MONOTONE,
+                        f"initmodes {mode}: {INIT_TRACE_ITERS} EM iterations "
+                        f"on {n} lanes in {what}, largest relative decrease "
+                        f"{dr:.3e} <= {INIT_MONOTONE:.0e}")
+        fails.check(gaps["rel_gap"] <= GRID_GAP_LIMIT,
+                    f"initmodes {mode}: float32 bound within "
+                    f"{GRID_GAP_LIMIT:.0e} of the float64 one at every "
+                    f"float64 iterate (largest {gaps['rel_gap']:.3e})")
+        out["modes"][mode] = {
+            "recovered": rec, "best_recovers": bool(ris[best] == 1.0),
+            "init_s": init_s, "init_peak_gib": init_gib, "em_s": em_s,
+            "em_iters": iters, "b1_launches": launches["B1"],
+            "trace_drop_f64": drop, "trace_drop_f32": drop32,
+            "f32_bound_gap": gaps["rel_gap"], "term_gaps": gaps["terms"]}
+        del st, post0, trace, trace32
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    reset_counts()
+    t0 = time.perf_counter()
+    res, info = vbhem.cluster(gen, base, AUTO_GRID[0], 2, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    iters = sum(info["model_em_iters"].values())
+    ri = rand_index(res.label.cpu().numpy(), labels)
+    print(f"initmodes cluster auto: K={AUTO_GRID[0]} S=2, {n} restarts a "
+          f"mode: wall {wall:.3f}s, {iters} EM iterations, B1 "
+          f"{launches['B1']}; selected K={info['model_best_k']} Rand index "
+          f"{ri:.6f}; kept modes {info['model_initmode']}; scores "
+          f"{np.asarray(info['model_ll']).ravel().tolist()}", flush=True)
+    fails.check(launches["B1"] == iters > 0,
+                f"initmodes cluster auto: B1 launched {launches['B1']} "
+                f"times for {iters} EM iterations")
+    fails.check(info["model_best_k"] == 2 and ri == 1.0,
+                f"initmodes cluster auto: K={info['model_best_k']} "
+                f"(want 2), Rand index {ri}")
+    out["cluster"] = {"wall_s": wall, "launches": launches,
+                      "kept": {f"{k},{s_}": m for (k, s_), m
+                               in info["model_initmode"].items()}}
+
+    gcfg = dataclasses.replace(cfg, trials=AUTO_GRID_TRIALS)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    reset_counts()
+    t0 = time.perf_counter()
+    res, info = vbhem.cluster_batched(gen, base, *AUTO_GRID, gcfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    glaunches = read_counts()
+    gaps = _cell_gaps(info)
+    worst = max(abs(g) for g in gaps.values())
+    ri = rand_index(res.label.cpu().numpy(), labels)
+    best = (info["model_best_k"], info["model_best_s"])
+    print(f"initmodes cluster_batched auto: K={AUTO_GRID[0]} x "
+          f"S={AUTO_GRID[1]}, {AUTO_GRID_TRIALS} restarts a mode: wall "
+          f"{wall:.3f}s, chunks {info['grid_chunk_iters']}, launches "
+          f"{glaunches}; selected {best} Rand index {ri:.6f}; f32-f64 gaps "
+          f"{gaps}", flush=True)
+    iters = sum(info["grid_chunk_iters"])
+    fails.check(glaunches["B1"] == iters > 0,
+                f"initmodes cluster_batched auto: B1 launched "
+                f"{glaunches['B1']} times for {iters} EM iterations")
+    rescored = int(np.sum(np.isfinite(info["model_ll_device"])))
+    fails.check(glaunches["B3"] == rescored,
+                f"initmodes cluster_batched auto: B3 launched "
+                f"{glaunches['B3']} times for {rescored} rescored cells")
+    fails.check(best == (2, 2) and ri == 1.0,
+                f"initmodes cluster_batched auto: selected {best} (want "
+                f"(2, 2)), Rand index {ri}")
+    fails.check(worst <= GRID_GAP_LIMIT,
+                f"initmodes cluster_batched auto: every cell's f32-f64 gap "
+                f"within {GRID_GAP_LIMIT:.0e} (largest {worst:.3e})")
+    out["grid"] = {"wall_s": wall, "launches": glaunches, "gaps": gaps}
+    out["launches"] = {k: path[k] + launches[k] + glaunches[k]
+                       for k in path}
+    return out
+
+
+GROUPED_N, GROUPED_T = 4096, 50
+GROUPED_TRANS = ([[0.8, 0.2], [0.2, 0.8]], [[0.2, 0.8], [0.8, 0.2]])
+GROUPED_CONFIG = VBConfig(mu0=(1.5, 1.5), w0=1.0, numtrials=20,
+                          learn_hyps=False)
+
+
+def grouped_data(device, dtype=torch.float32, seed=3):
+    """Two stimulus conditions, GROUPED_N / 2 sequences of GROUPED_T
+    fixations each, from 2-state HMMs with shared ROIs (means (0, 0) and
+    (3, 3)) and different dynamics (GROUPED_TRANS: sticky, alternating).
+    Returns (SeqBatch, group_map [GROUPED_N])."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    xs = []
+    for trans in GROUPED_TRANS:
+        hmm = HMM(prior=torch.tensor([0.5, 0.5], dtype=torch.float64),
+                        trans=torch.tensor(trans, dtype=torch.float64),
+                        mean=torch.tensor([[0.0, 0.0], [3.0, 3.0]],
+                                          dtype=torch.float64),
+                        cov=torch.eye(2, dtype=torch.float64).expand(2, 2, 2))
+        xs.append(hmm_tools.sample(gen, hmm, GROUPED_T, GROUPED_N // 2)[1])
+    x = torch.cat(xs).to(device=device, dtype=dtype)
+    lengths = torch.full((GROUPED_N,), GROUPED_T, dtype=torch.int32,
+                         device=device)
+    gm = torch.arange(GROUPED_N, device=device) >= GROUPED_N // 2
+    return SeqBatch(x=x, lengths=lengths), gm.long()
+
+
+def grouped_launch_args(batch, post, group_map):
+    """Kernel B2's fused entry's arguments at the grouped E-step's launch:
+    x and the mask shared by the lanes, each sequence's group scores
+    log_pz1 [L, N, K] and log_trans [L, N, K, K], the emission
+    constants."""
+    x, mask = vbhmm._views(batch, post.alpha.shape[:-2])
+    pz1 = e_log_dirichlet(post.alpha).index_select(-2, group_map)
+    trans = e_log_dirichlet(post.epsilon).index_select(-3, group_map)
+    return x, mask, pz1, trans, fb_plain.emission_constants(post.niw)
+
+
+def phase_grouped(fails: Failures, device) -> dict:
+    """``vbhmm_groups.learn_grouped`` on two stimulus conditions with
+    shared ROIs and different dynamics (:func:`grouped_data`: GROUPED_N
+    sequences of T=50, D=2), K in {1,2,3}, 20 restarts, hyps off, float32:
+    it must select K=2; B2 (per-sequence scores, the fused entry) launched
+    once per EM iteration and once for the standardized model of each K;
+    an ``INIT_TRACE_ITERS``-iteration grouped EM from the K=2 starts whose
+    ELBO never falls by more than 1e-5 relative; and B2 at this launch's
+    own shape (20 lanes of the K=2 starts) held against the plain version
+    in float64 at phase 2's gates, in float32 and float64, and timed."""
+    batch, gm = grouped_data(device)
+    cfg = GROUPED_CONFIG
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    reset_counts()
+    t0 = time.perf_counter()
+    res, info = vbhmm_groups.learn_grouped(gen, batch, [1, 2, 3], gm, 2, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    iters = [inf["em_iters"] for inf in info["model_infos"]]
+    trans = [m.trans.cpu().numpy().round(3).tolist()
+             for m in res.group_models]
+    print(f"grouped: {GROUPED_N} sequences (2 conditions) T={GROUPED_T} "
+          f"D=2, K=[1,2,3], {cfg.numtrials} restarts: wall {wall:.3f}s, "
+          f"EM iterations {iters}, launches {launches}; selected "
+          f"K={info['model_best_k']}; scores {info['model_ll'].tolist()}; "
+          f"group transitions {trans}", flush=True)
+    fails.check(info["model_best_k"] == 2,
+                f"grouped: selected K={info['model_best_k']} (want 2)")
+    want = sum(iters) + len(iters)
+    fails.check(launches["B2_fused"] == want and launches["B2"] == 0,
+                f"grouped: B2's fused entry launched "
+                f"{launches['B2_fused']} times (entry 1 {launches['B2']}) "
+                f"for {sum(iters)} EM iterations + {len(iters)} "
+                f"standardized models")
+
+    hyps = vbhmm.VBHyps.from_config(cfg, 2, torch.float32, device)
+    post0 = vbhmm_groups.from_ungrouped(vbhmm.random_init(
+        torch.Generator(device="cpu").manual_seed(1), batch, 2, hyps,
+        lanes=(cfg.numtrials,)), 2)
+    post, lls = post0, []
+    for _ in range(INIT_TRACE_ITERS):
+        fb = vbhmm_groups.e_step(batch, post, gm)
+        stats = vbhmm_groups.grouped_stats(batch, fb, gm, 2)
+        lls.append(vbhmm_groups.elbo(batch, post, fb, stats, hyps))
+        post = vbhmm_groups.m_step(stats, hyps)
+    drop = _rel_drops(torch.stack(lls))
+    fails.check(bool(torch.all(torch.isfinite(torch.stack(lls))))
+                and drop <= 1e-5,
+                f"grouped: EM trace {INIT_TRACE_ITERS} iterations on "
+                f"{cfg.numtrials} lanes, largest relative decrease "
+                f"{drop:.3e} <= 1e-5")
+
+    max_abs = 0.0
+    for dtype in (torch.float32, torch.float64):
+        cast = tree_map(lambda a: a.to(dtype), post0)
+        b = SeqBatch(x=batch.x.to(dtype), lengths=batch.lengths)
+        args = grouped_launch_args(b, cast, gm)
+        got = fb_cuda.e_step_fused(*args)
+        torch.cuda.synchronize()
+        x, mask, pz1, trans_, _ = args
+
+        def plain_fn(c):
+            return fb_plain.forward_backward(
+                c(pz1), c(trans_), fb_plain.expected_log_gauss(
+                    c(x), tree_map(c, cast.niw)), mask)
+        err = _parity_fb(fails, f"fused grouped launch L={cfg.numtrials} "
+                                f"N={GROUPED_N} per-sequence scores", dtype,
+                         got, lambda: plain_fn(_f64),
+                         lambda: plain_fn(lambda a: a))
+        if dtype == torch.float32:
+            max_abs = err
+        del got
+    args = grouped_launch_args(batch, post0, gm)
+    kernel_ms = device_ms(lambda: fb_cuda.e_step_fused(*args),
+                          DEVICE_NAMES["B2"], 20)
+    plain_s = _time(lambda: fb_plain.forward_backward(
+        args[2], args[3], fb_plain.expected_log_gauss(args[0], post0.niw),
+        args[1]), 3, device)
+    b = b2_fused_bound(*args)
+    print(f"grouped launch: B2 fused, {cfg.numtrials} lanes x {GROUPED_N} "
+          f"sequences T={GROUPED_T} K=2 D=2, per-sequence scores: device "
+          f"{kernel_ms:.4f} ms, plain {plain_s * 1e3:.2f} ms; "
+          f"{_bound_line(b)}", flush=True)
+    return {"launches": launches, "wall_s": wall, "max_abs_f32": max_abs,
+            "grouped_launch": {"kernel_device_ms": kernel_ms,
+                               "plain_ms": plain_s * 1e3,
+                               "bound_ms": b["bound_ms"],
+                               "bound_by": b["bound_by"],
+                               "launches": launches["B2_fused"]}}
+
+
+DEMO_PER_GROUP = 20
+# The demo's Rand index against the two groups must reach this: K_hat=2
+# with at most two of the 40 viewers outside their group's cluster.  On
+# the banks the demo's path learned from data seeds 0-5 (twelve runs of
+# tools/demo_seeds.py, with and without the cut below), the port selected
+# K_hat=2 every time and put 0, 1 or 2 viewers outside their group, and
+# the JAX package's cluster_batched on the same banks
+# (tools/demo_witness_jax.py) put the same viewers there: the misses are
+# the banks', viewers whose learned HMM has fewer ROIs than their group's
+# (PERF.md §6).
+DEMO_MIN_RAND_INDEX = 0.9
+# the demo's cut (depth): its VBEM stage learns hyps on this many
+# survivors a subject with this many L-BFGS steps (the CLI: every
+# survivor, 50 steps), as tools/demo_seeds.py runs it by default
+DEMO_HYP_SOLUTIONS, DEMO_HYP_STEPS = 5, 25
+DEMO_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_demo"
+
+
+def phase_demo(fails: Failures, device) -> dict:
+    """The face demo's path (`vbdemo_face.m`) as its CLI runs it on
+    synthetic data (the reference's demodata.xls is not in the
+    repository): DEMO_PER_GROUP viewers in each of two groups
+    (``demo_fixations.synth_subjects``: 12 trials of 12 fixations on a
+    512 x 384 face) written to a fixation CSV and read back, float32, by
+    ``read_fixations_auto``, which must run the native loader; then
+    ``demo_fixations.demo_path`` with the CLI's synthetic-data settings:
+    per-subject VBEM over S=1..3 with ``VBConfig(numtrials=10,
+    learn_hyps=True)`` and mode 'd' hyps (the subjects as lanes of
+    ``batch.learn_bank``), then ``cluster_batched`` over K=1..5 x S=1..3
+    with ``synthetic_vbhem_config`` (alpha0=1e6, Nv=50, tau=10, 'auto',
+    10 restarts; float32 with the float64 rescoring) and
+    ``vbh3m_remove_empty``.  Gates: K_hat (the clusters that survive
+    pruning, as ``synthetic.run_vbhem`` scores it) = 2 with a Rand index
+    against the groups of at least DEMO_MIN_RAND_INDEX; every cell's
+    score finite; B2's fused entry, B1 and B3 launched.  The reference demo's VBHEM settings are measured
+    over data seeds by ``tools/demo_seeds.py`` (PERF.md §6), not here.
+    Its cuts (depth, printed): the VBEM stage learns hyps on
+    DEMO_HYP_SOLUTIONS survivors a subject with DEMO_HYP_STEPS L-BFGS
+    steps; no plots on the card."""
+    from vbhem_tpu_torch.experiments import demo_fixations as demo
+    from vbhem_tpu_torch.utils import io as fix_io
+    from vbhem_tpu_torch.utils import native_io
+    print(f"demo: cut: VBEM hyps on {DEMO_HYP_SOLUTIONS} survivors per "
+          f"subject, {DEMO_HYP_STEPS} L-BFGS steps (the CLI: every "
+          f"survivor, 50 steps); no plots", flush=True)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    batches, labels = demo.synth_subjects(gen, DEMO_PER_GROUP, device="cpu")
+    names = [f"viewer{i:02d}" for i in range(len(batches))]
+    DEMO_DIR.mkdir(parents=True, exist_ok=True)
+    table = DEMO_DIR / "fixations.csv"
+    fix_io.write_fixations(str(table), dict(zip(names, batches)))
+    t0 = time.perf_counter()
+    subjects, reader = native_io.read_fixations_auto(
+        str(table), dtype=np.float32, device=device)
+    t_read = time.perf_counter() - t0
+    fails.check(reader == "native" and list(subjects) == names,
+                f"demo: {len(subjects)} subjects read by the {reader} "
+                f"reader (want native; {native_io.unavailable_reason()})")
+    batches = [subjects[n] for n in names]
+    stage_launches = {}
+
+    def stage_end(name):
+        torch.cuda.synchronize()
+        stage_launches[name] = read_counts()
+        reset_counts()
+    reset_counts()
+    run = demo.demo_path(gen, batches, table=False, stage_end=stage_end,
+                         max_hyp_solutions=DEMO_HYP_SOLUTIONS,
+                         hyp_max_steps=DEMO_HYP_STEPS)
+    cfg, vcfg, info = run["vb_config"], run["vbhem_config"], run["info"]
+    vb_launches, launches = stage_launches["vbem"], stage_launches["vbhem"]
+    print(f"demo VBEM: {len(batches)} viewers, S=1..3, numtrials="
+          f"{cfg.numtrials} hyps {'on' if cfg.learn_hyps else 'off'}, "
+          f"mu0={tuple(round(float(m), 3) for m in cfg.mu0)} "
+          f"W0={cfg.w0:.6g}: wall {run['wall_s']['vbem']:.3f}s, launches "
+          f"{vb_launches}; S per viewer {run['s_sel']}", flush=True)
+    fails.check(vb_launches["B2_fused"] > 0,
+                f"demo VBEM: B2's fused entry launched "
+                f"{vb_launches['B2_fused']} times")
+    res, group_hmms = run["res"], run["group_hmms"]
+    ri = rand_index(res.label.cpu().numpy(), labels)
+    s_hat = [int(h.model.prior.shape[0]) for h in group_hmms]
+    print(f"demo VBHEM: K={run['grid'][0]} x S={run['grid'][1]} "
+          f"{vcfg.initmode} Nv={vcfg.nv} tau={vcfg.tau} alpha0="
+          f"{vcfg.alpha0:g} {vcfg.trials} restarts hyps "
+          f"{'on' if vcfg.learn_hyps else 'off'}: wall "
+          f"{run['wall_s']['vbhem']:.3f}s, launches {launches}; grid "
+          f"selection K={info['model_best_k']} S={info['model_best_s']}; "
+          f"pruned: K_hat={len(group_hmms)} clusters of S_hat={s_hat} "
+          f"states; groups {[len(g) for g in res.groups]}; Rand index "
+          f"{ri:.6f}; per-K best scores "
+          f"{np.max(info['model_ll'], axis=1).tolist()}; f32-f64 gaps "
+          f"{_cell_gaps(info)}", flush=True)
+    rescored = int(np.sum(np.isfinite(info["model_ll_device"])))
+    fails.check(bool(np.all(np.isfinite(info["model_ll"])))
+                and launches["B1"] > 0 and launches["B3"] == rescored,
+                f"demo VBHEM: every score finite; B1 launched "
+                f"{launches['B1']} times, B3 {launches['B3']} for "
+                f"{rescored} rescored cells")
+    fails.check(len(group_hmms) == 2 and ri >= DEMO_MIN_RAND_INDEX,
+                f"demo: K_hat={len(group_hmms)} after pruning (want 2), "
+                f"Rand index {ri} (want >= {DEMO_MIN_RAND_INDEX})")
+    walls = {"read": t_read, **run["wall_s"]}
+    print(f"demo: K_hat={len(group_hmms)} S_hat={s_hat} Rand index "
+          f"{ri:.6f}; wall {walls}", flush=True)
+    return {"launches": launches, "vbem_launches": vb_launches,
+            "wall_s": walls, "k_hat": len(group_hmms), "s_hat": s_hat,
+            "rand_index": ri}
+
+
+# ---------------------------------------------------------------------------
 # phase 10: timing
 # ---------------------------------------------------------------------------
 
@@ -2386,6 +2881,7 @@ def main() -> int:
             fails.check(False, "the grid chunk's parity and padded vs "
                                "unpadded need the grid's bank")
         run("protocol", lambda: phase_protocol(fails, device, vbem))
+        run("initmodes", lambda: phase_initmodes(fails, device, vbem))
         run("hyp gradient", lambda: phase_hyp_gradient(fails, device, vbem))
         run("timing B2", lambda: timing_b2(device, vbem))
         run("timing B3", lambda: timing_b3(device, vbem))
@@ -2401,6 +2897,8 @@ def main() -> int:
     run("timing wide bodies", lambda: timing_wide(device))
     run("protocol hyps", lambda: phase_protocol_hyps(fails, device))
     run("runner", lambda: phase_runner(fails, device))
+    run("grouped", lambda: phase_grouped(fails, device))
+    run("demo", lambda: phase_demo(fails, device))
 
     lines = []
     for key, parity, path, timing, field in (
@@ -2430,13 +2928,14 @@ def main() -> int:
             path: results[path]["launches"].get(key) + (
                 results[path]["launches"]["B2_fused"] if key == "B2" else 0)
             for path in ("VBHEM path", "VBEM path", "pipeline", "VHEM path",
-                         "grid", "protocol", "protocol hyps", "runner")
+                         "grid", "protocol", "protocol hyps", "runner",
+                         "initmodes", "grouped", "demo")
             if path in results}
-        if "protocol hyps" in results:   # its VBEM stage's own counts
-            lines[-1]["launches_by_path"]["protocol hyps VBEM"] = (
-                results["protocol hyps"]["vbem_launches"].get(key) + (
-                    results["protocol hyps"]["vbem_launches"]["B2_fused"]
-                    if key == "B2" else 0))
+        for path in ("protocol hyps", "demo"):   # their VBEM stages
+            if path in results:
+                vb = results[path]["vbem_launches"]
+                lines[-1]["launches_by_path"][f"{path} VBEM"] = (
+                    vb.get(key) + (vb["B2_fused"] if key == "B2" else 0))
         grid_t = results.get("timing grid", {})
         wide_t = results.get("timing wide bodies", {}).get(key, {})
         if key == "B1" and grid_t:   # the grid's own launch
@@ -2454,6 +2953,9 @@ def main() -> int:
                 "source": WIDE_SOURCES[key],
                 **{f: wide_t.get(f) for f in ("kernel_device_ms", "plain_ms",
                                               "bound_ms", "bound_by")}}
+        if key == "B2" and "grouped" in results:   # per-sequence scores
+            lines[-1]["grouped_launch"] = results["grouped"][
+                "grouped_launch"]
         if key == "B2":   # the main path runs the fused entry; entry 1 too
             lines[-1].update(
                 entry1_ms=t.get("entry1_device_ms"),

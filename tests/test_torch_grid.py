@@ -314,12 +314,18 @@ def test_cluster_batched_f32_reports_device_and_f64_scores(learned_bank):
 
 
 def test_what_is_not_ported_raises(learned_bank):
+    """Every initmode is ported now; what still raises is the JAX
+    package's contract: 'auto' in the single-mode grid worker (the
+    front-end runs it mode by mode) and an unknown mode anywhere."""
     *_, tbase = learned_bank
     gen = torch.Generator().manual_seed(0)
-    for mode in ("auto", "gmmNew", "wtkmeans", "random"):
-        with pytest.raises(NotImplementedError, match="A3"):
-            tv.cluster_batched(gen, tbase, 2, 2,
-                               VBHEMConfig(initmode=mode, learn_hyps=False))
+    cfg = VBHEMConfig(initmode="auto", learn_hyps=False)
+    hyps = tv.VBHEMHyps.from_config(cfg, 2, device="cpu")
+    with pytest.raises(ValueError, match="front-end"):
+        tv.fit_grid_batched(gen, tbase, [2], [2], cfg, hyps)
+    with pytest.raises(ValueError, match="unknown initmode"):
+        tv.cluster_batched(gen, tbase, 2, 2,
+                           VBHEMConfig(initmode="nope", learn_hyps=False))
 
 
 def test_lane_chunk_is_reckoned_from_the_launch():

@@ -54,10 +54,10 @@ def test_cluster_with_hyps_matches_jax(monkeypatch):
     # the JAX package's restarts of the cell, trial by trial
     cell_key = jax.random.fold_in(jax.random.fold_in(key, 0), 0)
     keys = jax.random.split(jax.random.fold_in(cell_key, 0), jcfg.trials)
-    it = iter([to_port(jvh.init_baseem(k, jb, 2, 2, jh, jcfg.nv))
-               for k in keys])
-    monkeypatch.setitem(tvh._INITIALIZERS, "baseem",
-                        lambda *a, **k: next(it))
+    posts = to_port(jax.vmap(lambda k: jvh.init_baseem(
+        k, jb, 2, 2, jh, jcfg.nv))(keys))
+    monkeypatch.setitem(tvh._DRAWS, "baseem", (lambda *a: {},
+                                               lambda *a, **k: posts))
     base = to_port(jb)
     res, info = tvh.cluster(torch.Generator(), base, 2, 2, cfg)
     np.testing.assert_allclose(info["model_ll"], jinfo["model_ll"],
@@ -98,8 +98,8 @@ def test_cluster_batched_with_hyps_matches_jax(monkeypatch):
     posts = jax.vmap(jax.vmap(lambda k: jvh.init_baseem(
         k, jb, max(ks), max(ss), jh, jcfg.nv)))(keys)
     flat = jax.tree.map(lambda a: a.reshape((-1,) + a.shape[2:]), posts)
-    monkeypatch.setitem(tvh._INITIALIZERS, "baseem",
-                        lambda *a, **k: to_port(flat))
+    monkeypatch.setitem(tvh._DRAWS, "baseem", (lambda *a: {},
+                                               lambda *a, **k: to_port(flat)))
     res, info = tvh.cluster_batched(torch.Generator(), to_port(jb), ks, ss,
                                     VBHEMConfig(**GRID_KW))
     assert (info["model_best_k"], info["model_best_s"]) == (

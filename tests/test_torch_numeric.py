@@ -224,4 +224,10 @@ def test_port_imports_with_jax_blocked():
     assert len(names) >= 25
     assert {"vbhem_tpu_torch.models.vhem", "vbhem_tpu_torch.models.dic",
             "vbhem_tpu_torch.ops.kmeans", "vbhem_tpu_torch.utils.metrics",
-            "vbhem_tpu_torch.experiments.synthetic"} <= names
+            "vbhem_tpu_torch.experiments.synthetic",
+            "vbhem_tpu_torch.models.vbhmm_groups",
+            "vbhem_tpu_torch.models.hyp_heuristics",
+            "vbhem_tpu_torch.utils.io", "vbhem_tpu_torch.utils.xls",
+            "vbhem_tpu_torch.utils.native_io", "vbhem_tpu_torch.utils.plots",
+            "vbhem_tpu_torch.utils.profiling",
+            "vbhem_tpu_torch.experiments.demo_fixations"} <= names

@@ -211,12 +211,18 @@ def _jax_h3m(base):
 
 
 def test_cluster_rejects_what_is_not_ported():
+    """Every initmode is ported now; the JAX package's contract stays:
+    'auto' is a ValueError in the single-mode worker, and an unknown mode
+    is one in the front-end too."""
     base, _ = planted.planted_bank(8, torch.device("cpu"), torch.float64)
     gen = torch.Generator().manual_seed(0)
-    for mode in ("auto", "wtkmeans", "gmmNew", "gmmNew2", "random"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tv.cluster(gen, base, 2, 2,
-                       VBHEMConfig(learn_hyps=False, initmode=mode))
+    cfg = VBHEMConfig(learn_hyps=False)
+    assert cfg.initmode == "auto"
+    with pytest.raises(ValueError, match="front-end"):
+        tv.fit_single_ks(gen, base, 2, 2, cfg)
+    with pytest.raises(ValueError, match="unknown initmode"):
+        tv.cluster(gen, base, 2, 2,
+                   VBHEMConfig(learn_hyps=False, initmode="nope"))
     with pytest.raises(ValueError, match="unknown initmode"):
         tv.resolve_initmode("nope")
 

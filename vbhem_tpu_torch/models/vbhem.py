@@ -1,9 +1,10 @@
 """VBHEM: clustering a bank of HMMs into K reduced cluster-center HMMs
 with S states each, without touching raw data — the PyTorch counterpart
-of :mod:`vbhem_tpu.models.vbhem` (the main path: baseem initialization,
-restart trials, the EM loop, (K, S) selection and pruning; and the padded
-(K, S) grid, :func:`cluster_batched`, whose cells and trials are the
-lanes of one masked EM loop).
+of :mod:`vbhem_tpu.models.vbhem` (the five initializers of
+`vbhemhmm_init.m` and the front-ends' 'auto', restart trials, the EM
+loop, (K, S) selection and pruning; and the padded (K, S) grid,
+:func:`cluster_batched`, whose cells and trials are the lanes of one
+masked EM loop).
 
 Where the JAX package vmaps restart trials, the reduced posterior here
 carries an explicit leading lane axis [L, Kr, ...]; every function of the
@@ -30,8 +31,12 @@ from ..containers import (H3M, HMM, H3MPosterior, HMMPosterior, NIW,
 from ..ops.pair_estep import PairStats
 from ..ops import pair_estep_cuda
 from ..ops.pair_estep_cuda import pair_estep_fused_auto
+from ..ops.gmm import (fit_gmm_from_means, mix_hier_em,
+                       sample_without_replacement)
+from ..ops.kmeans import (kmeans, kmeans_pp_from_uniforms,
+                          weighted_kmeans_energy)
 from ..utils.numeric import (e_log_det_lambda, e_log_dirichlet, inv_psd,
-                             lane_hyp, log_wishart_b, logdet_psd, logsumexp,
+                             lane_hyp, log_wishart_b, logdet_psd,
                              masked_e_log_dirichlet,
                              masked_log_dirichlet_const, sym, tiny)
 from . import vbhmm
@@ -252,7 +257,11 @@ def soft_assignments(tilde_n: torch.Tensor, log_omega: torch.Tensor,
     ll_elbo [..., Kb, Kr]."""
     dtype = ll_elbo.dtype
     log_z = tilde_n[:, None] * (log_omega[..., None, :] + ll_elbo)
-    hat_z = torch.exp(log_z - logsumexp(log_z, dim=-1, keepdim=True))
+    # normalized exponentials, not exp(log_z - logsumexp(log_z)): log_z is
+    # tilde_n times the bound (1e4 and more), where one float32 rounding
+    # of the logsumexp scales a row by up to 1e-3, and lt1 = sum z_ni *
+    # ll_elbo then carries that error times the bound (PERF.md §6)
+    hat_z = torch.softmax(log_z, dim=-1)
     hat_z = hat_z + tiny(dtype)
     z_ni = hat_z * tilde_n[:, None]
     nj = torch.sum(z_ni, dim=-2) + tiny(dtype)
@@ -567,28 +576,38 @@ def _emission_w_from_cov(cov: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return inv_psd((v[..., None, None] - d - 1.0) * cov)
 
 
-def init_baseem(gen: torch.Generator, base: H3M, kr: int, sr: int,
-                hyps: VBHEMHyps, nv: int, lanes: tuple = ()) -> H3MPosterior:
-    """'baseem' initializer (`vbhemhmm_init.m:58-100`): each reduced
-    emission copies a random base emission; priors/transitions uniform
-    (initopt mode 'u'); cluster weights random.  Draws on the generator's
-    device, then moves to the bank's.  ``lanes`` draws that many
-    independent starts at once, as leading axes."""
+def _rand(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    """U(0, 1) draws on the generator's device."""
+    return torch.rand(shape, generator=gen, device=gen.device, dtype=dtype)
+
+
+def draw_baseem(gen: torch.Generator, base: H3M, kr: int, sr: int,
+                lanes: tuple = ()) -> dict:
+    """The draws of 'baseem' for ``lanes``, on the generator's device: the
+    base HMM [*L, Kr, Sr] and a uniform that picks its state, and the
+    uniforms of the cluster weights [*L, Kr]."""
+    shp = tuple(lanes) + (kr, sr)
+    return {"rand_b": torch.randint(0, base.num_hmms, shp, generator=gen,
+                                    device=gen.device),
+            "u_state": _rand(gen, shp, torch.float64),
+            "u_omega": _rand(gen, tuple(lanes) + (kr,),
+                             base.hmm.mean.dtype)}
+
+
+def baseem_from_draws(base: H3M, kr: int, sr: int, hyps: VBHEMHyps, nv: int,
+                      rand_b: torch.Tensor, u_state: torch.Tensor,
+                      u_omega: torch.Tensor) -> H3MPosterior:
+    """'baseem' from the draws of :func:`draw_baseem`."""
     dtype = base.hmm.mean.dtype
     dev = base.hmm.mean.device
     kb, sb_max = base.state_mask.shape
     nv_total = nv * kb
     nlr = nv_total / kr
-    lanes = tuple(lanes)
-    shp = lanes + (kr, sr)
-
-    rand_b = torch.randint(0, kb, shp, generator=gen,
-                           device=gen.device).to(dev)
+    shp = tuple(rand_b.shape)
+    rand_b = rand_b.to(dev)
     # random valid state of the chosen base HMM
     n_states = torch.sum(base.state_mask, dim=-1)              # [Kb]
-    u = torch.rand(shp, generator=gen, device=gen.device,
-                   dtype=torch.float64).to(dev)
-    rand_g = torch.floor(u * n_states[rand_b]).to(torch.int64)
+    rand_g = torch.floor(u_state.to(dev) * n_states[rand_b]).to(torch.int64)
     rand_g = torch.clamp(rand_g, max=sb_max - 1)
 
     v = torch.full(shp, float(hyps.v0) + nlr / sr + 1.0, dtype=dtype,
@@ -602,40 +621,496 @@ def init_baseem(gen: torch.Generator, base: H3M, kr: int, sr: int,
         + hyps.eta0
     epsilon = torch.full(shp + (sr,), 1.0 / sr, dtype=dtype,
                          device=dev) * nlr / sr + hyps.epsilon0
-    omega = torch.rand(lanes + (kr,), generator=gen, device=gen.device,
-                       dtype=dtype).to(dev)
+    omega = u_omega.to(dev)
     omega = omega / torch.sum(omega, dim=-1, keepdim=True)
     alpha = hyps.alpha0 + omega * nv_total
     return H3MPosterior(alpha=alpha, eta=eta, epsilon=epsilon,
                         niw=NIW(beta=lam, v=v, m=m, w=w))
 
 
-_INITIALIZERS = {"baseem": init_baseem}
-# initializers of the JAX package that this package does not have yet
-_NOT_PORTED = {
-    "gmmNew": "ROADMAP.md queue A item A3, 'other initializers' "
-              "(ops/gmm.py)",
-    "gmmNew2": "ROADMAP.md queue A item A3, 'other initializers' "
-               "(ops/gmm.py)",
-    "wtkmeans": "ROADMAP.md queue A item A3, 'other initializers' "
-                "(ops/kmeans.py)",
-    "random": "ROADMAP.md queue A item A3, 'other initializers' "
-              "(ops/gmm.py)",
-    "auto": "ROADMAP.md queue A item A3, 'other initializers' (the 'auto' "
-            "try-all needs gmmNew and wtkmeans)",
+def init_baseem(gen: torch.Generator, base: H3M, kr: int, sr: int,
+                hyps: VBHEMHyps, nv: int, lanes: tuple = ()) -> H3MPosterior:
+    """'baseem' initializer (`vbhemhmm_init.m:58-100`): each reduced
+    emission copies a random base emission; priors/transitions uniform
+    (initopt mode 'u'); cluster weights random.  Draws on the generator's
+    device, then moves to the bank's.  ``lanes`` draws that many
+    independent starts at once, as leading axes."""
+    return baseem_from_draws(base, kr, sr, hyps, nv,
+                             **draw_baseem(gen, base, kr, sr, lanes))
+
+
+def _pool(base: H3M):
+    """The bank's states as one pool: means [M, D], covariances
+    [M, D, D] and the valid-state weights [M] (1 real, 0 padded), M =
+    Kb * Sb."""
+    kb, sb = base.state_mask.shape
+    d = base.hmm.mean.shape[-1]
+    return (base.hmm.mean.reshape(kb * sb, d),
+            base.hmm.cov.reshape(kb * sb, d, d),
+            base.state_mask.reshape(-1).to(base.hmm.mean.dtype))
+
+
+def long_run_weights(base: H3M) -> torch.Tensor:
+    """Long-run state weights p A^50 of every base HMM over the pool,
+    masked and normalized to sum 1 (makeGMMweights mode '0',
+    `vbhemhmm_init.m:310-325`): [Kb * Sb]."""
+    p = base.hmm.prior
+    for _ in range(50):
+        p = torch.einsum("ib,ibc->ic", p, base.hmm.trans)
+    w = (p * base.state_mask).reshape(-1)
+    return w / torch.sum(w)
+
+
+def _random_dynamics(u_prior: torch.Tensor, u_trans: torch.Tensor):
+    """Random initial and transition probabilities (initopt mode 'r')
+    from uniform draws [..., Kr, Sr] and [..., Kr, Sr, Sr]."""
+    return (u_prior / torch.sum(u_prior, dim=-1, keepdim=True),
+            u_trans / torch.sum(u_trans, dim=-1, keepdim=True))
+
+
+def _dirichlets(hyps: VBHEMHyps, counts: torch.Tensor, prior, trans):
+    """(alpha, eta, epsilon) of the initializers that spread a cluster's
+    virtual count ``counts`` [..., Kr] over random dynamics."""
+    return (hyps.alpha0 + counts,
+            prior * counts[..., None] + hyps.eta0,
+            trans * counts[..., None, None] + hyps.epsilon0)
+
+
+def wtkmeans_assign(base: H3M, seeds: torch.Tensor) -> torch.Tensor:
+    """The first stage of 'wtkmeans' (`vbhemhmm_init.m:326-350`) from its
+    kmeans++ seeds [*L, Kr, D]: plain k-means of the base emission means
+    over the valid states (the reference's seeded `kmeans`), then the
+    energy-adjusted weighted k-means of `my_weighted_kmeans.m` under the
+    long-run state weights.  Returns each pool state's cluster [*L, M]."""
+    means, _, valid = _pool(base)
+    _, init_c = kmeans(None, means, seeds.shape[-2], weights=valid,
+                       init_centers=seeds)
+    assign, _ = weighted_kmeans_energy(means, long_run_weights(base), init_c)
+    return assign
+
+
+def wtkmeans_cluster_weights(base: H3M, assign: torch.Tensor,
+                             kr: int) -> torch.Tensor:
+    """The point weights of each cluster's k-means into Sr centers: its
+    valid member states, or every valid state where it has none (its
+    centers are then replaced by the global ones).  [*L, Kr, M]."""
+    _, _, valid = _pool(base)
+    member = (assign[..., None, :] == torch.arange(
+        kr, device=assign.device)[:, None]).to(valid.dtype) * valid
+    has = torch.sum(member, dim=-1, keepdim=True) > 0
+    return torch.where(has, member, valid)
+
+
+def wtkmeans_from_draws(base: H3M, kr: int, sr: int, hyps: VBHEMHyps,
+                        nv: int, assign: torch.Tensor,
+                        global_seeds: torch.Tensor,
+                        cluster_seeds: torch.Tensor, u_prior: torch.Tensor,
+                        u_trans: torch.Tensor) -> H3MPosterior:
+    """The rest of 'wtkmeans' (`vbhemhmm_init.m:351-425`) from its draws:
+    the clusters of :func:`wtkmeans_assign`, the kmeans++ seeds of the
+    global k-means into Sr centers [*L, Sr, D] and of each cluster's
+    [*L, Kr, Sr, D] (weighted by :func:`wtkmeans_cluster_weights`), and
+    uniform draws for the random dynamics.  Every W comes from the first
+    base HMM's first state covariance, the reference's recipe
+    (`:411-419`)."""
+    means, covs, valid = _pool(base)
+    dtype, dev = means.dtype, means.device
+    kb = base.num_hmms
+    d = means.shape[-1]
+    lanes = tuple(assign.shape[:-1])
+    shp = lanes + (kr, sr)
+    nj_virt = nv * kb / kr
+    _, global_c = kmeans(None, means, sr, weights=valid,
+                         init_centers=global_seeds)          # [*L, Sr, D]
+    wts = wtkmeans_cluster_weights(base, assign, kr)
+    _, centers = kmeans(None, means, sr, weights=wts,
+                        init_centers=cluster_seeds)          # [*L,Kr,Sr,D]
+    has = torch.any((assign[..., None, :] == torch.arange(
+        kr, device=dev)[:, None]) & (valid > 0), dim=-1)      # [*L, Kr]
+    centers = torch.where(has[..., None, None], centers,
+                          global_c[..., None, :, :])
+    v = torch.full(shp, float(hyps.v0) + nj_virt / sr + 1.0, dtype=dtype,
+                   device=dev)
+    lam = torch.full(shp, float(hyps.lambda0) + nj_virt / sr, dtype=dtype,
+                     device=dev)
+    w = _emission_w_from_cov(covs[0].expand(shp + (d, d)), v)
+    prior, trans = _random_dynamics(u_prior, u_trans)
+    counts = torch.full(lanes + (kr,), nj_virt, dtype=dtype, device=dev)
+    alpha, eta, epsilon = _dirichlets(hyps, counts, prior, trans)
+    return H3MPosterior(alpha=alpha, eta=eta, epsilon=epsilon,
+                        niw=NIW(beta=lam, v=v, m=centers, w=w))
+
+
+def draw_wtkmeans(gen: torch.Generator, base: H3M, kr: int, sr: int,
+                  lanes: tuple = ()) -> dict:
+    """The draws of 'wtkmeans' for ``lanes``, on the generator's device:
+    the kmeans++ uniforms of the Kr cluster seeds [*L, Kr], of the global
+    Sr centers [*L, Sr] and of each cluster's [*L, Kr, Sr]
+    (:func:`~vbhem_tpu_torch.ops.kmeans.kmeans_pp_from_uniforms`), and
+    the uniforms of the random dynamics."""
+    lanes = tuple(lanes)
+    dtype = base.hmm.mean.dtype
+    return {"u_assign": _rand(gen, lanes + (kr,), torch.float64),
+            "u_global": _rand(gen, lanes + (sr,), torch.float64),
+            "u_cluster": _rand(gen, lanes + (kr, sr), torch.float64),
+            "u_prior": _rand(gen, lanes + (kr, sr), dtype),
+            "u_trans": _rand(gen, lanes + (kr, sr, sr), dtype)}
+
+
+def wtkmeans_from_uniforms(base: H3M, kr: int, sr: int, hyps: VBHEMHyps,
+                           nv: int, u_assign: torch.Tensor,
+                           u_global: torch.Tensor, u_cluster: torch.Tensor,
+                           u_prior: torch.Tensor,
+                           u_trans: torch.Tensor) -> H3MPosterior:
+    """'wtkmeans' from the draws of :func:`draw_wtkmeans`: the seeds
+    from their uniforms, then :func:`wtkmeans_assign` and
+    :func:`wtkmeans_from_draws`."""
+    means, _, valid = _pool(base)
+    dev = means.device
+    assign = wtkmeans_assign(base, kmeans_pp_from_uniforms(
+        means, kr, valid, u_assign))
+    return wtkmeans_from_draws(
+        base, kr, sr, hyps, nv, assign,
+        kmeans_pp_from_uniforms(means, sr, valid, u_global),
+        kmeans_pp_from_uniforms(
+            means, sr, wtkmeans_cluster_weights(base, assign, kr),
+            u_cluster),
+        u_prior.to(dev), u_trans.to(dev))
+
+
+def init_wtkmeans(gen: torch.Generator, base: H3M, kr: int, sr: int,
+                  hyps: VBHEMHyps, nv: int, lanes: tuple = ()) -> H3MPosterior:
+    """'wtkmeans' initializer (`vbhemhmm_init.m:294-425`): weighted
+    k-means of the base emission means into Kr clusters (weights = the
+    long-run state probabilities), then k-means of each cluster's members
+    into Sr states; random priors and transitions (initopt mode 'r').
+    One k-means per lane and cluster, all lanes at once."""
+    return wtkmeans_from_uniforms(base, kr, sr, hyps, nv,
+                                  **draw_wtkmeans(gen, base, kr, sr, lanes))
+
+
+def random_labels(gen: torch.Generator, kb: int, kr: int, lanes: tuple = (),
+                  device="cpu") -> torch.Tensor:
+    """A random partition of the Kb base HMMs into Kr clusters per lane,
+    every cluster non-empty where Kb >= Kr (the reference's
+    resample-until loop, `vbhemhmm_init.m:880-900`): the first Kr HMMs of
+    a random permutation get distinct labels, the rest uniform ones.
+    [*lanes, Kb], on ``device``."""
+    lanes = tuple(lanes)
+    perm = torch.argsort(torch.rand(lanes + (kb,), generator=gen,
+                                    device=gen.device), dim=-1)
+    lab = torch.randint(0, kr, lanes + (kb,), generator=gen,
+                        device=gen.device)
+    npin = min(kr, kb)
+    lab.scatter_(-1, perm[..., :npin],
+                 torch.arange(npin, device=gen.device).expand(
+                     lanes + (npin,)).contiguous())
+    return lab.to(device)
+
+
+def _random_pools(base: H3M, labels: torch.Tensor, kr: int):
+    """Each cluster's pool for its GMM: the pooled base means [*L, Kr,
+    M, D] (a broadcast view) and the weights of the cluster's valid member
+    states [*L, Kr, M]."""
+    means, _, valid = _pool(base)
+    kb, sb = base.state_mask.shape
+    lanes = tuple(labels.shape[:-1])
+    member = labels.repeat_interleave(sb, dim=-1)           # [*L, M]
+    w = (member[..., None, :] == torch.arange(
+        kr, device=labels.device)[:, None]).to(means.dtype) * valid
+    return means.expand(lanes + (kr,) + means.shape), w
+
+
+def random_conversion(base: H3M, kr: int, sr: int, hyps: VBHEMHyps, nv: int,
+                      labels: torch.Tensor, mix) -> H3MPosterior:
+    """The hyper-space conversion of 'random' (`vbhemhmm_init.m:983-1030`)
+    from the partition ``labels`` [*L, Kb] and each cluster's GMM ``mix``
+    (weight [*L, Kr, Sr], mean [.., D], cov [.., D, D]): member masses
+    N_i = Nv * omega_b, Nj_rho = N_j * mix.weight, the posterior mean
+    m = (lambda0 m0 + Nj_rho ybar) / lambda and
+    W = inv(W0^-1 + Nj_rho Sigma + lambda0 Nj_rho / (lambda0 + Nj_rho)
+    (ybar - m0)(ybar - m0)^T)."""
+    dtype = mix.mean.dtype
+    n_i = nv * base.omega                                   # [Kb]
+    one_hot = (labels[..., None] == torch.arange(
+        kr, device=labels.device)).to(dtype)                # [*L, Kb, Kr]
+    n_j = torch.sum(one_hot * n_i[:, None], dim=-2)         # [*L, Kr]
+    nj_rho = n_j[..., None] * mix.weight                    # [*L, Kr, Sr]
+    lam = hyps.lambda0 + nj_rho
+    v = hyps.v0 + nj_rho + 1.0
+    ybar = mix.mean
+    m = (hyps.lambda0 * hyps.m0 + nj_rho[..., None] * ybar) / lam[..., None]
+    mult1 = hyps.lambda0 * nj_rho / (hyps.lambda0 + nj_rho)
+    diff = ybar - hyps.m0
+    w_inv = (torch.diag(hyps.w0inv_diag.to(dtype))
+             + nj_rho[..., None, None] * mix.cov
+             + mult1[..., None, None] * diff[..., :, None]
+             * diff[..., None, :])
+    shp = nj_rho.shape
+    eta = hyps.eta0 + torch.broadcast_to((n_j / sr)[..., None], shp)
+    epsilon = hyps.epsilon0 + torch.broadcast_to(
+        (n_j / sr)[..., None, None], shp + (sr,))
+    return H3MPosterior(alpha=hyps.alpha0 + n_j, eta=eta, epsilon=epsilon,
+                        niw=NIW(beta=lam, v=v, m=m.contiguous(),
+                                w=inv_psd(w_inv)))
+
+
+def random_from_draws(base: H3M, kr: int, sr: int, hyps: VBHEMHyps, nv: int,
+                      labels: torch.Tensor,
+                      mean0: torch.Tensor) -> H3MPosterior:
+    """'random' from its draws: the partition ``labels`` [*L, Kb] and each
+    cluster's GMM start means [*L, Kr, Sr, D]."""
+    x, w = _random_pools(base, labels, kr)
+    return random_conversion(base, kr, sr, hyps, nv, labels,
+                             fit_gmm_from_means(x, mean0, w))
+
+
+def draw_random(gen: torch.Generator, base: H3M, kr: int, sr: int,
+                lanes: tuple = ()) -> dict:
+    """The draws of 'random' for ``lanes``, on the generator's device: the
+    partition (:func:`random_labels`, [*L, Kb]) and the uniforms of each
+    cluster's GMM start [*L, Kr, Sr]."""
+    lanes = tuple(lanes)
+    return {"labels": random_labels(gen, base.num_hmms, kr, lanes,
+                                    gen.device),
+            "u_start": _rand(gen, lanes + (kr, sr), torch.float64)}
+
+
+def random_from_uniforms(base: H3M, kr: int, sr: int, hyps: VBHEMHyps,
+                         nv: int, labels: torch.Tensor,
+                         u_start: torch.Tensor) -> H3MPosterior:
+    """'random' from the draws of :func:`draw_random`: each cluster's Sr
+    start means drawn from its member states in proportion to their
+    weights, without replacement
+    (:func:`~vbhem_tpu_torch.ops.gmm.sample_without_replacement`, the
+    start of ``fit_gmm(start_weighted=True)``), the GMM fit from them and
+    the conversion of :func:`random_conversion`."""
+    means = _pool(base)[0]
+    labels = labels.to(means.device)
+    x, w = _random_pools(base, labels, kr)
+    mean0 = means[sample_without_replacement(w, u_start.to(means.device))]
+    return random_conversion(base, kr, sr, hyps, nv, labels,
+                             fit_gmm_from_means(x, mean0, w))
+
+
+def init_random(gen: torch.Generator, base: H3M, kr: int, sr: int,
+                hyps: VBHEMHyps, nv: int, lanes: tuple = ()) -> H3MPosterior:
+    """'random' initializer (`vbhemhmm_init.m:874-1038`): a random
+    partition of the base HMMs into clusters (:func:`random_labels`), an
+    Sr-component GMM fit on each cluster's member emission means, its
+    start means drawn in proportion to the member weights, then the
+    conversion of :func:`random_conversion`.
+
+    As in the JAX package, the reference's small-pool edge cases (Sr == 1
+    a single Gaussian, Nd <= Sr iid-variance padding, `:911-928`) are
+    absorbed by the always-ridged weighted EM fit."""
+    return random_from_uniforms(base, kr, sr, hyps, nv,
+                                **draw_random(gen, base, kr, sr, lanes))
+
+
+def _gmm_new_post(base: H3M, kr: int, sr: int, hyps: VBHEMHyps, nv: int,
+                  mean: torch.Tensor, cov: torch.Tensor,
+                  u_omega: torch.Tensor, u_prior: torch.Tensor,
+                  u_trans: torch.Tensor) -> H3MPosterior:
+    """The conversion shared by 'gmmNew' and 'gmmNew2'
+    (`vbhemhmm_init.m:258-291`): the reduced Gaussians mean [*L, Kr, Sr,
+    D] and cov [.., D, D] as every cluster's emissions, random cluster
+    weights and dynamics, converted to hyperparameter space through the
+    virtual counts Nsj = omega_j * Nv * Kb."""
+    omega = u_omega / torch.sum(u_omega, dim=-1, keepdim=True)
+    nsj = omega * (nv * base.num_hmms)                      # [*L, Kr]
+    nsj_rho = torch.broadcast_to(nsj[..., None] / sr, nsj.shape + (sr,))
+    v = hyps.v0 + nsj_rho + 1.0
+    lam = hyps.lambda0 + nsj_rho
+    prior, trans = _random_dynamics(u_prior, u_trans)
+    alpha, eta, epsilon = _dirichlets(hyps, nsj, prior, trans)
+    return H3MPosterior(alpha=alpha, eta=eta, epsilon=epsilon,
+                        niw=NIW(beta=lam, v=v, m=mean.contiguous(),
+                                w=_emission_w_from_cov(cov, v)))
+
+
+def gmmnew_from_draws(base: H3M, kr: int, sr: int, hyps: VBHEMHyps, nv: int,
+                      seeds: torch.Tensor, u_omega: torch.Tensor,
+                      u_prior: torch.Tensor,
+                      u_trans: torch.Tensor) -> H3MPosterior:
+    """'gmmNew' from its draws: the kmeans++ seeds [*L, Sr, D] of the
+    mixture-hierarchies EM that reduces the pooled base Gaussians to Sr
+    shared components, and uniform draws for omega and the dynamics."""
+    means, covs, valid = _pool(base)
+    red, _ = mix_hier_em(None, means, covs, valid, sr, nv=nv, seeds=seeds)
+    lanes = tuple(seeds.shape[:-2])
+    d = means.shape[-1]
+    return _gmm_new_post(
+        base, kr, sr, hyps, nv,
+        red.mean[..., None, :, :].expand(lanes + (kr, sr, d)),
+        red.cov[..., None, :, :, :].expand(lanes + (kr, sr, d, d)),
+        u_omega, u_prior, u_trans)
+
+
+def _draw_dynamics(gen: torch.Generator, base: H3M, kr: int, sr: int,
+                   lanes: tuple) -> dict:
+    """The uniforms of the cluster weights and the random dynamics of
+    'gmmNew' and 'gmmNew2'."""
+    dtype = base.hmm.mean.dtype
+    return {"u_omega": _rand(gen, lanes + (kr,), dtype),
+            "u_prior": _rand(gen, lanes + (kr, sr), dtype),
+            "u_trans": _rand(gen, lanes + (kr, sr, sr), dtype)}
+
+
+def draw_gmmNew(gen: torch.Generator, base: H3M, kr: int, sr: int,
+                lanes: tuple = ()) -> dict:
+    """The draws of 'gmmNew' for ``lanes``, on the generator's device: the
+    kmeans++ uniforms of the reduction's Sr seeds [*L, Sr], and the
+    uniforms of omega and the dynamics."""
+    lanes = tuple(lanes)
+    return {"u_seeds": _rand(gen, lanes + (sr,), torch.float64),
+            **_draw_dynamics(gen, base, kr, sr, lanes)}
+
+
+def gmmnew_from_uniforms(base: H3M, kr: int, sr: int, hyps: VBHEMHyps,
+                         nv: int, u_seeds: torch.Tensor,
+                         u_omega: torch.Tensor, u_prior: torch.Tensor,
+                         u_trans: torch.Tensor) -> H3MPosterior:
+    """'gmmNew' from the draws of :func:`draw_gmmNew`."""
+    means, _, valid = _pool(base)
+    dev = means.device
+    return gmmnew_from_draws(
+        base, kr, sr, hyps, nv,
+        kmeans_pp_from_uniforms(means, sr, valid, u_seeds),
+        u_omega.to(dev), u_prior.to(dev), u_trans.to(dev))
+
+
+def init_gmmNew(gen: torch.Generator, base: H3M, kr: int, sr: int,
+                hyps: VBHEMHyps, nv: int, lanes: tuple = ()) -> H3MPosterior:
+    """'gmmNew' initializer (`vbhemhmm_init.m:103-291`): pool all base
+    emission Gaussians, reduce them to Sr components with
+    mixture-hierarchies EM (`GMM_MixHierEM.m`) and use them as every
+    cluster's emissions; priors, transitions and cluster weights random."""
+    return gmmnew_from_uniforms(base, kr, sr, hyps, nv,
+                                **draw_gmmNew(gen, base, kr, sr, lanes))
+
+
+def gmmnew2_from_draws(base: H3M, kr: int, sr: int, hyps: VBHEMHyps,
+                       nv: int, seeds: torch.Tensor, use: torch.Tensor,
+                       u_omega: torch.Tensor, u_prior: torch.Tensor,
+                       u_trans: torch.Tensor) -> H3MPosterior:
+    """'gmmNew2' from its draws: the kmeans++ seeds [*L, Kr*Sr, D] of the
+    reduction to Kr*Sr components, the permutation ``use`` [*L, Kr*Sr]
+    that deals them out in blocks of Sr, and uniform draws for omega and
+    the dynamics."""
+    means, covs, valid = _pool(base)
+    red, _ = mix_hier_em(None, means, covs, valid, kr * sr, nv=nv,
+                         seeds=seeds)
+    lanes = tuple(seeds.shape[:-2])
+    d = means.shape[-1]
+    idx = use.reshape(lanes + (kr * sr,))
+    mean = torch.gather(red.mean, -2, idx[..., None].expand(
+        lanes + (kr * sr, d))).reshape(lanes + (kr, sr, d))
+    cov = torch.gather(red.cov, -3, idx[..., None, None].expand(
+        lanes + (kr * sr, d, d))).reshape(lanes + (kr, sr, d, d))
+    return _gmm_new_post(base, kr, sr, hyps, nv, mean, cov, u_omega, u_prior,
+                         u_trans)
+
+
+def draw_gmmNew2(gen: torch.Generator, base: H3M, kr: int, sr: int,
+                 lanes: tuple = ()) -> dict:
+    """The draws of 'gmmNew2' for ``lanes``, on the generator's device:
+    the kmeans++ uniforms of the reduction's Kr*Sr seeds [*L, Kr*Sr], the
+    permutation that deals the reduced Gaussians out [*L, Kr*Sr], and the
+    uniforms of omega and the dynamics."""
+    lanes = tuple(lanes)
+    return {"u_seeds": _rand(gen, lanes + (kr * sr,), torch.float64),
+            "use": torch.argsort(_rand(gen, lanes + (kr * sr,),
+                                       torch.float32), dim=-1),
+            **_draw_dynamics(gen, base, kr, sr, lanes)}
+
+
+def gmmnew2_from_uniforms(base: H3M, kr: int, sr: int, hyps: VBHEMHyps,
+                          nv: int, u_seeds: torch.Tensor, use: torch.Tensor,
+                          u_omega: torch.Tensor, u_prior: torch.Tensor,
+                          u_trans: torch.Tensor) -> H3MPosterior:
+    """'gmmNew2' from the draws of :func:`draw_gmmNew2`."""
+    means, _, valid = _pool(base)
+    dev = means.device
+    return gmmnew2_from_draws(
+        base, kr, sr, hyps, nv,
+        kmeans_pp_from_uniforms(means, kr * sr, valid, u_seeds),
+        use.to(dev), u_omega.to(dev), u_prior.to(dev), u_trans.to(dev))
+
+
+def init_gmmNew2(gen: torch.Generator, base: H3M, kr: int, sr: int,
+                 hyps: VBHEMHyps, nv: int, lanes: tuple = ()) -> H3MPosterior:
+    """'gmmNew2' (`vbhemhmm_init.m:103-291`, the tmpK = Sr*Kr branch): like
+    'gmmNew', but the pooled bank is reduced to Kr*Sr components and each
+    cluster gets its own random block of Sr of them."""
+    return gmmnew2_from_uniforms(base, kr, sr, hyps, nv,
+                                 **draw_gmmNew2(gen, base, kr, sr, lanes))
+
+
+_INITIALIZERS = {
+    "baseem": init_baseem,
+    "gmmNew": init_gmmNew,
+    "gmmNew2": init_gmmNew2,
+    "wtkmeans": init_wtkmeans,
+    "random": init_random,
 }
+# each mode's draws and the function that makes its posteriors from them
+_DRAWS = {
+    "baseem": (draw_baseem, baseem_from_draws),
+    "gmmNew": (draw_gmmNew, gmmnew_from_uniforms),
+    "gmmNew2": (draw_gmmNew2, gmmnew2_from_uniforms),
+    "wtkmeans": (draw_wtkmeans, wtkmeans_from_uniforms),
+    "random": (draw_random, random_from_uniforms),
+}
+# the modes 'auto' tries in each cell (`vbhem_h3m_cluster.m:363-399`)
+AUTO_MODES = ("baseem", "gmmNew", "wtkmeans")
 
 
 def resolve_initmode(mode: str) -> str:
-    """Validate an initmode: 'baseem' runs; the JAX package's other modes
-    raise NotImplementedError naming the ROADMAP item that ports them."""
-    if mode in _INITIALIZERS:
-        return mode
-    if mode in _NOT_PORTED:
-        raise NotImplementedError(
-            f"initmode {mode!r} is not ported yet: {_NOT_PORTED[mode]}")
-    raise ValueError(f"unknown initmode {mode!r}; expected one of "
-                     f"{sorted(_INITIALIZERS) + sorted(_NOT_PORTED)}")
+    """Validate an initmode for a single-mode fitting entry point
+    (:func:`fit_single_ks`, :func:`fit_grid_batched`).
+
+    'auto' (try baseem, gmmNew and wtkmeans, keep the best,
+    `vbhem_h3m_cluster.m:363-399`) is implemented by the front-ends
+    :func:`cluster` and :func:`cluster_batched`, which run the single-mode
+    workers once per mode; here it is a ValueError, as is an unknown
+    mode."""
+    if mode == "auto":
+        raise ValueError(
+            "initmode='auto' is a front-end (cluster/cluster_batched) "
+            "feature; this single-mode entry point needs an explicit "
+            "initmode from " + str(sorted(_INITIALIZERS)))
+    if mode not in _INITIALIZERS:
+        raise ValueError(f"unknown initmode {mode!r}; expected one of "
+                         f"{sorted(_INITIALIZERS)} (or 'auto' via the "
+                         f"cluster front-ends)")
+    return mode
+
+
+def front_end_modes(mode: str) -> list:
+    """The single modes a front-end runs for ``mode``: AUTO_MODES for
+    'auto', else the mode itself (validated)."""
+    if mode == "auto":
+        return list(AUTO_MODES)
+    return [resolve_initmode(mode)]
+
+
+def draw_lanes(mode: str, gen: torch.Generator, base: H3M, kr: int, sr: int,
+               hyps: VBHEMHyps, nv: int, n: int,
+               chunk: Optional[int] = None) -> H3MPosterior:
+    """``n`` initial posteriors of ``mode`` on a leading lane axis: every
+    lane's draws made at once (they are a few numbers a lane, the
+    partition for 'random'), then turned into posteriors ``chunk`` lanes
+    at a time (all at once for None).  The chunking changes nothing but
+    memory: each lane's start is the same for every ``chunk``."""
+    draw, consume = _DRAWS[resolve_initmode(mode)]
+    draws = draw(gen, base, kr, sr, (n,))
+    step = chunk or n
+    parts = [consume(base, kr, sr, hyps, nv,
+                     **{k: v[a:a + step] for k, v in draws.items()})
+             for a in range(0, n, step)]
+    return parts[0] if len(parts) == 1 else tree_map(
+        lambda *xs: torch.cat(xs), *parts)
 
 
 # ---------------------------------------------------------------------------
@@ -674,15 +1149,17 @@ def fit_single_ks(gen: torch.Generator, base: H3M, kr: int, sr: int,
                   config: VBHEMConfig, hyps: Optional[VBHEMHyps] = None,
                   initmode: Optional[str] = None) -> VBHEMState:
     """Random restarts for one (K, S) cell (`vbhem_h3m_c.m:28-76`): the
-    ``config.trials`` restarts are the lanes of one :func:`vbhem_em`.
+    ``config.trials`` restarts of one initmode ('auto' is a ValueError
+    here, see :func:`resolve_initmode`) are the lanes of one
+    :func:`vbhem_em`, drawn at once (:func:`draw_lanes`).
     Returns the VBHEMState with a leading trial axis."""
     dtype = base.hmm.mean.dtype
     if hyps is None:
         hyps = VBHEMHyps.from_config(config, base.hmm.mean.shape[-1], dtype,
                                      base.hmm.mean.device)
-    init_fn = _INITIALIZERS[resolve_initmode(initmode or config.initmode)]
-    post0 = stack_lanes([init_fn(gen, base, kr, sr, hyps, config.nv)
-                         for _ in range(config.trials)])
+    mode = resolve_initmode(initmode or config.initmode)
+    post0 = draw_lanes(mode, gen, base, kr, sr, hyps, config.nv,
+                       config.trials)
     return vbhem_em(base, post0, hyps, nv=config.nv, tau=config.tau,
                     max_iter=config.max_iter, min_diff=config.min_diff,
                     covar_type=config.covar_type)
@@ -840,38 +1317,52 @@ def cluster(gen: torch.Generator, base: H3M, k, s,
 
     ``k``/``s`` may be ints or sequences.  Grid cells are scored by
     ``LL + lgamma(K+1) + lgamma(S+1)`` and selected by the reference's
-    two-stage rule (:func:`_two_stage_select`).
+    two-stage rule (:func:`_two_stage_select`).  The default initmode
+    'auto' runs the cell's restarts once per mode of AUTO_MODES (baseem,
+    gmmNew, wtkmeans) and keeps the best solution
+    (`vbhem_h3m_cluster.m:363-399`); ``info['model_initmode']`` names the
+    mode each cell kept.
 
-    With ``config.learn_hyps`` every cell's unique restart solutions are
+    With ``config.learn_hyps`` every mode's unique restart solutions are
     hyp-optimized together (:func:`optimize_solution_hyps_batched`), the
     degraded and degenerate lanes revert, and the cell keeps its best
-    lane; ``info['model_hyps']`` holds each cell's kept hyps and
-    ``info['hyp_stages']`` each cell's counts.  Returns (VBHEMResult, info
-    dict)."""
-    resolve_initmode(config.initmode)
+    lane over the modes; ``info['model_hyps']`` holds each cell's kept
+    hyps and ``info['hyp_stages']`` the kept mode's counts.
+    ``info['model_em_iters']`` counts each cell's EM iterations, the
+    slowest restart's per mode, summed over the modes.  Returns
+    (VBHEMResult, info dict)."""
+    modes = front_end_modes(config.initmode)
     ks = list(k) if isinstance(k, (list, tuple, range)) else [int(k)]
     ss = list(s) if isinstance(s, (list, tuple, range)) else [int(s)]
     dim = base.hmm.mean.shape[-1]
     hyps0 = hyps if hyps is not None else VBHEMHyps.from_config(
         config, dim, base.hmm.mean.dtype, base.hmm.mean.device)
 
-    results, em_iters, cell_hyps, stages = {}, {}, {}, {}
+    results, em_iters, cell_hyps, stages, kept = {}, {}, {}, {}, {}
     scores = np.full((len(ks), len(ss)), -np.inf)
     for ki, kk in enumerate(ks):
         for si, sv in enumerate(ss):
-            states = fit_single_ks(gen, base, kk, sv, config, hyps0)
-            # the lanes run together until the slowest is done
-            em_iters[(kk, sv)] = int(torch.max(states.it))
-            cell_hyps[(kk, sv)] = hyps0
+            best = None
+            em_iters[(kk, sv)] = 0
+            for mode in modes:
+                states = fit_single_ks(gen, base, kk, sv, config, hyps0,
+                                       initmode=mode)
+                # the lanes run together until the slowest is done
+                em_iters[(kk, sv)] += int(torch.max(states.it))
+                h, stage = hyps0, None
+                if config.learn_hyps:
+                    st, h, stage = _cell_hyps(base, states, hyps0, config)
+                else:
+                    st = select_best_trial(states)
+                ll = float(st.ll)
+                # every trial unstable: coalesce to -inf, keep the state
+                # so finalize() has a model to package
+                ll = ll if np.isfinite(ll) else -np.inf
+                if best is None or ll > best[0]:
+                    best = (ll, st, h, stage, mode)
+            ll, st, cell_hyps[(kk, sv)], stage, kept[(kk, sv)] = best
             if config.learn_hyps:
-                st, cell_hyps[(kk, sv)], stages[(kk, sv)] = _cell_hyps(
-                    base, states, hyps0, config)
-            else:
-                st = select_best_trial(states)
-            ll = float(st.ll)
-            # every trial unstable: coalesce to -inf, keep the state so
-            # finalize() has a model to package
-            ll = ll if np.isfinite(ll) else -np.inf
+                stages[(kk, sv)] = stage
             results[(kk, sv)] = finalize(st)
             scores[ki, si] = ll + math.lgamma(kk + 1) + math.lgamma(sv + 1)
 
@@ -881,8 +1372,8 @@ def cluster(gen: torch.Generator, base: H3M, k, s,
             "model_best_s_per_k": s_star, "model_k": ks, "model_s": ss,
             "model_best_k": best_k, "model_best_s": best_s,
             "model_all": results, "model_em_iters": em_iters,
-            "model_hyps": cell_hyps, "vbhemopt": config,
-            "version": __version__}
+            "model_hyps": cell_hyps, "model_initmode": kept,
+            "vbhemopt": config, "version": __version__}
     if config.learn_hyps:
         info["hyp_stages"] = stages
     return results[(best_k, best_s)], info
@@ -987,16 +1478,18 @@ def fit_grid_batched(gen: torch.Generator, base: H3M, ks, ss,
                      config: VBHEMConfig, hyps: VBHEMHyps,
                      initmode: Optional[str] = None,
                      trial_chunk: Optional[int] = None):
-    """The whole (K, S) x trials sweep as the lanes of one masked EM loop.
+    """The whole (K, S) x trials sweep of one initmode as the lanes of one
+    masked EM loop.
 
     Every cell is padded to (max K, max S) with cluster and state masks;
     (cell, trial) pairs are flattened into lanes, each with its own masks,
-    and their initial posteriors drawn at the padded size up front, in
-    cell-major order.  ``trial_chunk`` lanes (a count of flattened lanes,
-    as in the JAX package) run together, one chunk after another; None
-    takes :func:`lane_chunk`'s default from the card's memory (no
-    chunking on the CPU).  Chunking changes nothing but memory and time:
-    each lane's arithmetic is the same.
+    and their initial posteriors drawn at the padded size in cell-major
+    order, up front, in the EM's lane chunks.  ``trial_chunk`` lanes (a
+    count of flattened lanes, as in the JAX package) run together, one
+    chunk after another; None takes :func:`lane_chunk`'s default from the
+    card's memory (no chunking on the CPU).  Chunking changes nothing but
+    memory and time: each lane's arithmetic is the same.  'auto' is a
+    ValueError here (:func:`cluster_batched` runs it mode by mode).
 
     Returns (VBHEMState with leading [n_cells, trials] axes, cells list,
     cmasks [n_cells, Kmax], smasks [n_cells, Smax])."""
@@ -1008,16 +1501,16 @@ def fit_grid_batched(gen: torch.Generator, base: H3M, ks, ss,
               < torch.tensor([k for k, _ in cells], device=dev)[:, None])
     smasks = (torch.arange(smax, device=dev)
               < torch.tensor([s for _, s in cells], device=dev)[:, None])
-    init_fn = _INITIALIZERS[resolve_initmode(initmode or config.initmode)]
+    mode = resolve_initmode(initmode or config.initmode)
 
     n_cells, trials = len(cells), config.trials
     n_lanes = n_cells * trials
-    post0 = init_fn(gen, base, kmax, smax, hyps, config.nv,
-                    lanes=(n_lanes,))
-    ci = torch.arange(n_cells, device=dev).repeat_interleave(trials)
-    cm, sm = cmasks[ci], smasks[ci]
     if trial_chunk is None:
         trial_chunk = lane_chunk(base, kmax, smax, config.tau, n_lanes)
+    post0 = draw_lanes(mode, gen, base, kmax, smax, hyps, config.nv, n_lanes,
+                       trial_chunk)
+    ci = torch.arange(n_cells, device=dev).repeat_interleave(trials)
+    cm, sm = cmasks[ci], smasks[ci]
     chunk = trial_chunk or n_lanes
     parts = []
     for a in range(0, n_lanes, chunk):
@@ -1092,6 +1585,13 @@ def cluster_batched(gen: torch.Generator, base: H3M, k, s,
     sliced down to its (K, S), scored by LL + lgamma(K+1) + lgamma(S+1)
     and selected by :func:`_two_stage_select`.
 
+    The default initmode 'auto' runs the sweep once per mode of
+    AUTO_MODES and concatenates the restarts along the trials axis before
+    the hyp stage and the selection (the reference keeps the best mode
+    per cell, `vbhem_h3m_cluster.m:363-399`; the best over the union of
+    the modes' trials is the same winner, only uniqueLL then sees every
+    mode's solutions together).
+
     With ``config.learn_hyps`` the cells' unique restart solutions are
     hyp-optimized as lanes of one L-BFGS over the whole grid
     (:func:`optimize_hyps_grid_batched`) and each cell keeps its best lane
@@ -1103,14 +1603,12 @@ def cluster_batched(gen: torch.Generator, base: H3M, k, s,
     B3's float64 body on the card) and selection uses those scores:
     ``info['model_ll']`` holds them, ``model_ll_device`` the float32 ones.
     Beside the JAX package's keys, ``info`` has ``model_em_iters`` (each
-    cell's slowest trial), ``grid_trial_chunk`` (the lanes per chunk, None
-    for one chunk) and ``grid_chunk_iters`` (the EM iterations, one pair
-    E-step each, of every chunk of the restarts).
-
-    The initializers other than baseem, 'auto' among them (A3), raise
-    NotImplementedError."""
+    cell's slowest trial, summed over the modes), ``grid_trial_chunk``
+    (the lanes per chunk, None for one chunk) and ``grid_chunk_iters``
+    (the EM iterations, one pair E-step each, of every chunk of the
+    restarts, mode after mode)."""
     from . import rescore as rescore_mod
-    resolve_initmode(config.initmode)
+    modes = front_end_modes(config.initmode)
     ks = list(k) if isinstance(k, (list, tuple, range)) else [int(k)]
     ss = list(s) if isinstance(s, (list, tuple, range)) else [int(s)]
     dim = base.hmm.mean.shape[-1]
@@ -1120,9 +1618,19 @@ def cluster_batched(gen: torch.Generator, base: H3M, k, s,
 
     n_lanes = len(ks) * len(ss) * config.trials
     chunk = lane_chunk(base, max(ks), max(ss), config.tau, n_lanes)
-    states, cells, cmasks, smasks = fit_grid_batched(
-        gen, base, ks, ss, config, hyps0, trial_chunk=chunk)
-    its = states.it.cpu().numpy()
+    per_mode, chunk_iters = [], []
+    for mode in modes:
+        st_m, cells, cmasks, smasks = fit_grid_batched(
+            gen, base, ks, ss, config, hyps0, initmode=mode,
+            trial_chunk=chunk)
+        chunk_iters += chunk_iterations(st_m.it, chunk)
+        per_mode.append(st_m)
+    states = per_mode[0] if len(per_mode) == 1 else tree_map(
+        lambda *xs: torch.cat(xs, dim=1), *per_mode)
+    del per_mode
+    # each cell's EM iterations: its slowest trial per mode
+    its = sum(p.cpu().numpy().max(axis=1) for p in states.it.split(
+        config.trials, dim=1))
     hyp_stats = {}
     if config.learn_hyps:
         sts, lane_cell, hyps_lanes = optimize_hyps_grid_batched(
@@ -1147,7 +1655,7 @@ def cluster_batched(gen: torch.Generator, base: H3M, k, s,
     results, em_iters, cell_hyps = {}, {}, {}
     for ci, (kk, sv) in enumerate(cells):
         st, cell_hyps[(kk, sv)] = cell_state(ci)
-        em_iters[(kk, sv)] = int(its[ci].max())
+        em_iters[(kk, sv)] = int(its[ci])
         p = st.post
         post = H3MPosterior(
             alpha=p.alpha[:kk].clone(), eta=p.eta[:kk, :sv].clone(),
@@ -1185,8 +1693,7 @@ def cluster_batched(gen: torch.Generator, base: H3M, k, s,
             "model_best_k": best_k, "model_best_s": best_s,
             "model_all": results, "model_hyps": cell_hyps,
             "model_em_iters": em_iters, "grid_trial_chunk": chunk,
-            "grid_chunk_iters": chunk_iterations(
-                torch.as_tensor(its), chunk),
+            "grid_chunk_iters": chunk_iters,
             "vbhemopt": config, "version": __version__}
     if config.learn_hyps:
         info["hyp"] = hyp_stats

@@ -1,11 +1,14 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-The sources under ``vbhem_tpu_torch/csrc/`` export a plain C interface
-and are compiled by ``nvcc`` for ``sm_90a``, each in its own process and
-all at once, and linked into one shared library in
+The ``.cu`` sources under ``vbhem_tpu_torch/csrc/`` export a plain C
+interface and are compiled by ``nvcc`` for ``sm_90a``, each in its own
+process and all at once, and linked into one shared library in
 ``build/vbhem_tpu_torch/`` beside the package (a directory the repository
 ignores).  The library's file name carries a hash of every file under
-``csrc/`` and of the flags, so an edited source or header builds anew.  Nothing here runs at
+``csrc/`` and of the flags, so an edited source or header builds anew.
+Host-only sources (the fixation loader, ``csrc/fixation_loader.cc``) are
+built by the host C++ compiler into the same directory by
+:func:`build_host`, under a hash of their own.  Nothing here runs at
 import time: this module imports on machines with no CUDA toolkit.
 """
 from __future__ import annotations
@@ -25,6 +28,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "vbhem_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-Wall",
+                  "-Wextra")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -33,6 +38,11 @@ _lib: Optional[ctypes.CDLL] = None
 class KernelBuildError(RuntimeError):
     """nvcc is missing or refused the sources; carries the compiler's
     output."""
+
+
+class HostBuildError(RuntimeError):
+    """The host C++ compiler is missing or refused a host source; carries
+    the compiler's output."""
 
 
 def find_nvcc() -> Optional[str]:
@@ -135,3 +145,44 @@ def c_function(name: str, argtypes) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def find_cxx() -> Optional[str]:
+    """Path of the host C++ compiler: $CXX, else c++ or g++ on PATH."""
+    for name in (os.environ.get("CXX"), "c++", "g++"):
+        found = shutil.which(name) if name else None
+        if found:
+            return found
+    return None
+
+
+def host_library_path(source: Path) -> Path:
+    """Where the host library built from ``source`` lives: its name
+    carries a hash of the source and of the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    h.update(" ".join(HOST_CXX_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
+
+
+def build_host(source: Path) -> Path:
+    """Compile the host-only ``source`` into a shared library with the host
+    C++ compiler unless the library for it exists; returns its path.
+    Raises HostBuildError without a compiler or when it fails."""
+    lib_path = host_library_path(source)
+    if lib_path.is_file():
+        return lib_path
+    cxx = find_cxx()
+    if cxx is None:
+        raise HostBuildError(f"no host C++ compiler ($CXX, c++ or g++) to "
+                             f"build {source.name}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        so = Path(tmp) / lib_path.name
+        proc = subprocess.run([cxx, *HOST_CXX_FLAGS, "-o", str(so),
+                               str(source)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise HostBuildError(
+                f"{cxx} failed on {source.name}, exit code "
+                f"{proc.returncode}:\n{proc.stdout}{proc.stderr}")
+        os.replace(so, lib_path)
+    return lib_path

@@ -1,5 +1,6 @@
-"""GMM fitting that initializes VBEM, and the mixture-hierarchies EM that
-initializes VHEM: the counterpart of :mod:`vbhem_tpu.ops.gmm`
+"""GMM fitting that initializes VBEM (and the VBHEM 'random' initializer),
+and the mixture-hierarchies EM that initializes VHEM and the VBHEM
+'gmmNew' pair: the counterpart of :mod:`vbhem_tpu.ops.gmm`
 (``fit_gmm``, ``fit_gmm_split`` and ``mix_hier_em``).
 
 Same convention as MATLAB's ``gmdistribution.fit(..., 'Start',
@@ -26,6 +27,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from .kmeans import inverse_cdf
 from ..utils.numeric import (inv_psd, lane_contract, logdet_psd,
                              logsumexp, quad_diff, sym)
 
@@ -151,26 +153,54 @@ def fit_gmm_from_means(x: torch.Tensor, mean0: torch.Tensor,
 def fit_gmm(gen: torch.Generator, x: torch.Tensor, k: int,
             weights: Optional[torch.Tensor] = None,
             lanes: Sequence[int] = (), max_iter: int = 100,
-            tol: float = 1e-5, reg: float = 1e-6) -> GMM:
+            tol: float = 1e-5, reg: float = 1e-6,
+            start_weighted: bool = False) -> GMM:
     """EM fit of K-component full-covariance GMMs on x [*X, M, D], one
     per data row and restart lane: the result has axes [*X, *lanes].
 
     ``weights`` [*X, M] weights each point (0 masks a padded one).  The
-    randSample start draws K distinct points per lane uniformly, as the
-    JAX package's ``fit_gmm`` does (its ``start_weighted`` draw serves
-    the VBHEM ``gmmNew`` initializers, which are not ported yet).
-    ``reg`` is a relative ridge on the covariances."""
+    randSample start draws K distinct points per lane, uniformly, or with
+    ``start_weighted`` in proportion to ``weights`` (without replacement,
+    by Gumbel top-k: a point of weight 0 never seeds a component while
+    K points of positive weight exist), as the JAX package's ``fit_gmm``
+    draws them for the VBHEM 'random' initializer's per-cluster pools
+    (`vbhemhmm_init.m:874-1038`).  ``reg`` is a relative ridge on the
+    covariances."""
     lanes = tuple(lanes)
     m, d = x.shape[-2:]
     nx = x.dim() - 2
     shape = x.shape[:nx] + lanes + (m,)
     u = torch.rand(shape, generator=gen, device=gen.device,
                    dtype=torch.float64).to(x.device)
+    if start_weighted:
+        w = _weights(x, weights).double()
+        w = w.reshape(w.shape[:nx] + (1,) * len(lanes) + (m,))
+        u = torch.log(w / torch.sum(w, dim=-1, keepdim=True)) \
+            - torch.log(-torch.log(u.clamp_min(1e-300)))
     idx = torch.topk(u, k, dim=-1).indices                   # [*X, *L, K]
     xl = x.reshape(x.shape[:nx] + (1,) * len(lanes) + (m, d))
     xl = torch.broadcast_to(xl, x.shape[:nx] + lanes + (m, d))
     mean0 = torch.gather(xl, -2, idx[..., None].expand(idx.shape + (d,)))
     return fit_gmm_from_means(x, mean0, weights, max_iter, tol, reg)
+
+
+def sample_without_replacement(weights: torch.Tensor,
+                               u: torch.Tensor) -> torch.Tensor:
+    """K distinct indices per row of weights [*X, M] >= 0 from drawn
+    uniforms u [*X, K]: successive draws by inverse CDF in proportion to
+    the weights of the indices not yet drawn (uniform over those where
+    none of positive weight is left), the distribution of
+    ``fit_gmm(start_weighted=True)``'s Gumbel top-k.  [*X, K]."""
+    left = weights.double().clone()
+    free = torch.ones_like(left)
+    out = []
+    for t in range(u.shape[-1]):
+        p = torch.where(torch.sum(left, -1, keepdim=True) > 0, left, free)
+        i = inverse_cdf(p, u[..., t])[..., None]
+        left.scatter_(-1, i, 0.0)
+        free.scatter_(-1, i, 0.0)
+        out.append(i[..., 0])
+    return torch.stack(out, dim=-1)
 
 
 def fit_gmm_split(x: torch.Tensor, k: int,
@@ -243,20 +273,24 @@ def fit_gmm_split(x: torch.Tensor, k: int,
 def mix_hier_em(gen: torch.Generator, mean: torch.Tensor, cov: torch.Tensor,
                 prior: torch.Tensor, t: int, nv: float = 100.0,
                 max_iter: int = 30, tol: float = 1e-6,
-                lanes: Sequence[int] = ()):
+                lanes: Sequence[int] = (),
+                seeds: Optional[torch.Tensor] = None):
     """Vasconcelos mixture-hierarchies EM: reduce a pooled bank of P
     Gaussians to a T-component GMM using virtual samples
     (`GMM_MixHierEM.m`: E-step `:113-165`, M-step `:179-199`), for the
-    VHEM 'gmmNew', 'gmmNew2' and 'gmm' initializers.
+    VHEM 'gmmNew', 'gmmNew2' and 'gmm' initializers and the VBHEM
+    'gmmNew' pair.
 
     mean [P, D], cov [P, D, D], prior [P] (masked-out components carry
     prior 0 and are inert), shared by the restart ``lanes``; each lane
-    seeds its own weighted kmeans++ start.  Returns (GMM with axes
-    [*lanes, T], log-posterior lp [*lanes, T, P]).  A lane stops once its
+    seeds its own weighted kmeans++ start, or starts from the given
+    kmeans++ ``seeds`` [*lanes, T, D] (the lanes then are their leading
+    axes; a test hands both packages the same seeds).  Returns (GMM with
+    axes [*lanes, T], log-posterior lp [*lanes, T, P]).  A lane stops once its
     mean log-likelihood gains at most ``tol`` (after two iterations) or
     after ``max_iter``; finished lanes are frozen."""
     from .kmeans import kmeans
-    lanes = tuple(lanes)
+    lanes = tuple(lanes) if seeds is None else tuple(seeds.shape[:-2])
     p, d = mean.shape
     dtype, dev = mean.dtype, mean.device
     prior = prior / torch.sum(prior)
@@ -265,7 +299,8 @@ def mix_hier_em(gen: torch.Generator, mean: torch.Tensor, cov: torch.Tensor,
 
     # init: weighted kmeans++ centers on base means, covariance = mean
     # base covariance, uniform weights (GMM_MixHierEM.m:92-100)
-    _, cent = kmeans(gen, mean, t, weights=prior, max_iter=10, lanes=lanes)
+    _, cent = kmeans(gen, mean, t, weights=prior, init_centers=seeds,
+                     max_iter=10, lanes=lanes)
     vrnc = torch.einsum("p,pde->de", prior, cov).expand(
         lanes + (t, d, d)).clone()
     mxwt = torch.full(lanes + (t,), 1.0 / t, dtype=dtype, device=dev)
