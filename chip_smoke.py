@@ -98,7 +98,8 @@ Phases (any failure exits non-zero and prints no result line):
      with a seed of their own (PROTOCOL_HYPS_SEED), then
      ``synthetic.learn_subject_hmms`` at ``default_vb_config()`` and
      ``synthetic.run_vbhem`` at ``default_vbhem_config()`` (K=1..6 x
-     S=1..5, 50 restarts, tau=50, Nv=100), both with hyps on: B2 launched
+     S=1..5, 50 restarts, tau=50, Nv=100), both with hyps on and their
+     one cut: 25 L-BFGS steps (PROTOCOL_HYP_STEPS), not 50: B2 launched
      on every EM iteration of the VBEM stage, B1 on every one of the
      VBHEM stage (restarts, hyp objective, rerun), B3 float64 once per
      rescored cell; every kept lane's bound at least its pre-optimization
@@ -147,7 +148,7 @@ Phases (any failure exits non-zero and prints no result line):
      standardized model; a 30-iteration grouped EM whose ELBO never falls
      by more than 1e-5 relative; B2 at this launch's own shape held
      against the plain version in float64 (5e-5 / 1e-10) and timed;
-  16. demo (last): the `vbdemo_face.m` path as the demo CLI runs it on
+  16. demo: the `vbdemo_face.m` path as the demo CLI runs it on
      synthetic face-viewing data (40 viewers, 12 trials of 12 fixations
      on a 512 x 384 face; the reference's demodata.xls is not in the
      repository) written to a fixation CSV under the ignored ``build/``
@@ -161,9 +162,28 @@ Phases (any failure exits non-zero and prints no result line):
      clusters after pruning with a Rand index of at least 0.9 (at most
      two viewers off their group's cluster, as the JAX package gives on
      the same banks) required.  Its cuts, printed: VBEM hyps on 5 survivors
-     a subject with 25 L-BFGS steps; no plots on the card.
+     a subject with 10 L-BFGS steps; no plots on the card;
+  17. spmd: the sharded engine (``vbhem_tpu_torch.parallel.spmd``) at the
+     main-path cell (the 8192-HMM planted bank, 8 restarts of Kr=Sr=3,
+     tau=10) in two gloo ranks sharing the card (spawned processes):
+     ``replicate_to_mesh`` gives both rank 0's bank; mesh (1, 2), each
+     rank B1 on its 4096 HMMs x 24 reduced clusters
+     once an EM iteration, resident; the float64 run equal to the
+     unsharded ``vbhem_em`` (same iterations, ll within 1e-9, posterior
+     within 1e-7), the float32 one timed beside the unsharded run; mesh
+     (2, 1): ``sharded_fit_trials`` and ``sharded_grid_sweep`` (K=1..3 x
+     S=2..3, 8 trials) equal to ``fit_single_ks`` / ``fit_grid_batched``
+     (same iterations, ll within 1e-10).  Then a one-rank NCCL world:
+     mesh (1, 1), the EM loop under the world group and
+     ``sharded_fit_trials``, each bit for bit its unsharded run.  A rank
+     that fails or misses the deadline fails the phase;
+  18. fb assoc (last): ``ops.fb.forward_backward_assoc`` (plain PyTorch,
+     on no path) on CUDA tensors against B2's entry 1 at 256 ragged
+     sequences of T=4096, K=2 and K=4, float64 (gamma and xi_sum within
+     1e-9 and 1e-8 absolute, phi_norm within 1e-10 relative); both timed
+     in float32 by CUDA events.
 
-B3 is checked in phase 2 like B1 and B2.  Each of phases 3-9 and 11-16
+B3 is checked in phase 2 like B1 and B2.  Each of phases 3-9 and 11-18
 sets every
 kernel's launch count (B1's and B3's also by design) to 0 just before it
 runs its path and reads the counts just after.  Prints a JSON line
@@ -190,6 +210,7 @@ import torch
 
 from vbhem_tpu_torch import HEMConfig, SeqBatch, VBConfig, VBHEMConfig, hyp
 from vbhem_tpu_torch.containers import HMM, NIW, tree_map
+from vbhem_tpu_torch.convert import to_numpy
 from vbhem_tpu_torch.experiments import synthetic
 from vbhem_tpu_torch.models import batch as vbem_batch
 from vbhem_tpu_torch.models import dic as dic_model
@@ -1507,6 +1528,11 @@ HYP_GRAD_VBHEM = VBHEMConfig(m0=(1.5, 1.5), w0=1.0, nv=100, tau=50,
 HYP_GRAD_CELLS = [(2, 2), (1, 1), (6, 5), (3, 2)]
 HYP_GRAD_SEED = 3
 PROTOCOL_HYPS_SEED = 7     # the hyps-on protocol's own data draw
+# the hyps-on protocol's one cut: both stages' L-BFGS steps, 25 of the
+# reference's 50 (every lane runs them all, so the stage's time falls with
+# them; at 15 the selection fails, PERF.md §6); the 5 survivors a subject
+# or cell are the reference configuration's cap already
+PROTOCOL_HYP_STEPS = 25
 
 
 def _value_grad(fun, hyps0, specs, n, dtype):
@@ -1689,10 +1715,12 @@ def phase_protocol_hyps(fails: Failures, device,
     stages: ``per_group`` subjects per planted group drawn with a seed of
     their own (PROTOCOL_HYPS_SEED), ``synthetic.learn_subject_hmms`` at
     ``default_vb_config()``, then ``synthetic.run_vbhem`` at
-    ``default_vbhem_config()`` over K=1..6 x S=1..5."""
+    ``default_vbhem_config()`` over K=1..6 x S=1..5, both with their L-BFGS
+    steps cut to PROTOCOL_HYP_STEPS."""
     batches, labels = synthetic_subjects(per_group, seed=PROTOCOL_HYPS_SEED,
                                          device=device)
-    vcfg = synthetic.default_vb_config()
+    vcfg = dataclasses.replace(synthetic.default_vb_config(),
+                               hyp_max_steps=PROTOCOL_HYP_STEPS)
     reset_counts()
     t0 = time.perf_counter()
     vinfo = {}
@@ -1727,7 +1755,8 @@ def phase_protocol_hyps(fails: Failures, device,
         torch.stack([r.ll for r in results])))),
         f"protocol hyps VBEM: all {len(results)} ELBOs finite")
 
-    hcfg = synthetic.default_vbhem_config()
+    hcfg = dataclasses.replace(synthetic.default_vbhem_config(),
+                               hyp_max_steps=PROTOCOL_HYP_STEPS)
     reset_counts()
     t0 = time.perf_counter()
     res, info, score = synthetic.run_vbhem(
@@ -2275,8 +2304,10 @@ DEMO_PER_GROUP = 20
 DEMO_MIN_RAND_INDEX = 0.9
 # the demo's cut (depth): its VBEM stage learns hyps on this many
 # survivors a subject with this many L-BFGS steps (the CLI: every
-# survivor, 50 steps), as tools/demo_seeds.py runs it by default
-DEMO_HYP_SOLUTIONS, DEMO_HYP_STEPS = 5, 25
+# survivor, 50 steps); 10 steps keep chip_smoke under 700 s
+# (tools/demo_seeds.py runs 25 by default, the cut its seeds were counted
+# at)
+DEMO_HYP_SOLUTIONS, DEMO_HYP_STEPS = 5, 10
 DEMO_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_demo"
 
 
@@ -2816,6 +2847,328 @@ def timing_wide(device, n=10) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phases 17-18: the sharded engine and the log-depth forward-backward
+# ---------------------------------------------------------------------------
+
+SPMD_CONFIG = VBHEMConfig(trials=8, learn_hyps=False, initmode="baseem",
+                          nv=100, tau=10, m0=(13.0, 10.0), w0=1.0)
+SPMD_KB, SPMD_KR, SPMD_SR = 8192, 3, 3     # the main-path cell
+SPMD_GRID = ([1, 2, 3], [2, 3])
+SPMD_SEED = 11
+SPMD_DEADLINE_S = 300
+SPMD_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_spmd"
+
+
+def spmd_inputs(device, dtype):
+    """The main-path cell: the planted bank, its hyps and 8 baseem starts
+    of Kr=Sr=3 drawn from SPMD_SEED (the same on every rank)."""
+    base, _ = planted_bank(SPMD_KB, device, dtype)
+    hyps = vbhem.VBHEMHyps.from_config(SPMD_CONFIG, 2, dtype, device)
+    post0 = vbhem.draw_lanes(
+        "baseem", torch.Generator().manual_seed(SPMD_SEED), base, SPMD_KR,
+        SPMD_SR, hyps, SPMD_CONFIG.nv, SPMD_CONFIG.trials)
+    return base, hyps, post0
+
+
+SPMD_EM = dict(nv=SPMD_CONFIG.nv, tau=SPMD_CONFIG.tau,
+               max_iter=SPMD_CONFIG.max_iter, min_diff=SPMD_CONFIG.min_diff)
+
+
+def _spmd_gloo_work(device) -> dict:
+    """One of two gloo ranks sharing the card: ``replicate_to_mesh`` of a
+    bank that differs by rank; the bank split in two (mesh (1, 2)) in
+    float64 with each pair E-step's pairs recorded, then timed in float32;
+    the trials split in two (mesh (2, 1)) for ``sharded_fit_trials`` and
+    ``sharded_grid_sweep``."""
+    import torch.distributed as dist
+    from vbhem_tpu_torch.parallel import spmd
+    out = {}
+    base, hyps, post0 = spmd_inputs(device, torch.float64)
+    mesh = spmd.make_mesh(1, 2)
+    rank = dist.get_rank()
+    mine = base._replace(omega=torch.full_like(base.omega, float(rank)),
+                         state_mask=base.state_mask & (rank == 0))
+    got = spmd.replicate_to_mesh(mesh, mine)
+    out["replicated"] = (bool(torch.all(got.omega == 0))
+                         and torch.equal(got.state_mask, base.state_mask))
+    pairs = []
+    e_step = vbhem.e_step
+
+    def recording(shard, post, exps, tau):
+        pairs.append((shard.num_hmms, post.alpha.numel()))
+        return e_step(shard, post, exps, tau)
+
+    reset_counts()
+    with rebound(vbhem, "e_step", recording):
+        st = spmd.sharded_vbhem_em(mesh, base, post0, hyps,
+                                   **SPMD_EM)
+        torch.cuda.synchronize()
+    out["launches"] = read_counts()
+    out["pairs"] = pairs
+    out["em64"] = to_numpy(st)
+
+    base32, hyps32, post32 = spmd_inputs(device, torch.float32)
+    for _ in range(2):   # the second run is timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = spmd.sharded_vbhem_em(mesh, base32, post32, hyps32, **SPMD_EM)
+        torch.cuda.synchronize()
+    out["em32"] = (time.perf_counter() - t0, int(torch.max(st.it)))
+
+    mesh = spmd.make_mesh(2, 1)
+    out["fit"] = to_numpy(spmd.sharded_fit_trials(
+        mesh, base, SPMD_KR, SPMD_SR, SPMD_CONFIG, hyps,
+        torch.Generator().manual_seed(SPMD_SEED + 1)))
+    out["grid"] = to_numpy(spmd.sharded_grid_sweep(
+        mesh, base, *SPMD_GRID, SPMD_CONFIG, hyps,
+        torch.Generator().manual_seed(SPMD_SEED + 2))[0])
+    return out
+
+
+def _bitwise(a, b) -> bool:
+    same = []
+    tree_map(lambda x, y: same.append(torch.equal(x, y)), a, b)
+    return all(same)
+
+
+def _spmd_nccl_work(device) -> dict:
+    """A one-rank NCCL world: ``sharded_vbhem_em`` on mesh (1, 1), the EM
+    loop with the world as its group (an NCCL all-reduce at every
+    reduction) and ``sharded_fit_trials`` (an all-reduce checks the
+    generators), each bit for bit its unsharded run."""
+    import torch.distributed as dist
+    from vbhem_tpu_torch.parallel import spmd
+    base, hyps, post0 = spmd_inputs(device, torch.float64)
+    ref = vbhem.vbhem_em(base, post0, hyps, **SPMD_EM)
+    mesh = spmd.make_mesh(1, 1)
+    st = spmd.sharded_vbhem_em(mesh, base, post0, hyps,
+                               **SPMD_EM)
+    world = vbhem.vbhem_em(base, post0, hyps, **SPMD_EM,
+                           group=dist.group.WORLD, kb_total=SPMD_KB)
+    fit = spmd.sharded_fit_trials(mesh, base, SPMD_KR, SPMD_SR, SPMD_CONFIG,
+                                  hyps, torch.Generator().manual_seed(1))
+    fit_ref = vbhem.fit_single_ks(torch.Generator().manual_seed(1), base,
+                                  SPMD_KR, SPMD_SR, SPMD_CONFIG, hyps)
+    return {"mesh (1, 1)": _bitwise(st, ref),
+            "world group": _bitwise(world, ref),
+            "fit_trials": _bitwise(fit, fit_ref),
+            "backend": dist.get_backend()}
+
+
+def _spmd_rank(rank, world, backend, store, results):
+    """A rank of phase "spmd" on the card (every rank on cuda:0): join the
+    world, run its work, send back (rank, outputs, error)."""
+    try:
+        import datetime
+        import torch.distributed as dist
+        torch.cuda.set_device(0)
+        device = torch.device("cuda", 0)
+        dist.init_process_group(backend, init_method=f"file://{store}",
+                                world_size=world, rank=rank,
+                                timeout=datetime.timedelta(seconds=120))
+        try:
+            work = _spmd_gloo_work if backend == "gloo" else _spmd_nccl_work
+            out = work(device)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, out, None))
+    except BaseException:
+        results.put((rank, None, traceback.format_exc()))
+
+
+def run_ranks(fails, world: int, backend: str):
+    """Start ``world`` ranks of ``backend`` on the card (spawned
+    processes meeting at a file store under the ignored ``build/``) and
+    collect their outputs by SPMD_DEADLINE_S; a rank that fails or does
+    not answer is a failed check and no rank outlives the call.  Returns
+    {rank: outputs}, or None."""
+    import multiprocessing
+    import queue as queue_mod
+    SPMD_DIR.mkdir(parents=True, exist_ok=True)
+    store = Path(tempfile.mkdtemp(dir=SPMD_DIR)) / "store"
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_spmd_rank,
+                         args=(r, world, backend, str(store), results),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + SPMD_DEADLINE_S
+    outs, errors = {}, []
+    try:
+        while len(outs) + len(errors) < world:
+            try:
+                rank, out, err = results.get(
+                    timeout=max(0.1, end - time.monotonic()))
+            except queue_mod.Empty:
+                break
+            if err:
+                errors.append(f"rank {rank}: {err}")
+            else:
+                outs[rank] = out
+        for p in procs:
+            p.join(timeout=max(0.1, end - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    for e in errors:
+        print(e, flush=True)
+    missing = sorted(set(range(world)) - set(outs))
+    fails.check(not missing,
+                f"spmd: {world} {backend} rank(s) answered by the "
+                f"{SPMD_DEADLINE_S} s deadline (missing or failed: "
+                f"{missing})")
+    return None if missing else outs
+
+
+def _rel(a, b) -> float:
+    """The largest relative gap; entries below 1e-30 (round-off zeros,
+    such as an empty cluster's off-diagonal W) count absolutely."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def _state_gaps(st, ref) -> dict:
+    """Iterations equal, and the largest relative gaps of ll and of every
+    posterior leaf."""
+    post = []
+    tree_map(lambda a, b: post.append(_rel(a, b)), st.post, to_numpy(ref.post))
+    return {"it": bool(np.array_equal(st.it, ref.it.cpu().numpy())),
+            "ll": _rel(st.ll, ref.ll.cpu().numpy()), "post": max(post)}
+
+
+def phase_spmd(fails: Failures, device) -> dict:
+    """The sharded engine (``vbhem_tpu_torch.parallel.spmd``) at the
+    main-path cell, two gloo ranks sharing the card: on mesh (1, 2) each
+    rank runs B1 on its Kb/2 = 4096 HMMs x 24 reduced clusters, and the
+    float64 run must match the unsharded ``vbhem_em`` (same iterations, ll
+    within 1e-9, posterior within 1e-7); both runs are timed in float32
+    (two ranks on one card: not a speed-up, the cost of the collectives);
+    on mesh (2, 1) ``sharded_fit_trials`` and ``sharded_grid_sweep`` (K=1..3
+    x S=2..3, 8 trials) must equal ``fit_single_ks`` / ``fit_grid_batched``
+    (same iterations, ll within 1e-10).  Then a one-rank NCCL world."""
+    base, hyps, post0 = spmd_inputs(device, torch.float64)
+    ref = vbhem.vbhem_em(base, post0, hyps, **SPMD_EM)
+    fit_ref = vbhem.fit_single_ks(torch.Generator().manual_seed(SPMD_SEED + 1),
+                                  base, SPMD_KR, SPMD_SR, SPMD_CONFIG, hyps)
+    grid_ref = vbhem.fit_grid_batched(
+        torch.Generator().manual_seed(SPMD_SEED + 2), base, *SPMD_GRID,
+        SPMD_CONFIG, hyps)[0]
+    base32, hyps32, post32 = spmd_inputs(device, torch.float32)
+    vbhem.vbhem_em(base32, post32, hyps32, **SPMD_EM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st32 = vbhem.vbhem_em(base32, post32, hyps32,
+                          **SPMD_EM)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3 / int(torch.max(st32.it))
+    del base32, hyps32, post32, st32
+    torch.cuda.empty_cache()
+
+    outs = run_ranks(fails, 2, "gloo")
+    launches = dict.fromkeys(read_counts(), 0)
+    if outs is not None:
+        for rank, out in sorted(outs.items()):
+            cnt = out["launches"]
+            for k, v in cnt.items():
+                launches[k] = launches.get(k, 0) + v
+            iters = int(np.max(out["em64"].it))
+            want = (SPMD_KB // 2, SPMD_CONFIG.trials * SPMD_KR)
+            fails.check(cnt["B1"] == len(out["pairs"]) == iters > 0
+                        and set(out["pairs"]) == {want},
+                        f"spmd rank {rank}: B1 launched {cnt['B1']} times "
+                        f"for {iters} EM iterations, each on "
+                        f"{sorted(set(out['pairs']))} (Kb shard, L*Kr) "
+                        f"pairs (want {want})")
+            check_on_chip(fails, f"spmd rank {rank}", cnt, "B1")
+            fails.check(out["replicated"],
+                        f"spmd rank {rank}: replicate_to_mesh (a gloo "
+                        f"broadcast of CUDA tensors, floats and bools) gave "
+                        f"rank 0's values")
+            g = _state_gaps(out["em64"], ref)
+            fails.check(g["it"] and g["ll"] <= 1e-9 and g["post"] <= 1e-7,
+                        f"spmd rank {rank}: mesh (1, 2) float64 vs vbhem_em:"
+                        f" iterations equal {g['it']}, ll {g['ll']:.3e} "
+                        f"(<= 1e-9), posterior {g['post']:.3e} (<= 1e-7)")
+            for what, st, want_st in (("sharded_fit_trials", out["fit"],
+                                       fit_ref),
+                                      ("sharded_grid_sweep", out["grid"],
+                                       grid_ref)):
+                g = _state_gaps(st, want_st)
+                fails.check(g["it"] and g["ll"] <= TOL[torch.float64],
+                            f"spmd rank {rank}: {what} on mesh (2, 1) vs "
+                            f"the unsharded run: iterations equal "
+                            f"{g['it']}, ll {g['ll']:.3e} (<= 1e-10), "
+                            f"posterior {g['post']:.3e}")
+            wall, it32 = out["em32"]
+            print(f"spmd rank {rank} on {nvidia_smi_line()}: mesh (1, 2)"
+                  f" float32 {it32} EM iterations, "
+                  f"{wall * 1e3 / it32:.3f} ms an iteration "
+                  f"(unsharded on the card alone: {one_ms:.3f} ms; two "
+                  f"gloo ranks share one card, so this is the cost of the "
+                  f"collectives, not a speed-up)", flush=True)
+    nccl = run_ranks(fails, 1, "nccl")
+    if nccl is not None:
+        res = nccl[0]
+        print(f"spmd nccl: {res}", flush=True)
+        fails.check(res.pop("backend") == "nccl" and all(res.values()),
+                    f"spmd: one-rank NCCL world bit for bit the unsharded "
+                    f"runs: {res}")
+    return {"launches": launches, "unsharded_ms": one_ms}
+
+
+FB_ASSOC_CASES = [("k2", 256, 4096, 2), ("k4", 256, 4096, 4)]
+FB_ASSOC_TOL = {"gamma": 1e-9, "xi_sum": 1e-8, "phi_norm": 1e-10}
+
+
+def phase_fb_assoc(fails: Failures, device) -> dict:
+    """``ops.fb.forward_backward_assoc`` (plain PyTorch, the log-depth scan
+    over T; on no call path) on CUDA tensors against B2's entry 1 at long
+    T, ragged, float64, at the CPU test's tolerances (gamma and xi_sum
+    absolute 1e-9 and 1e-8, phi_norm relative 1e-10); then both timed in
+    float32 by CUDA events."""
+    launches, cases = {}, {}
+    for name, n, t, k in FB_ASSOC_CASES:
+        args = fb_inputs(17, (), n, t, k, device, torch.float64, ragged=True)
+        reset_counts()
+        got = fb_plain.forward_backward_assoc(*args)
+        torch.cuda.synchronize()
+        cnt = read_counts()
+        for key, v in cnt.items():
+            launches[key] = launches.get(key, 0) + v
+        want = fb_cuda.forward_backward_cuda(*args)
+        errs = {f: float(torch.max(torch.abs(getattr(got, f)
+                                             - getattr(want, f))))
+                for f in ("gamma", "xi_sum")}
+        errs["phi_norm"] = float(torch.max(torch.abs(
+            (got.phi_norm - want.phi_norm) / want.phi_norm)))
+        fails.check(all(errs[f] <= FB_ASSOC_TOL[f] for f in errs),
+                    f"fb assoc {name} (N={n}, T={t}, K={k}, ragged) float64"
+                    f" vs B2 entry 1: {errs} (within {FB_ASSOC_TOL})")
+        del got, want
+        a32 = [a.float() if a.is_floating_point() else a for a in args]
+        runs = interleaved({
+            "assoc": lambda: fb_plain.forward_backward_assoc(*a32),
+            "B2 entry 1": lambda: fb_cuda.forward_backward_cuda(*a32)},
+            3, device)
+        ms = {w: [round(x * 1e3, 4) for x in v] for w, v in runs.items()}
+        b = b2_bound(*a32)
+        print(f"fb assoc {name} float32 ms (assoc, entry 1, entry 1, "
+              f"assoc by CUDA events) on {nvidia_smi_line()}: {ms}; entry "
+              f"1's bound {b['bound_ms']:.4f} ms ({b['bound_by']})",
+              flush=True)
+        cases[name] = {"errors": errs, "ms": ms, "entry1_bound": b}
+        del args, a32
+        torch.cuda.empty_cache()
+    fails.check(all(v == 0 for v in launches.values()),
+                f"fb assoc: forward_backward_assoc launched no kernel "
+                f"({launches})")
+    return {"launches": launches, "cases": cases}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs "
@@ -2899,6 +3252,8 @@ def main() -> int:
     run("runner", lambda: phase_runner(fails, device))
     run("grouped", lambda: phase_grouped(fails, device))
     run("demo", lambda: phase_demo(fails, device))
+    run("spmd", lambda: phase_spmd(fails, device))
+    run("fb assoc", lambda: phase_fb_assoc(fails, device))
 
     lines = []
     for key, parity, path, timing, field in (
@@ -2929,7 +3284,8 @@ def main() -> int:
                 results[path]["launches"]["B2_fused"] if key == "B2" else 0)
             for path in ("VBHEM path", "VBEM path", "pipeline", "VHEM path",
                          "grid", "protocol", "protocol hyps", "runner",
-                         "initmodes", "grouped", "demo")
+                         "initmodes", "grouped", "demo", "spmd",
+                         "fb assoc")
             if path in results}
         for path in ("protocol hyps", "demo"):   # their VBEM stages
             if path in results:

@@ -12,8 +12,9 @@ each seed draws, under either or both of its settings:
     restarts, hyps on).
 
 Both VBEM stages learn hyps on ``--hyp-cut`` survivors a subject with
-that many L-BFGS steps (phase "demo"'s cut; ``none`` for every survivor
-and 50 steps).
+that many L-BFGS steps (by default 5 and 25, the cut the seeds were
+first counted at; phase "demo" now takes 10 steps; ``none`` for every
+survivor and 50 steps).
 
     python3 tools/demo_seeds.py [--seeds 0,1,2,3,4,5] [--procs 3]
         [--settings synthetic,reference] [--save DIR]

@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import hyp as hypmod
 from ..config import VBHEMConfig
@@ -250,11 +251,25 @@ def e_step(base: H3M, post: H3MPosterior, exps: ReducedExpectations,
         post.niw.beta, exps.log_lam, tau)
 
 
+def _all_reduce_sum(tensors, group) -> list:
+    """Sum each tensor over the ranks of ``group`` in one collective (one
+    flat buffer); every rank gets the same bits back."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    return [part.reshape(t.shape) for part, t in
+            zip(torch.split(flat, [t.numel() for t in tensors]), tensors)]
+
+
 def soft_assignments(tilde_n: torch.Tensor, log_omega: torch.Tensor,
-                     ll_elbo: torch.Tensor):
+                     ll_elbo: torch.Tensor, group=None):
     """hat_Z softmax weighted by virtual counts
     (`vbhem_h3m_c_step_fc.m:275-283`).  tilde_n [Kb], log_omega [..., Kr],
-    ll_elbo [..., Kb, Kr]."""
+    ll_elbo [..., Kb, Kr].
+
+    The softmax over clusters is row-local; only the cluster masses Nj
+    reduce over the base axis: with ``group`` (a ``torch.distributed``
+    process group over which the Kb axis is sharded) they are summed over
+    its ranks before ``tiny`` is added, once."""
     dtype = ll_elbo.dtype
     log_z = tilde_n[:, None] * (log_omega[..., None, :] + ll_elbo)
     # normalized exponentials, not exp(log_z - logsumexp(log_z)): log_z is
@@ -264,7 +279,10 @@ def soft_assignments(tilde_n: torch.Tensor, log_omega: torch.Tensor,
     hat_z = torch.softmax(log_z, dim=-1)
     hat_z = hat_z + tiny(dtype)
     z_ni = hat_z * tilde_n[:, None]
-    nj = torch.sum(z_ni, dim=-2) + tiny(dtype)
+    nj = torch.sum(z_ni, dim=-2)
+    if group is not None:
+        dist.all_reduce(nj, group=group)
+    nj = nj + tiny(dtype)
     return hat_z, z_ni, nj
 
 
@@ -282,11 +300,13 @@ class ClusterStats(NamedTuple):
 
 
 def aggregate_stats(base: H3M, pair: PairStats, z_ni: torch.Tensor,
-                    nj: torch.Tensor) -> ClusterStats:
+                    nj: torch.Tensor, group=None) -> ClusterStats:
     """Z-weighted reduction of pair statistics over the base axis.  The
     emission statistics are linear images of ``sum_t_nu`` against cached
     base moments (`vbhem_hmm_bwd_fwd_fast.m:350-384` merged with
-    `vbhem_compute_Statistics.m:33-78`)."""
+    `vbhem_compute_Statistics.m:33-78`).  With ``group`` (the Kb axis
+    sharded over its ranks) the five raw sums are summed over the ranks,
+    in one collective, before ``tiny``, the division and ``sym``."""
     dtype = z_ni.dtype
     mean_b, cov_b = base.hmm.mean, base.hmm.cov
     nj_rho1 = torch.einsum("...ij,...ijr->...jr", z_ni, pair.nu_1)
@@ -298,6 +318,9 @@ def aggregate_stats(base: H3M, pair: PairStats, z_ni: torch.Tensor,
     w_stn = z_ni[..., None, None] * pair.sum_t_nu              # [..,i,j,r,b]
     y_sum = torch.einsum("...ijrb,ibd->...jrd", w_stn, mean_b)
     m2_sum = torch.einsum("...ijrb,ibde->...jrde", w_stn, m2_b)
+    if group is not None:
+        nj_rho1, nj_rho2rho, nj_rho, y_sum, m2_sum = _all_reduce_sum(
+            (nj_rho1, nj_rho2rho, nj_rho, y_sum, m2_sum), group)
     nj_rho = nj_rho + tiny(dtype)
     y_bar = y_sum / nj_rho[..., None]
     s_plus_c = sym(m2_sum / nj_rho[..., None, None]
@@ -351,7 +374,8 @@ def m_step(stats: ClusterStats, hyps: VBHEMHyps,
 def elbo(post: H3MPosterior, exps: ReducedExpectations, pair: PairStats,
          hat_z: torch.Tensor, z_ni: torch.Tensor, nj: torch.Tensor,
          hyps: VBHEMHyps, cmask: Optional[torch.Tensor] = None,
-         smask: Optional[torch.Tensor] = None, return_terms: bool = False):
+         smask: Optional[torch.Tensor] = None, return_terms: bool = False,
+         group=None):
     """The 10-term VBHEM lower bound (`vbhemh3m_lb.m:88-186`), one value
     per lane: [...].  With cmask [..., Kr] and smask [..., Sr] (bool) it
     is the bound over the ACTIVE sub-grid of each padded lane, equal to
@@ -362,7 +386,11 @@ def elbo(post: H3MPosterior, exps: ReducedExpectations, pair: PairStats,
     0 * -1e30, while count * -1e30 first can overflow float32 to -inf and
     then 0 * inf is NaN.  With ``return_terms`` also the dict of the ten
     terms (lt1..lt10 in `vbhemh3m_lb.m` order, before their signs).
-    ``hyps`` is one set or one per lane, as in :func:`m_step`."""
+    ``hyps`` is one set or one per lane, as in :func:`m_step`.  With
+    ``group`` (the Kb axis sharded over its ranks) lt1 and lt7, the only
+    terms that sum over Kb, are summed over the ranks in one collective;
+    every other term is computed alike on every rank from the same
+    posterior and the reduced Nj."""
     dtype = hat_z.dtype
     d = post.niw.dim
     niw = post.niw
@@ -390,6 +418,8 @@ def elbo(post: H3MPosterior, exps: ReducedExpectations, pair: PairStats,
 
     lt1 = torch.sum(cm[..., None, :] * z_ni * pair.ll_elbo, dim=ks)
     lt7 = torch.sum(cm[..., None, :] * hat_z * torch.log(hat_z), dim=ks)
+    if group is not None:
+        lt1, lt7 = _all_reduce_sum((lt1, lt7), group)
     lt2 = torch.sum(cm * nj * exps.log_omega, dim=-1)
     lt3 = kr_a * log_c_eta0 + (hyps.eta0 - 1.0) * torch.sum(
         cs * exps.log_pi, dim=ks)
@@ -464,16 +494,19 @@ class VBHEMState(NamedTuple):
 
 def _em_iteration(base: H3M, post: H3MPosterior, hyps: VBHEMHyps,
                   tilde_n: torch.Tensor, tau: int, covar_type: str = "full",
-                  masks=None):
+                  masks=None, group=None):
     """One EM iteration on every lane: returns (new posterior, ELBO of
     ``post``, pair ll_elbo, hat_z, stats).  ``masks`` (cmask, smask)
-    confines each lane to its active sub-grid (the padded grid)."""
+    confines each lane to its active sub-grid (the padded grid); with
+    ``group`` ``base`` is this rank's shard of a bank sharded over the
+    group's ranks, and the statistics and the ELBO are summed over them."""
     masks = masks or (None, None)
     exps = reduced_expectations(post, *masks)
     pair = e_step(base, post, exps, tau)
-    hat_z, z_ni, nj = soft_assignments(tilde_n, exps.log_omega, pair.ll_elbo)
-    ll = elbo(post, exps, pair, hat_z, z_ni, nj, hyps, *masks)
-    stats = aggregate_stats(base, pair, z_ni, nj)
+    hat_z, z_ni, nj = soft_assignments(tilde_n, exps.log_omega, pair.ll_elbo,
+                                       group)
+    ll = elbo(post, exps, pair, hat_z, z_ni, nj, hyps, *masks, group=group)
+    stats = aggregate_stats(base, pair, z_ni, nj, group)
     return m_step(stats, hyps, covar_type), ll, pair.ll_elbo, hat_z, stats
 
 
@@ -486,7 +519,8 @@ def vbhem_em(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
              nv: int, tau: int, max_iter: int = 200,
              min_diff: float = 1e-5, covar_type: str = "full",
              cmask: Optional[torch.Tensor] = None,
-             smask: Optional[torch.Tensor] = None) -> VBHEMState:
+             smask: Optional[torch.Tensor] = None, group=None,
+             kb_total: Optional[int] = None) -> VBHEMState:
     """The VBHEM EM loop (`vbhem_h3m_c_step_fc.m:115-433`) over every lane
     of ``init_post`` at once.  With ``cmask`` [..., Kr] and ``smask``
     [..., Sr] (bool, the lanes leading; each lane its own) it is
@@ -499,10 +533,19 @@ def vbhem_em(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
     becomes -inf and keeps the old posterior.  A lane is done once it
     converged (``|(ll - last)/last| <= min_diff`` after its first
     iteration), went unstable or reached ``max_iter``; from then on it is
-    frozen, as under ``jax.vmap`` of ``lax.while_loop``."""
+    frozen, as under ``jax.vmap`` of ``lax.while_loop``.
+
+    When the base axis is sharded over the ranks of ``group`` (a
+    ``torch.distributed`` process group; :mod:`..parallel.spmd`), ``base``
+    is this rank's contiguous block of the bank and ``kb_total`` the whole
+    bank's Kb: tilde_N = Nv * kb_total * omega, the shard's ``omega`` a
+    slice of the whole one, not renormalized.  The statistics and the
+    ELBO's sums over Kb are summed over the ranks; hat_z and ll_elbo stay
+    the shard's rows.  ``group=None`` is the unsharded loop."""
     dtype = base.hmm.mean.dtype
     dev = base.hmm.mean.device
-    tilde_n = (nv * base.num_hmms) * base.omega
+    kb = kb_total if kb_total is not None else base.num_hmms
+    tilde_n = (nv * kb) * base.omega
     if covar_type == "diag":
         init_post = _project_diag(init_post)
     lanes = init_post.alpha.shape[:-1]
@@ -511,7 +554,8 @@ def vbhem_em(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
 
     def body(st: VBHEMState) -> VBHEMState:
         new_post, ll, ll_elbo, hat_z, stats = _em_iteration(
-            base, st.post, hyps, tilde_n, tau, covar_type, (cmask, smask))
+            base, st.post, hyps, tilde_n, tau, covar_type, (cmask, smask),
+            group)
         unstable = torch.isnan(ll)
         ll = torch.where(unstable, torch.full_like(ll, -math.inf), ll)
         lik_incr = torch.abs((ll - st.ll) / st.ll)
@@ -530,7 +574,12 @@ def vbhem_em(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
                      hat_z=None, ll_elbo=None, stats=None,
                      done=torch.zeros(lanes, dtype=torch.bool, device=dev))
     # the first iteration runs on every lane (the loop body always runs
-    # at least once)
+    # at least once).  Under ``group`` every rank of the group must run
+    # the same iterations, or a collective waits for ever: ``done`` is a
+    # function of ``ll`` and ``it`` alone, ``ll`` is the same bits on every
+    # rank because its sums over Kb come out of the all-reduce and every
+    # other term is computed the same way on every rank from the same
+    # posterior, so the ranks leave the loop together.
     st = body(st0)
     while not bool(torch.all(st.done)):
         active = ~st.done
@@ -542,15 +591,17 @@ def vbhem_em(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
 def vbhem_em_masked(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
                     nv: int, tau: int, cmask: torch.Tensor,
                     smask: torch.Tensor, max_iter: int = 200,
-                    min_diff: float = 1e-5,
-                    covar_type: str = "full") -> VBHEMState:
+                    min_diff: float = 1e-5, covar_type: str = "full",
+                    group=None, kb_total: Optional[int] = None
+                    ) -> VBHEMState:
     """:func:`vbhem_em` over PADDED (Kmax, Smax) lanes: the cluster and
     state masks cmask [..., Kmax], smask [..., Smax] confine every lane's
     mass to its active sub-grid, so every (K, S) cell of the grid runs in
-    the same loop (`vbhem_tpu.models.vbhem.vbhem_em_masked`)."""
+    the same loop (`vbhem_tpu.models.vbhem.vbhem_em_masked`).  ``group``
+    and ``kb_total`` shard the base axis, as in :func:`vbhem_em`."""
     return vbhem_em(base, init_post, hyps, nv, tau, max_iter=max_iter,
                     min_diff=min_diff, covar_type=covar_type, cmask=cmask,
-                    smask=smask)
+                    smask=smask, group=group, kb_total=kb_total)
 
 
 def em_trace(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
@@ -1474,6 +1525,19 @@ def lane_chunk(base: H3M, kmax: int, smax: int, tau: int,
     return None if lanes >= n_lanes else int(lanes)
 
 
+def grid_cells(ks, ss, device):
+    """The (K, S) cells of a grid in K-major order, with each cell's
+    cluster and state masks at the padded (max K, max S): (cells,
+    cmasks [n_cells, Kmax], smasks [n_cells, Smax])."""
+    ks, ss = list(ks), list(ss)
+    cells = [(k, s) for k in ks for s in ss]
+    cmasks = (torch.arange(max(ks), device=device)
+              < torch.tensor([k for k, _ in cells], device=device)[:, None])
+    smasks = (torch.arange(max(ss), device=device)
+              < torch.tensor([s for _, s in cells], device=device)[:, None])
+    return cells, cmasks, smasks
+
+
 def fit_grid_batched(gen: torch.Generator, base: H3M, ks, ss,
                      config: VBHEMConfig, hyps: VBHEMHyps,
                      initmode: Optional[str] = None,
@@ -1493,14 +1557,9 @@ def fit_grid_batched(gen: torch.Generator, base: H3M, ks, ss,
 
     Returns (VBHEMState with leading [n_cells, trials] axes, cells list,
     cmasks [n_cells, Kmax], smasks [n_cells, Smax])."""
-    ks, ss = list(ks), list(ss)
-    kmax, smax = max(ks), max(ss)
-    cells = [(k, s) for k in ks for s in ss]
     dev = base.hmm.mean.device
-    cmasks = (torch.arange(kmax, device=dev)
-              < torch.tensor([k for k, _ in cells], device=dev)[:, None])
-    smasks = (torch.arange(smax, device=dev)
-              < torch.tensor([s for _, s in cells], device=dev)[:, None])
+    cells, cmasks, smasks = grid_cells(ks, ss, dev)
+    kmax, smax = cmasks.shape[1], smasks.shape[1]
     mode = resolve_initmode(initmode or config.initmode)
 
     n_cells, trials = len(cells), config.trials

@@ -139,3 +139,88 @@ def forward_backward(log_pz1: torch.Tensor, log_trans: torch.Tensor,
     phi_norm = torch.sum(log_c, dim=-1) + torch.sum(max_rho * maskf, dim=-1)
     return FBStats(log_rho=log_rho * maskf[..., None], gamma=gamma,
                    xi_sum=xi_sum, phi_norm=phi_norm)
+
+
+def _scaled_products(m: torch.Tensor, suffix: bool):
+    """Inclusive products of the matrices m [..., n, K, K] along axis -3 in
+    log(n) doubling rounds: prefix P_t = m_0 ... m_t, or with ``suffix``
+    S_t = m_t ... m_{n-1}.  Each product is kept divided by its largest
+    entry; the logs of those divisors add up in the second result
+    [..., n], so P_t (S_t) is exp(s_t) times the returned matrix."""
+    n = m.shape[-3]
+    s = torch.zeros(m.shape[:-2], dtype=m.dtype, device=m.device)
+    d = 1
+    while d < n:
+        # m_i m_{i+d}: the new S_i (suffix), or the new P_{i+d} (prefix)
+        prod = m[..., :n - d, :, :] @ m[..., d:, :, :]
+        s_sum = s[..., :n - d] + s[..., d:]
+        scale = torch.amax(prod, dim=(-2, -1))
+        scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+        prod = prod / scale[..., None, None]
+        s_sum = s_sum + torch.log(scale)
+        if suffix:
+            m = torch.cat([prod, m[..., n - d:, :, :]], dim=-3)
+            s = torch.cat([s_sum, s[..., n - d:]], dim=-1)
+        else:
+            m = torch.cat([m[..., :d, :, :], prod], dim=-3)
+            s = torch.cat([s[..., :d], s_sum], dim=-1)
+        d *= 2
+    return m, s
+
+
+def forward_backward_assoc(log_pz1: torch.Tensor, log_trans: torch.Tensor,
+                           log_rho: torch.Tensor, mask: torch.Tensor
+                           ) -> FBStats:
+    """Forward-backward in log(T) depth over time
+    (`vbhem_tpu.ops.fb.forward_backward_assoc`): alpha_t is the initial
+    row times the prefix product of the step operators
+    M_t[i, j] = A[i, j] px_t[j] (the identity on a masked step), beta_t
+    the suffix product times ones, so every alpha_t and beta_t comes from
+    one doubling scan over T instead of a sequential pass.  The same
+    gamma, xi_sum and phi_norm as :func:`forward_backward`, whose
+    arguments and lane-leading shapes it takes; O(T K^3) work for the
+    sequential O(T K^2).  It is on no call path, as in the JAX package."""
+    t_max, k = log_rho.shape[-2:]
+    dtype = log_rho.dtype
+    pz1, trans = _scores(log_pz1, log_trans, log_rho.dim())
+    mask = torch.broadcast_to(mask, log_rho.shape[:-1])
+    maskf = mask.to(dtype)
+    eye = torch.eye(k, dtype=dtype, device=log_rho.device)
+
+    max_rho = torch.amax(log_rho, dim=-1)                    # [..., N, T]
+    px = torch.exp(log_rho - max_rho[..., None])             # [..., N, T, K]
+    trans_t = trans[..., None, :, :]                         # [.., N, 1, K, K]
+    m_ops = torch.where(mask[..., 1:, None, None],
+                        trans_t * px[..., 1:, None, :], eye)  # [..,N,T-1,K,K]
+    pre_m, pre_s = _scaled_products(m_ops, suffix=False)
+    suf_m, _ = _scaled_products(m_ops, suffix=True)
+
+    def normalized(x):
+        norm = torch.sum(x, dim=-1, keepdim=True)
+        return x / torch.where(norm > 0, norm, torch.ones_like(norm)), norm
+
+    alpha1 = pz1 * px[..., 0, :]                             # [..., N, K]
+    alpha = torch.cat([alpha1[..., None, :],
+                       torch.einsum("...k,...tkj->...tj", alpha1, pre_m)],
+                      dim=-2)                                # [..., N, T, K]
+    alpha_hat, alpha_norm = normalized(alpha)
+    # log normalizer: log(alpha_1 P_{T-1} 1) + the scan's scales + shifts
+    phi_norm = torch.log(alpha_norm[..., -1, 0]) \
+        + torch.sum(max_rho * maskf, dim=-1)
+    if t_max > 1:
+        phi_norm = phi_norm + pre_s[..., -1]
+
+    beta = torch.cat([torch.sum(suf_m, dim=-1),
+                      torch.ones_like(alpha1)[..., None, :]], dim=-2)
+    beta_hat, _ = normalized(beta)
+    gamma, _ = normalized(alpha_hat * beta_hat)
+    gamma = gamma * maskf[..., None]
+
+    # xi_t (t -> t+1): alpha_t[i] A[i, j] px_{t+1}[j] beta_{t+1}[j], renormed
+    bb = px[..., 1:, :] * beta_hat[..., 1:, :]               # [..,N,T-1,K]
+    xi = alpha_hat[..., :-1, :, None] * trans_t * bb[..., None, :]
+    xi_norm = torch.sum(xi, dim=(-2, -1), keepdim=True)
+    xi = xi / torch.where(xi_norm > 0, xi_norm, torch.ones_like(xi_norm))
+    xi_sum = torch.sum(xi * maskf[..., 1:, None, None], dim=-3)
+    return FBStats(log_rho=log_rho * maskf[..., None], gamma=gamma,
+                   xi_sum=xi_sum, phi_norm=phi_norm)
