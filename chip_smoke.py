@@ -6,7 +6,9 @@ card and check it.
 Phases (any failure exits non-zero and prints no result line):
   1. device and build: the card's name and power limit, and the build of
      every CUDA kernel from the sources in this checkout (one nvcc per
-     source, all at once);
+     source, all at once); ptxas's report of the padded grid's bodies (B1
+     at (Sb, Sr, D) = (2, 5, 2) in float32, B3 at (2, 5) in float64, each
+     design) must show no stack frame and no spills (NO_SPILL_BODIES);
   2. kernel parity: each kernel against its plain PyTorch version on the
      same CUDA tensors, the plain version evaluated in float64; the
      float32 kernel within 5e-5 and the float64 kernel within 1e-10 of
@@ -16,15 +18,17 @@ Phases (any failure exits non-zero and prints no result line):
      log_rho, in the resident and the streamed design, and the fused
      E-step that forms log_rho from x in the kernel), B3 the VHEM / DIC
      pair recursion; B1 and B3 in each of their designs (the recursion's
-     state resident in shared memory, or in a device-memory scratch), at
-     shapes that pick each and with each forced at the main paths'
-     shapes, and on inputs that fire the recursion's underflow guard
-     (masked reduced states, -inf log_a); past the register bodies (Sb,
+     state resident in shared memory, in checkpointed segments in shared
+     memory, or in a device-memory scratch), at shapes that pick each and
+     with each forced at the main paths' shapes, and on inputs that fire
+     the recursion's underflow guard (masked reduced states, -inf log_a),
+     in every body; past the register bodies (Sb,
      Sr above 8 in B1 and B3, K above 8 in B2: the wide bodies, whose
      vectors live in device memory) and past B1's emission dims (D=5:
      E3logN in PyTorch, then a B3 launch); B1 at the padded grid's launch
-     (every lane its own cluster and state masks) and B3 in float64 at the
-     grid rescoring's launch;
+     (every lane its own cluster and state masks) and at the hyp
+     objective's (Kb=40, 80 lanes), and B3 in float64 at the grid
+     rescoring's launch;
   3. VBHEM path: ``vbhem.cluster`` over (K, S) in {1,2,3} x {2,3} on a
      planted bank of 8192 base HMMs with 8 restart trials per cell; the
      ELBOs must be finite, every EM iteration must have launched B1, in an
@@ -61,7 +65,11 @@ Phases (any failure exits non-zero and prints no result line):
      ``pair_estep_cuda.design`` names for the chunk; B3 once per rescored
      cell; every score finite; the (K=2, S=2) labels recovering the
      groups; the chunks, peak memory, wall time, both score grids and each
-     cell's float32-against-float64 gap printed.  Then padded equals
+     cell's float32-against-float64 gap printed.  Then B1 once at the
+     grid's own chunk launch: no [tau-1, Sb*Sr, L*Kr, Kb] scratch (the
+     launch's device memory below its outputs and a tenth of that
+     scratch), seven of its lanes within 5e-5 of the plain version in
+     float64 and exact zeros at their masked states.  Then padded equals
      unpadded: lanes of cell (2, 2), drawn as the grid draws them, run
      padded and sliced to (2, 2) from the same start, their ELBOs within
      5e-5 relative;
@@ -77,7 +85,8 @@ Phases (any failure exits non-zero and prints no result line):
      wrapper rebound to the plain version for the plain runs); for B2
      both entries, the fused E-step against ``expected_log_gauss``
      followed by entry 1; B1 at the grid's launch (one lane chunk, with
-     and without masked states), B3 float64 at the rescoring's launch,
+     and without masked states; the 344-lane chunk of the scratch design;
+     the hyp objective's launch), B3 float64 at the rescoring's launch,
      one grid EM iteration, and the wide bodies at S=9 and K=9, each
      beside its bound;
   11. hyp gradient (after phase 9): each engine's hyperparameter objective
@@ -198,6 +207,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -316,6 +326,43 @@ def read_counts() -> dict:
     return counts
 
 
+# The bodies the padded grid's launches take, whose ptxas report must show
+# no stack frame and no spill stores or loads in every design built: B1 at
+# (Sb, Sr, D) = (2, 5, 2) in float32, B3 at (2, 5) in float64 (the
+# rescoring; float64 has no checkpointed build); the pattern's group is
+# the design's code.
+NO_SPILL_BODIES = {
+    "B1 (2,5,2) f32": (r"pair_estep_fused_kernelIfLi2ELi5ELi2ELi(\d)ELb1E",
+                       pair_estep_cuda.DESIGNS),
+    "B3 (2,5) f64": (r"pair_bwd_fwd_kernelIdLi2ELi5ELi(\d)ELb1E",
+                     ("resident", "scratch"))}
+
+
+def check_ptxas(fails, lib) -> dict:
+    """ptxas's report of the NO_SPILL_BODIES, printed and gated: each
+    body's designs built, with no stack frame and no spills; returns
+    {body: {design: report}}."""
+    report = _build.ptxas_report(lib)
+    out = {}
+    for what, (pattern, designs) in NO_SPILL_BODIES.items():
+        rows = {}
+        for name, row in report.items():
+            m = re.search(pattern, name)
+            if m:
+                rows[pair_estep_cuda.DESIGNS[int(m.group(1))]] = row
+        for des, row in rows.items():
+            print(f"ptxas {what} {des}: {json.dumps(row)}", flush=True)
+        fails.check(
+            sorted(rows) == sorted(designs) and all(
+                row.get("stack") == row.get("spill_stores")
+                == row.get("spill_loads") == 0 for row in rows.values()),
+            f"ptxas: {what} in its designs {sorted(designs)} with 0 bytes "
+            f"of stack frame, spill stores and spill loads (found "
+            f"{sorted(rows)})")
+        out[what] = rows
+    return out
+
+
 def check_on_chip(fails, what, launches, kernel, kind="resident"):
     """Every launch of ``kernel`` in ``launches`` took the design ``kind``:
     by default the resident design, the recursion's state on chip, none
@@ -380,6 +427,12 @@ def _with_count_before(b, n_bytes, pairs, sb, sr, tau, flop,
             "sfu_ops_before": before["sfu_ops"]}
 
 
+def b1_flop(pairs, sb, sr, d, tau) -> int:
+    """B1's flops: the recursion's per step and E3logN's."""
+    return pairs * ((tau - 1) * (5 * sr * sr * sb + 4 * sr * sb * sb)
+                    + sb * sr * (4 * d * d + 4))
+
+
 def b1_bound(kb, lkr, sb, sr, d, tau, itemsize) -> dict:
     """B1 per (base, reduced) pair, counting what the function needs: the
     special functions of :func:`pair_sfu` and the recursion's and E3logN's
@@ -387,14 +440,25 @@ def b1_bound(kb, lkr, sb, sr, d, tau, itemsize) -> dict:
     four outputs written once; the per-step state is the kernel's choice
     and not counted."""
     pairs = kb * lkr
-    flop = pairs * ((tau - 1) * (5 * sr * sr * sb + 4 * sr * sb * sb)
-                    + sb * sr * (4 * d * d + 4))
+    flop = b1_flop(pairs, sb, sr, d, tau)
     n_bytes = itemsize * (kb * (sb + sb * sb + sb * d + sb * d * d)
                           + lkr * sr * (sr + d + d * d + 4)
                           + pairs * (1 + sr + sr * sr + sr * sb))
     return _with_count_before(
         bound(n_bytes, pair_sfu(pairs, sb, sr, tau), flop, itemsize),
         n_bytes, pairs, sb, sr, tau, flop, itemsize)
+
+
+def b1_bound_live(kb, lane_cells, kmax, sb, smax, d, tau, itemsize) -> dict:
+    """B1's bound at a padded grid launch with each lane's pairs counted at
+    its own cell's S, the states whose statistics are not the exact zeros
+    of a masked state; bytes as :func:`b1_bound` at the padded layout."""
+    pairs = kb * kmax
+    sfu = sum(pair_sfu(pairs, sb, s_, tau) for _, s_ in lane_cells)
+    flop = sum(b1_flop(pairs, sb, s_, d, tau) for _, s_ in lane_cells)
+    n_bytes = b1_bound(kb, len(lane_cells) * kmax, sb, smax, d, tau,
+                       itemsize)["bytes"]
+    return bound(n_bytes, sfu, flop, itemsize)
 
 
 def b3_bound(kb, lkr, sb, sr, tau, itemsize) -> dict:
@@ -417,7 +481,8 @@ def design_note(des, pairs, sb, sr, tau, itemsize) -> str:
     """The design a launch takes, and the scratch it allocates (only the
     scratch design has one)."""
     note = f"design {des.kind} ({des.threads} threads, " \
-           f"{des.smem_bytes} B of shared memory a block)"
+           f"{des.smem_bytes} B of shared memory a block"
+    note += f", segments of {des.seg} steps)" if des.seg else ")"
     if des.kind == "scratch":
         note += (f"; its scratch {itemsize * (tau - 1) * sb * sr * pairs:.4g}"
                  f" bytes, written and read once")
@@ -574,12 +639,36 @@ B1_CASES = [
      "scratch"),
     ("masked_state_tau50_scratch", 256, 4, 3, 3, 2, 50, 1, True, "state",
      "scratch"),
+    ("masked_state_tau50_checkpointed", 256, 4, 3, 3, 2, 50, 1, True,
+     "state", "checkpointed"),
     # the guard in the generic body (D=3 is not a specialization): without
     # kKeepZ (pair_recursion.cuh) nvcc 12.9's -O3 build got these wrong
     ("d3_masked_state_tau2", 256, 4, 3, 3, 3, 2, 1, False, "state", None),
     ("d3_masked_state_tau50", 256, 4, 3, 3, 3, 50, 1, False, "state", None),
-    # past the resident design: shapes that pick the scratch (long tau;
-    # the generic body, Sb = Sr = 8)
+    ("d3_masked_state_tau50_checkpointed", 256, 4, 3, 3, 3, 50, 1, False,
+     "state", "checkpointed"),
+    # the guard in the padded grid's (2, 5, 2) body, in each design: its
+    # last state masked as 'state' masks it (so the body also runs it at
+    # Sr = 4, live_states)
+    ("grid_body_masked_state_tau2", 256, 4, 2, 5, 2, 2, 1, False, "state",
+     None),
+    ("grid_body_masked_state_tau50", 256, 4, 2, 5, 2, 50, 1, False, "state",
+     None),
+    ("grid_body_masked_state_tau50_checkpointed", 256, 4, 2, 5, 2, 50, 1,
+     False, "state", "checkpointed"),
+    ("grid_body_masked_state_tau50_scratch", 256, 4, 2, 5, 2, 50, 1, False,
+     "state", "scratch"),
+    ("grid_body_masked_column_tau50", 256, 4, 2, 5, 2, 50, 1, False,
+     "column", None),
+    ("grid_body_masked_state0_tau2", 256, 4, 2, 5, 2, 2, 1, False, "state0",
+     None),
+    ("grid_body_masked_state0_tau50", 256, 4, 2, 5, 2, 50, 1, False,
+     "state0", None),
+    ("grid_body_masked_state0_tau50_checkpointed", 256, 4, 2, 5, 2, 50, 1,
+     False, "state0", "checkpointed"),
+    # past the resident design: long tau picks the checkpointed design;
+    # the generic body at Sb = Sr = 8 too in float32, and the scratch in
+    # float64 (no block of 32 holds even its segments)
     ("tau200", 8192, 2, 2, 2, 2, 200, 2, False, None, None),
     ("s8_tau200", 256, 2, 8, 8, 2, 200, 1, False, None, None),
     ("bench_shape", 8192, 8, 3, 3, 2, 10, 1, False, None, None),
@@ -587,6 +676,8 @@ B1_CASES = [
     ("main_cell", 8192, 3, 3, 3, 2, 10, 8, False, None, None),
     ("main_cell_sr2", 8192, 3, 3, 2, 2, 10, 8, False, None, None),
     ("main_cell_scratch", 8192, 3, 3, 3, 2, 10, 8, False, None, "scratch"),
+    ("main_cell_checkpointed", 8192, 3, 3, 3, 2, 10, 8, False, None,
+     "checkpointed"),
     # the launches of phase 5: a learned bank of 2-state HMMs, tau=50
     ("pipeline_cell", 8192, 3, 2, 2, 2, 50, 8, False, None, None),
     ("pipeline_cell_64", 8192, 2, 2, 2, 2, 50, 64, False, None, None),
@@ -594,6 +685,8 @@ B1_CASES = [
      "resident"),
     ("pipeline_cell_64_scratch", 8192, 2, 2, 2, 2, 50, 64, False, None,
      "scratch"),
+    ("pipeline_cell_64_checkpointed", 8192, 2, 2, 2, 2, 50, 64, False, None,
+     "checkpointed"),
     # past the register bodies: at their cap (Sb = Sr = 8), then the wide
     # body (Sb or Sr above 8; its guard on a masked state); D at B1's cap
     # and past it (E3logN in PyTorch, then a B3 launch)
@@ -605,9 +698,17 @@ B1_CASES = [
     ("d4", 256, 4, 3, 3, 4, 10, 1, False, None, None),
     ("d5", 256, 4, 3, 3, 5, 10, 1, False, None, None),
     # the padded grid's launch (phase 8): the learned bank's Sb=2, cells
-    # padded to Kmax=6, Smax=5, tau=50; every lane its own masks
+    # padded to Kmax=6, Smax=5, tau=50; every lane its own masks (cycling
+    # over GRID_PARITY_CELLS); in the design it takes and forced into the
+    # others
     ("grid_launch", 8192, 6, 2, 5, 2, 50, len(GRID_PARITY_CELLS), False,
      "grid", None),
+    ("grid_launch_resident", 8192, 6, 2, 5, 2, 50, len(GRID_PARITY_CELLS),
+     False, "grid", "resident"),
+    ("grid_launch_scratch", 8192, 6, 2, 5, 2, 50, len(GRID_PARITY_CELLS),
+     False, "grid", "scratch"),
+    # the hyp objective's launch (phase 12): Kb=40, 80 lanes at (6, 5)
+    ("hyp_launch", 40, 6, 2, 5, 2, 50, 80, False, "grid", None),
 ]
 
 
@@ -616,14 +717,17 @@ def masked(args, what):
     log_a column (with what='state' also its row) -1e30, and its E3logN
     raised by 1000 nats (E log|Lambda| by 2000), so that the argmax of
     ell + carry sits where exp(log_a) is 0: the case the recursion's
-    underflow guard takes to the log domain."""
+    underflow guard takes to the log domain.  what='state0' masks state 0
+    so, which the (2, 5) body cannot drop as it drops trailing masked
+    states (pair_recursion.cuh: live_states), so its guard fires."""
     args = [a.clone() for a in args]
     log_pi, log_a, log_lam = args[4], args[5], args[10]
-    log_pi[..., -1] = -1e30
-    log_a[..., :, -1] = -1e30
-    if what == "state":
-        log_a[..., -1, :] = -1e30
-    log_lam[..., -1] += 2000.0
+    q = 0 if what == "state0" else -1
+    log_pi[..., q] = -1e30
+    log_a[..., :, q] = -1e30
+    if what in ("state", "state0"):
+        log_a[..., q, :] = -1e30
+    log_lam[..., q] += 2000.0
     return tuple(args)
 
 
@@ -649,11 +753,27 @@ def grid_kernel_args(base, post, cells):
 
 
 def forced_design(kind, sb, sr, tau, dtype):
-    """None (the wrapper's choice) or design ``kind`` at this shape."""
+    """None (the wrapper's choice) or design ``kind`` at this shape; a
+    ValueError where the kernels have no such design, so that a forced
+    case never runs the wrapper's choice under its name."""
     if kind is None:
         return None
     itemsize = torch.empty((), dtype=dtype).element_size()
-    return pair_estep_cuda.design_of(kind, sb, sr, tau, itemsize)
+    des = pair_estep_cuda.design_of(kind, sb, sr, tau, itemsize)
+    if des is None:
+        raise ValueError(f"no {kind} design at Sb={sb} Sr={sr} tau={tau} "
+                         f"{dtype}")
+    return des
+
+
+def float32_only(kind, what, name, dtype) -> bool:
+    """True, with a note, for a case forcing the checkpointed design in
+    float64: the kernels build that design in float32 only."""
+    if kind == "checkpointed" and dtype == torch.float64:
+        print(f"info {what} {name} {dtype}: not run, the checkpointed "
+              f"design is float32 only", flush=True)
+        return True
+    return False
 
 
 def design_name(des, sb, sr, tau, dtype, pairs) -> str:
@@ -662,7 +782,8 @@ def design_name(des, sb, sr, tau, dtype, pairs) -> str:
         itemsize = torch.empty((), dtype=dtype).element_size()
         des = pair_estep_cuda.design(sb, sr, tau, itemsize, pairs,
                                      sm_count())
-    return f"{des.kind} t={des.threads}"
+    return f"{des.kind} t={des.threads}" + (f" seg={des.seg}" if des.seg
+                                             else "")
 
 
 def _plain_pair(args, tau):
@@ -704,6 +825,8 @@ def phase_parity_b1(fails: Failures, device) -> float:
     for dtype in (torch.float32, torch.float64):
         for (name, kb, kr, sb, sr, d, tau, lanes, ragged, masking,
              kind) in B1_CASES:
+            if float32_only(kind, "B1", name, dtype):
+                continue
             rng = np.random.default_rng(7)
             base = random_bank(rng, kb, sb, d, device, dtype, ragged)
             cfg = VBHEMConfig(m0=(0.0,) * d, w0=1.0, nv=100, tau=tau)
@@ -711,7 +834,9 @@ def phase_parity_b1(fails: Failures, device) -> float:
             gen = torch.Generator(device="cpu").manual_seed(11)
             post = random_posts(gen, base, hyps, lanes, kr, sr, cfg.nv)
             if masking == "grid":
-                args = grid_kernel_args(base, post, GRID_PARITY_CELLS)
+                args = grid_kernel_args(base, post, [
+                    GRID_PARITY_CELLS[q % len(GRID_PARITY_CELLS)]
+                    for q in range(lanes)])
             else:
                 args = kernel_args(base, post)
                 if masking:
@@ -951,8 +1076,22 @@ B3_CASES = [
     ("masked_state_ragged", 1, 256, 3, 3, 3, 10, True, "masked", None),
     ("masked_state_scratch", 1, 256, 3, 3, 3, 10, True, "masked",
      "scratch"),
-    # past the resident design: the scratch (long tau; the generic body,
-    # Sb = Sr = 8)
+    ("masked_state_tau50_checkpointed", 1, 256, 3, 3, 3, 50, True,
+     "masked", "checkpointed"),
+    # the padded grid's (2, 5) body, its last state masked (so it also
+    # runs at Sr = 4)
+    ("grid_body_masked_tau50", 1, 256, 3, 2, 5, 50, False, "masked", None),
+    ("grid_body_masked_tau50_checkpointed", 1, 256, 3, 2, 5, 50, False,
+     "masked", "checkpointed"),
+    ("grid_body_masked_tau50_scratch", 1, 256, 3, 2, 5, 50, False,
+     "masked", "scratch"),
+    ("grid_body_log_a_neg_inf_spread_tau50", 1, 256, 3, 2, 5, 50, False,
+     "zeros_spread", None),
+    ("grid_body_log_a_neg_inf_spread_tau50_checkpointed", 1, 256, 3, 2, 5,
+     50, False, "zeros_spread", "checkpointed"),
+    # past the resident design: long tau picks the checkpointed design;
+    # the generic body at Sb = Sr = 8 too in float32, the scratch in
+    # float64
     ("tau200", 2, 8192, 2, 2, 2, 200, False, None, None),
     ("s8_tau200", 1, 256, 2, 8, 8, 200, False, None, None),
     ("vhem_full_width", *VHEM_FULL, False, None, None),
@@ -961,6 +1100,8 @@ B3_CASES = [
     ("dic_cell", 1, 8192, 3, 2, 2, 50, False, None, None),
     ("dic_cell_resident", 1, 8192, 3, 2, 2, 50, False, None, "resident"),
     ("dic_cell_scratch", 1, 8192, 3, 2, 2, 50, False, None, "scratch"),
+    ("dic_cell_checkpointed", 1, 8192, 3, 2, 2, 50, False, None,
+     "checkpointed"),
     # past the register bodies: at their cap, then the wide body
     ("s8_tau10", 1, 256, 2, 8, 8, 10, False, None, None),
     ("s9", 1, 256, 2, 9, 9, 10, False, None, None),
@@ -969,6 +1110,10 @@ B3_CASES = [
     # phase 8's float64 rescoring: one launch per cell winner, unpadded;
     # the largest cell (6, 5) on the learned bank's Sb=2, tau=50
     ("rescore_cell_6_5", 1, 8192, 6, 2, 5, 50, False, None, None),
+    ("rescore_cell_6_5_resident", 1, 8192, 6, 2, 5, 50, False, None,
+     "resident"),
+    ("rescore_cell_6_5_scratch", 1, 8192, 6, 2, 5, 50, False, None,
+     "scratch"),
 ]
 
 
@@ -1015,6 +1160,8 @@ def phase_parity_b3(fails: Failures, device) -> float:
     for dtype in (torch.float32, torch.float64):
         for (name, lanes, kb, kr, sb, sr, tau, ragged, inputs,
              kind) in B3_CASES:
+            if float32_only(kind, "B3", name, dtype):
+                continue
             args = b3_inputs(5, lanes, kb, kr, sb, sr, device, dtype, ragged,
                              inputs)
             des = forced_design(kind, sb, sr, tau, dtype)
@@ -2670,28 +2817,53 @@ def grid_chunk(base, lanes, device, seed=5):
     return post, lane_cells, hyps, gen
 
 
+def _masked_state_values(stats, lane, s_):
+    """The entries of one lane's pair statistics at reduced states s_ and
+    above (masked in a cell of S = s_): nu_1, sum_xi's rows and columns,
+    sum_t_nu."""
+    return torch.cat([stats.nu_1[lane, ..., s_:].flatten(),
+                      stats.sum_xi[lane, ..., s_:, :].flatten(),
+                      stats.sum_xi[lane, ..., :, s_:].flatten(),
+                      stats.sum_t_nu[lane, ..., s_:, :].flatten()])
+
+
 def parity_grid_chunk(fails: Failures, device, grid) -> dict:
     """B1 checked at the launch the grid runs: one launch at phase 8's lane
     chunk (its lane count, each lane masked to its cell, Kb=8192, Sb=2,
-    Kmax=6, Smax=5, tau=50, float32; the scratch is tens of GB), in the
-    design ``design()`` names, and a spread of its lanes (the first, the
-    middle and the last, and the first lane of K=1, of S=1, of (6, 5) and
-    of the other cells) held
-    against the plain version in float64 on those lanes' inputs at the
-    float32 tolerance."""
+    Kmax=6, Smax=5, tau=50, float32), in the design ``design()`` names,
+    which allocates no scratch (the device memory the launch takes stays
+    below its outputs and a tenth of what the scratch would be), and a
+    spread of its lanes (the first, the middle and the last, and the first
+    lane of K=1, of S=1, of (6, 5) and of the other cells) held against
+    the plain version in float64 on those lanes' inputs at the float32
+    tolerance, with exact zeros at each lane's masked states where the
+    plain version has them."""
     base = grid["base"]
+    kb, sb = base.state_mask.shape
+    kmax, smax = max(GRID[0]), max(GRID[1])
     lanes, tau = grid["chunk"], GRID_CONFIG.tau
     post, lane_cells, _, _ = grid_chunk(base, lanes, device)
     args = grid_kernel_args(base, post, lane_cells)
     des = grid_design(base, lanes, lanes)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     before = read_counts()
     got = pair_estep_cuda.pair_bwd_fwd_fused_cuda(*args, tau)
     torch.cuda.synchronize()
     after = read_counts()
+    grew = torch.cuda.max_memory_allocated() - held
     ran = {k: after[k] - before[k] for k in ("B1", f"B1_{des}")}
     fails.check(ran == {"B1": 1, f"B1_{des}": 1},
                 f"grid chunk launch: one B1 launch of {lanes} lanes in the "
                 f"{des} design (launches {ran})")
+    pairs = kb * lanes * kmax
+    out_bytes = 4 * pairs * (1 + smax + smax * smax + smax * sb)
+    scratch_bytes = 4 * pairs * (tau - 1) * sb * smax
+    fails.check(des != "scratch" and grew <= out_bytes + scratch_bytes // 10,
+                f"grid chunk launch: no scratch: the launch took {grew} B of "
+                f"device memory (its outputs {out_bytes} B; the scratch "
+                f"[tau-1, Sb*Sr, L*Kr, Kb] would be {scratch_bytes} B)")
     first = {}
     for i, (k, s_) in enumerate(lane_cells):
         first.setdefault("K=1, S>1" if k == 1 and s_ > 1 else
@@ -2709,7 +2881,51 @@ def parity_grid_chunk(fails: Failures, device, grid) -> dict:
         _gate(fails, "B1", f"grid chunk launch [{des}, L={lanes}] lane "
                            f"{lane} of cell {lane_cells[lane]}",
               torch.float32, errs)
-    return {"lanes": lanes, "checked": picks, "worst": worst}
+        s_ = lane_cells[lane][1]
+        if s_ < smax:
+            zero = _masked_state_values(want, 0, s_) == 0
+            fails.check(bool(torch.all(zero)) and bool(torch.all(
+                _masked_state_values(got_l, 0, s_) == 0)),
+                f"grid chunk launch lane {lane} of cell {lane_cells[lane]}: "
+                f"exact zeros at the masked states {s_}..{smax - 1}, as the "
+                f"plain version gives")
+    return {"lanes": lanes, "checked": picks, "worst": worst,
+            "device_bytes": grew, "output_bytes": out_bytes,
+            "scratch_bytes_avoided": scratch_bytes}
+
+
+# the hyp objective's B1 launch in phase 12 (PERF.md section 6): Kb=40
+# subjects, 80 lanes at the padded (6, 5)
+HYP_LAUNCH = (40, 80)
+
+
+def _grid_launch_row(device, base, lanes, n, launches_per_run) -> dict:
+    """B1's device time at a padded grid launch of ``lanes`` lanes of
+    ``base`` (cycling over the grid's cells, each masked to its cell,
+    baseem starts at (6, 5), tau=50, float32), its design, its bound at
+    each lane's own S (the body writes the masked states' exact zeros and
+    does no work there) and, ``padded_bound_ms``, at the padded Smax."""
+    kb, sb = base.state_mask.shape
+    kmax, smax, tau = max(GRID[0]), max(GRID[1]), GRID_CONFIG.tau
+    post, lane_cells, _, _ = grid_chunk(base, lanes, device)
+    args = grid_kernel_args(base, post, lane_cells)
+    dev = device_ms(lambda: pair_estep_cuda.pair_bwd_fwd_fused_cuda(
+        *args, tau), DEVICE_NAMES["B1"], n)
+    pairs = kb * lanes * kmax
+    des = pair_estep_cuda.design(sb, smax, tau, 4, pairs, sm_count())
+    padded = b1_bound(kb, lanes * kmax, sb, smax, 2, tau, 4)
+    row = {"kernel_device_ms": dev, "lanes": lanes, "kb": kb,
+           "design": des._asdict(), "launches_per_run": launches_per_run,
+           **b1_bound_live(kb, lane_cells, kmax, sb, smax, 2, tau, 4),
+           "padded_bound_ms": padded["bound_ms"]}
+    print(f"timing B1 [grid launch: Kb={kb} L={lanes} Kmax={kmax} Sb={sb} "
+          f"Smax={smax} D=2 tau={tau} f32, lanes masked to their cells] "
+          f"kernel device {dev:.4f} ms; {_bound_line(row)} at each lane's "
+          f"own S, share {row['bound_ms'] / dev:.4f}; bound at the padded "
+          f"Smax {padded['bound_ms']:.4f} ms, share "
+          f"{padded['bound_ms'] / dev:.4f}; "
+          f"{design_note(des, pairs, sb, smax, tau, 4)}", flush=True)
+    return row
 
 
 def timing_grid(device, grid, n=3) -> dict:
@@ -2717,29 +2933,28 @@ def timing_grid(device, grid, n=3) -> dict:
     the lanes cycling over the grid's cells, each masked to its cell,
     baseem starts at (Kmax, Smax) = (6, 5), Sb=2, tau=50, float32), its
     device time in the design the wrapper takes; the same launch with no
-    masked state (every lane (6, 5)), to show what the underflow guard's
-    log-domain branch costs where the argmax of ell + carry is a masked
-    state; one grid EM iteration (``vbhem._em_iteration`` with the
-    lanes' masks) at that chunk; B3 in float64 at the rescoring's largest
-    launch, cell (6, 5) unpadded, against its plain version."""
+    masked state (every lane (6, 5)); the launch at the hyp
+    objective's (HYP_LAUNCH: the bank's first 40 HMMs); one grid EM
+    iteration (``vbhem._em_iteration`` with the lanes' masks) at the chunk;
+    B3 in float64 at the rescoring's largest launch, cell (6, 5) unpadded,
+    against its plain version."""
     base = grid["base"]
     kb, sb = base.state_mask.shape
     kmax, smax, tau = max(GRID[0]), max(GRID[1]), GRID_CONFIG.tau
     lanes = grid["chunk"]
+    row = _grid_launch_row(device, base, lanes, n, grid["launches"]["B1"])
+    dev_masked = row["kernel_device_ms"]
     post, lane_cells, hyps, gen = grid_chunk(base, lanes, device)
-    masked_args = grid_kernel_args(base, post, lane_cells)
     open_args = kernel_args(base, post)
-    b1 = pair_estep_cuda.pair_bwd_fwd_fused_cuda
-    dev_masked = device_ms(lambda: b1(*masked_args, tau),
-                           DEVICE_NAMES["B1"], n)
-    dev_open = device_ms(lambda: b1(*open_args, tau), DEVICE_NAMES["B1"], n)
-    del masked_args, open_args
+    dev_open = device_ms(lambda: pair_estep_cuda.pair_bwd_fwd_fused_cuda(
+        *open_args, tau), DEVICE_NAMES["B1"], n)
+    del open_args
+    row["unmasked_device_ms"] = dev_open
+    hyp_kb, hyp_lanes = HYP_LAUNCH
+    row["hyp_launch"] = _grid_launch_row(
+        device, tree_map(lambda a: a[:hyp_kb], base), hyp_lanes, 20, None)
     pairs = kb * lanes * kmax
     des = pair_estep_cuda.design(sb, smax, tau, 4, pairs, sm_count())
-    row = {"kernel_device_ms": dev_masked, "unmasked_device_ms": dev_open,
-           "lanes": lanes, "design": des._asdict(),
-           "launches_per_run": grid["launches"]["B1"],
-           **b1_bound(kb, lanes * kmax, sb, smax, 2, tau, 4)}
     cm, sm = cell_masks(lane_cells, kmax, smax, device)
     tilde_n = (GRID_CONFIG.nv * kb) * base.omega
     it_runs = interleaved({"kernel": lambda: vbhem._em_iteration(
@@ -2747,21 +2962,27 @@ def timing_grid(device, grid, n=3) -> dict:
         warmup=1)
     row["iter_ms_runs"] = [v * 1e3 for v in it_runs["kernel"]]
     row["iter_ms"] = float(np.mean(row["iter_ms_runs"]))
-    print(f"timing B1 [grid launch: Kb={kb} L={lanes} Kmax={kmax} Sb={sb} "
-          f"Smax={smax} D=2 tau={tau} f32, lanes masked to their cells] "
-          f"kernel device {dev_masked:.4f} ms; unmasked (every lane (6,5)) "
-          f"{dev_open:.4f} ms; {_bound_line(row)}, share "
-          f"{row['bound_ms'] / dev_masked:.3f}; "
-          f"{design_note(des, pairs, sb, smax, tau, 4)}; "
-          f"{grid['launches']['B1']} launches in phase 8; plain version "
-          f"not run (its per-step Theta at this launch would take "
-          f"{4 * (tau - 1) * pairs * smax * sb * smax / 1e9:.1f} GB)",
-          flush=True)
+    print(f"timing B1 [grid launch at the chunk, L={lanes}] masked "
+          f"{dev_masked:.4f} ms; unmasked (every lane (6,5)) "
+          f"{dev_open:.4f} ms; {grid['launches']['B1']} launches in phase "
+          f"8; plain version not run (its per-step Theta at this launch "
+          f"would take {4 * (tau - 1) * pairs * smax * sb * smax / 1e9:.1f} "
+          f"GB)", flush=True)
     print(f"timing grid EM iteration [L={lanes} lanes]: {row['iter_ms']:.2f} "
           f"ms (runs {row['iter_ms_runs']})", flush=True)
     del post, cm, sm
 
-    # B3 float64 at the rescoring's largest launch
+    row["b3_f64"] = rescore_launch_row(device, base, gen,
+                                       grid["launches"]["B3"])
+    return row
+
+
+def rescore_launch_row(device, base, gen, launches_per_run) -> dict:
+    """B3 in float64 at the grid rescoring's largest launch, cell (6, 5)
+    unpadded on ``base`` (Sb=2, tau=50), from baseem starts drawn from
+    ``gen``: its device time, its wrapper's and the plain version's."""
+    kb, sb = base.state_mask.shape
+    kmax, smax, tau = max(GRID[0]), max(GRID[1]), GRID_CONFIG.tau
     hyps64 = vbhem.VBHEMHyps.from_config(GRID_CONFIG, 2, torch.float64,
                                          device)
     base64 = _to_f64(base)
@@ -2781,16 +3002,15 @@ def timing_grid(device, grid, n=3) -> dict:
     b3row = {"kernel_device_ms": dev64, "design": des64._asdict(),
              "wrapper_ms": float(np.mean(runs["kernel"])) * 1e3,
              "plain_ms": float(np.mean(runs["plain"])) * 1e3,
-             "launches_per_run": grid["launches"]["B3"],
+             "launches_per_run": launches_per_run,
              **b3_bound(kb, kmax, sb, smax, tau, 8)}
     print(f"timing B3 f64 [rescoring launch: cell (6,5) unpadded, Kb={kb} "
           f"Sb={sb} tau={tau}] kernel device {dev64:.4f} ms; wrapper "
           f"{b3row['wrapper_ms']:.4f} ms; plain {b3row['plain_ms']:.4f} ms; "
           f"{_bound_line(b3row)}, share {b3row['bound_ms'] / dev64:.3f}; "
           f"{design_note(des64, kb * kmax, sb, smax, tau, 8)}; "
-          f"{grid['launches']['B3']} launches in phase 8", flush=True)
-    row["b3_f64"] = b3row
-    return row
+          f"{launches_per_run} launches in phase 8", flush=True)
+    return b3row
 
 
 def timing_wide(device, n=10) -> dict:
@@ -3198,7 +3418,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"ptxas: {line.strip()}", flush=True)
 
-    results = {}
+    results = {"ptxas": check_ptxas(fails, lib)}
 
     def run(name, fn):
         t = time.perf_counter()
@@ -3295,15 +3515,24 @@ def main() -> int:
         grid_t = results.get("timing grid", {})
         wide_t = results.get("timing wide bodies", {}).get(key, {})
         if key == "B1" and grid_t:   # the grid's own launch
+            keep = ("kernel_device_ms", "bound_ms", "bound_by",
+                    "padded_bound_ms", "lanes", "kb", "launches_per_run")
             lines[-1]["grid_launch"] = {
-                f: grid_t.get(f) for f in (
-                    "kernel_device_ms", "unmasked_device_ms", "bound_ms",
-                    "bound_by", "lanes", "launches_per_run")}
+                **{f: grid_t.get(f) for f in keep},
+                "unmasked_device_ms": grid_t.get("unmasked_device_ms"),
+                "design": grid_t["design"]["kind"],
+                "hyp_launch": {
+                    **{f: grid_t["hyp_launch"].get(f) for f in keep},
+                    # the hyps-on protocol's B1 launches, most of them
+                    # this launch's shape
+                    "launches_per_run": results.get("protocol hyps", {})
+                    .get("launches", {}).get("B1")}}
         if key == "B3" and grid_t:   # the float64 rescoring's launch
             lines[-1]["rescore_launch"] = {
-                f: grid_t["b3_f64"].get(f) for f in (
+                **{f: grid_t["b3_f64"].get(f) for f in (
                     "kernel_device_ms", "plain_ms", "bound_ms", "bound_by",
-                    "launches_per_run")}
+                    "launches_per_run")},
+                "design": grid_t["b3_f64"]["design"]["kind"]}
         if wide_t:   # the wide body, S=9 or K=9
             lines[-1]["wide_body"] = {
                 "source": WIDE_SOURCES[key],

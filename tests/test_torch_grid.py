@@ -330,16 +330,62 @@ def test_what_is_not_ported_raises(learned_bank):
 
 def test_lane_chunk_is_reckoned_from_the_launch():
     """No chunking on the CPU; on a card, the bytes a lane takes at the
-    protocol's padded shape: B1's 41 output values and 490 scratch values
-    a pair (the scratch design) and 72 of the EM iteration's."""
+    protocol's padded shape: B1's 41 output values a pair and 72 of the EM
+    iteration's, 113 in all (B1 takes the checkpointed design, its state in
+    shared memory; the scratch design's 490 values a pair, 603 in all,
+    only where a launch takes it)."""
     base = to_port(jax_bank(np.random.default_rng(1), 4, 2, 2))
     assert tv.lane_chunk(base, 6, 5, 50, 10_000) is None
     pairs = 8192 * 6
     got = tv.grid_lane_bytes(8192, 2, 6, 5, 50, 4, 1920)
-    assert got == pairs * (41 + 49 * 10 + 72) * 4
+    assert tv.pair_estep_cuda.design(2, 5, 50, 4, pairs * 1920).kind == \
+        "checkpointed"
+    assert got == pairs * (41 + 72) * 4
+    # a card with fewer SMs than the checkpointed design needs: scratch
+    assert tv.grid_lane_bytes(8192, 9, 6, 9, 50, 4, 1920) == pairs * (
+        (1 + 9 + 81 + 81) + 49 * 81 + (12 + 9 + 81 + 3 * 81)) * 4
     # a launch small enough to stay resident has no scratch
     small = tv.grid_lane_bytes(40, 2, 2, 2, 10, 4, 1)
     assert small == 80 * ((1 + 2 + 4 + 4) + 12 + 2 + 4 + 12) * 4
+
+
+def test_lane_chunk_arithmetic_on_a_card(monkeypatch):
+    """lane_chunk on a card (its free memory and SMs stubbed): lanes of
+    grid_lane_bytes filling GRID_MEMORY_SHARE of the free memory, within
+    the launch grid's MAX_GRID_Y / Kmax, in the fewest equal chunks; None
+    where all lanes fit.  With 79 GiB free the protocol grid's 1920 lanes
+    at Kb=8192 run in two chunks of 960 (1909 fit; the scratch design's
+    603 values a pair let 357 fit, six chunks)."""
+    from types import SimpleNamespace
+    free = 79 * 2 ** 30
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda dev: (free, 80 * 2 ** 30))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(
+                            multi_processor_count=132))
+
+    class CudaMean:
+        device = torch.device("cuda", 0)
+
+        @staticmethod
+        def element_size():
+            return 4
+
+    def bank(kb):
+        return SimpleNamespace(hmm=SimpleNamespace(mean=CudaMean()),
+                               state_mask=torch.ones(kb, 2, dtype=bool))
+
+    per = tv.grid_lane_bytes(8192, 2, 6, 5, 50, 4, 1920)
+    assert int(free * tv.GRID_MEMORY_SHARE) // per == 1909
+    assert tv.lane_chunk(bank(8192), 6, 5, 50, 1920) == 960
+    assert tv.lane_chunk(bank(8192), 6, 5, 50, 3000) == 1500
+    assert int(free * tv.GRID_MEMORY_SHARE) // (
+        8192 * 6 * (41 + 490 + 72) * 4) == 357
+    assert tv.lane_chunk(bank(8192), 6, 5, 50, 1909) is None
+    # a small bank: the launch grid's cap, 65535 // Kmax = 10922 lanes,
+    # in equal chunks
+    assert tv.pair_estep_cuda.MAX_GRID_Y // 6 == 10922
+    assert tv.lane_chunk(bank(40), 6, 5, 50, 20_000) == 10_000
 
 
 def test_grid_path_runs_with_jax_blocked():

@@ -160,14 +160,16 @@ def test_biff8_parsers_match_jax():
         return struct.pack("<HB", len(text), int(high)) + raw
 
     # one table in one record (a high-byte string among them), and one
-    # whose third string runs on into a CONTINUE record
+    # whose third string runs on into a CONTINUE record, after its option
+    # byte: the JAX package's reader decodes that byte as text there, so
+    # the port is held to the strings (tests/test_torch_xls.py)
     whole = [struct.pack("<ii", 3, 3) + s8("SubjectID") + s8("FixX")
              + s8("Yé!", high=True)]
     assert txls._parse_sst(whole) == jxls._parse_sst(whole) == [
         "SubjectID", "FixX", "Yé!"]
     split = [struct.pack("<ii", 3, 3) + s8("SubjectID") + s8("FixX")
              + struct.pack("<HB", 6, 0) + b"Fi", b"\x00xYZ!" + s8("end")]
-    assert txls._parse_sst(split) == jxls._parse_sst(split)
+    assert txls._parse_sst(split) == ["SubjectID", "FixX", "FixYZ!"]
 
 
 def test_median_length_and_nested_batches():

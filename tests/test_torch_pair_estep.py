@@ -300,6 +300,49 @@ def test_kernel_rebased_carry_matches_loop_oracle(tau, sr):
                 np.testing.assert_allclose(g, w, rtol=1e-10, atol=1e-13)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("tau", [2, 50])
+def test_plain_gives_exact_zeros_at_padded_states(dtype, tau):
+    """The padded grid masks each cell's states past its S with -1e30 in
+    log_pi and in every log_a column into them (masked_e_log_dirichlet),
+    as ``vbhem.reduced_expectations`` does: every exp over them is exactly
+    0, so the plain version gives exact zeros at those entries of nu_1,
+    sum_xi (rows and columns) and sum_t_nu, the zeros the kernels' padded
+    grid body writes without running those states
+    (csrc/pair_recursion.cuh: live_states).  And the live states' results
+    equal the unpadded model's: what the body computes."""
+    from vbhem_tpu_torch.utils.numeric import masked_e_log_dirichlet
+    rng = np.random.default_rng(tau)
+    case = port(make_case(4, kb=6, kr=3, sb=2, sr=5), dtype)
+    cells = [1, 3, 5]   # each reduced model j's S
+    smask = torch.arange(5) < torch.tensor(cells)[:, None]
+    eta = torch.as_tensor(rng.uniform(0.5, 3.0, (3, 5)), dtype=dtype)
+    eps = torch.as_tensor(rng.uniform(0.5, 3.0, (3, 5, 5)), dtype=dtype)
+    log_pi = masked_e_log_dirichlet(eta, smask)
+    log_a = masked_e_log_dirichlet(eps, smask[:, None, :])
+    assert torch.all(log_pi[0, 1:] == -1e30)
+    assert torch.all(log_a[0, :, 1:] == -1e30)
+    ell = tpe.expected_pair_ll_variational(*case[2:4], *case[6:])
+    got = tpe.pair_bwd_fwd(case[0], case[1], log_pi, log_a, ell, tau)
+    for j, s_ in enumerate(cells):
+        assert torch.all(got.nu_1[:, j, s_:] == 0)
+        assert torch.all(got.sum_xi[:, j, s_:, :] == 0)
+        assert torch.all(got.sum_xi[:, j, :, s_:] == 0)
+        assert torch.all(got.sum_t_nu[:, j, s_:] == 0)
+        one = tpe.pair_bwd_fwd(case[0], case[1], log_pi[j:j + 1, :s_],
+                               log_a[j:j + 1, :s_, :s_],
+                               ell[:, j:j + 1, :, :s_], tau)
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        for f in one._fields:
+            a = getattr(got, f)[:, j]
+            b = getattr(one, f)[:, 0]
+            a = a[..., :s_] if f == "nu_1" else (
+                a[..., :s_, :s_] if f == "sum_xi" else (
+                    a[..., :s_, :] if f == "sum_t_nu" else a))
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=tol,
+                                       atol=tol)
+
+
 # ---------------------------------------------------------------------------
 # B3: the recursion on a precomputed emission matrix (VHEM, DIC)
 # ---------------------------------------------------------------------------

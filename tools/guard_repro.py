@@ -15,9 +15,10 @@ it copies the package and chip_smoke.py into build/guard_repro/<variant>/
 of ``csrc/pair_estep_fused.cu`` at the build's flags and the PTX of each
 generic float32 entry on its own, and runs chip_smoke's B1 parity cases
 that take masked states: the generic body at Sb=Sr=3, D=3, tau=2 and 50,
-the (3,3,2) specialization on the same kind of inputs, and the grid's
-launch case (Sb=2, Sr=5), each variant in its own process, float32 and
-float64.  With ``--sanitizer`` it also runs the reformed variant's tau=2
+the (3,3,2) specialization on the same kind of inputs, and the padded
+grid's (2,5,2) body (a masked state it must run, which fires its guard,
+and the grid's launch case), each variant in its own process, float32
+and float64.  With ``--sanitizer`` it also runs the reformed variant's tau=2
 case under compute-sanitizer's memcheck and initcheck where the toolkit
 has it.
 
@@ -43,7 +44,10 @@ from vbhem_tpu_torch.ops import _build  # noqa: E402
 KEEP_Z = "constexpr bool kKeepZ = SB_ == 0 || SR_ == 0;"
 VARIANTS = {"kept": None, "reformed": "constexpr bool kKeepZ = false;"}
 CASES = ("d3_masked_state_tau2", "d3_masked_state_tau50",
-         "masked_state_ragged", "masked_state_tau50_scratch", "grid_launch")
+         "d3_masked_state_tau50_checkpointed", "masked_state_ragged",
+         "masked_state_tau50_scratch", "grid_body_masked_state0_tau2",
+         "grid_body_masked_state0_tau50",
+         "grid_body_masked_state0_tau50_checkpointed", "grid_launch")
 
 RUN_CASES = """
 import json, sys
@@ -77,7 +81,8 @@ def make_variant(name: str, patch) -> Path:
 
 def write_ptx(root: Path, out: Path, name: str) -> dict:
     """PTX of pair_estep_fused.cu; each generic float32 entry (template
-    arguments <float, 0, 0, 0, design>) also in a file of its own."""
+    arguments <float, 0, 0, 0, design, false>) also in a file of its
+    own."""
     nvcc = _build.find_nvcc()
     src = root / "vbhem_tpu_torch" / "csrc" / "pair_estep_fused.cu"
     ptx = out / f"{name}_pair_estep_fused.ptx"
@@ -87,11 +92,12 @@ def write_ptx(root: Path, out: Path, name: str) -> dict:
     entries = {}
     for m in re.finditer(r"\.entry (\S+?)\(", text):
         sym = m.group(1)
-        if "IfLi0ELi0ELi0ELi" not in sym:
+        generic = re.search(r"IfLi0ELi0ELi0ELi(\d)E", sym)
+        if not generic:
             continue
         end = text.find(".entry", m.end())
         body = text[m.start():end if end > 0 else len(text)]
-        design = "resident" if "IfLi0ELi0ELi0ELi0E" in sym else "scratch"
+        design = ("resident", "scratch", "checkpointed")[int(generic[1])]
         path = out / f"{name}_generic_f32_{design}.ptx"
         path.write_text(body)
         entries[design] = {"symbol": sym, "lines": body.count("\n"),

@@ -22,14 +22,17 @@
 //   * grid (ceil(Kb / threads), L*Kr): a block stages its reduced model's
 //     log_pi, log_a and exp(log_a) in shared memory;
 //   * the per-step state of the recursion stays on chip, in shared memory,
-//     wherever the wrapper finds a block holds it at enough pairs per SM,
-//     and goes to a device-memory scratch only where none does
-//     (pair_recursion.cuh);
+//     wherever the wrapper finds a block holds it at enough pairs per SM:
+//     every step, or segments of steps and their carries (recomputing a
+//     segment's steps in the forward pass); it goes to a device-memory
+//     scratch only where neither fits (pair_recursion.cuh);
 //   * the VHEM path's bank has Sb=2 and its grid Sr in 1..3: (Sb, Sr) =
-//     (2, 1), (2, 2), (2, 3) are compile-time specializations; every other
-//     shape in Sb, Sr <= 8 runs a generic instantiation, and larger ones
-//     the wide body of pair_recursion.cuh (vectors in device memory, the
-//     scratch design only).
+//     (2, 1), (2, 2), (2, 3) are compile-time specializations; so is
+//     (2, 5), the float64 rescoring's largest cell and the padded grid's
+//     shape, which runs each block at its reduced model's unmasked states;
+//     every other shape in Sb, Sr <= 8 runs a generic instantiation, and
+//     larger ones the wide body of pair_recursion.cuh (vectors in device
+//     memory, the scratch design only).
 // Templated on float and double.
 
 #include "pair_recursion.cuh"
@@ -38,8 +41,8 @@ namespace {
 
 using namespace vbhem_pair;
 
-template <typename T, int SB_, int SR_, int kDesign>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks<T>)
+template <typename T, int SB_, int SR_, int kDesign, bool kTrim>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks<T, kTrim>)
 pair_bwd_fwd_kernel(const T* __restrict__ ell_in,  // [LKr, Sb, Sr, Kb]
                     const T* __restrict__ prior,   // [Sb, Kb]
                     const T* __restrict__ trans,   // [Sb, Sb, Kb]
@@ -51,16 +54,19 @@ pair_bwd_fwd_kernel(const T* __restrict__ ell_in,  // [LKr, Sb, Sr, Kb]
                     T* __restrict__ stn_out,       // [LKr, Sr, Sb, Kb]
                     T* __restrict__ scratch,       // kScratch only:
                                                    // [tau-1, Sb*Sr, LKr, Kb]
-                    int kb, int lkr, int sb_rt, int sr_rt, int tau) {
+                    int kb, int lkr, int sb_rt, int sr_rt, int tau,
+                    int seg) {
   constexpr int MSB = Cap<SB_>::value;
   constexpr int MSR = Cap<SR_>::value;
   const int sb = SB_ > 0 ? SB_ : sb_rt;
-  const int sr = SR_ > 0 ? SR_ : sr_rt;
+  const int ld = SR_ > 0 ? SR_ : sr_rt;   // Sr of the layouts
 
   __shared__ Reduced<T, SR_> red;
   const int j = blockIdx.y;
-  stage_reduced(red, log_pi, log_a, j, sr);
+  stage_reduced(red, log_pi, log_a, j, ld);
   __syncthreads();
+  // the states this block runs
+  const int sr = kTrim ? live_states(red, ld) : ld;
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= kb) return;
@@ -69,21 +75,27 @@ pair_bwd_fwd_kernel(const T* __restrict__ ell_in,  // [LKr, Sb, Sr, Kb]
   T pr[MSB];
   T tr[MSB][MSB];
   T ell[MSB][MSR];
-#pragma unroll
-  for (int b = 0; b < sb; ++b) {
+  VB_FOR(b, SB_, sb) {
     pr[b] = prior[b * skb + i];
-#pragma unroll
-    for (int c = 0; c < sb; ++c) tr[b][c] = trans[(b * sb + c) * skb + i];
-#pragma unroll
-    for (int r = 0; r < sr; ++r)
-      ell[b][r] = ell_in[(static_cast<size_t>(j * sb + b) * sr + r) * skb + i];
+    VB_FOR(c, SB_, sb) { tr[b][c] = trans[(b * sb + c) * skb + i]; }
+    VB_FOR(r, SR_, sr) {
+      ell[b][r] = ell_in[(static_cast<size_t>(j * sb + b) * ld + r) * skb + i];
+    }
   }
 
   size_t stride;
   T* st = state_base<T, kDesign>(scratch, static_cast<size_t>(j) * skb + i,
                                  static_cast<size_t>(lkr) * skb, stride);
-  pair_recursion<T, SB_, SR_>(pr, tr, ell, red, st, stride, ll_out, nu1_out,
-                              sxi_out, stn_out, j, i, kb, sb_rt, sr_rt, tau);
+  if constexpr (kTrim && sizeof(T) == 4) {
+    pair_recursion_live<T, SB_, SR_, kDesign>(pr, tr, ell, red, st, stride,
+                                              ll_out, nu1_out, sxi_out,
+                                              stn_out, j, i, kb, sb, sr, ld,
+                                              tau, seg);
+  } else {
+    pair_recursion<T, SB_, SR_, kDesign>(pr, tr, ell, red, st, stride,
+                                         ll_out, nu1_out, sxi_out, stn_out, j,
+                                         i, kb, sb, sr, ld, tau, seg);
+  }
 }
 
 // The wide body (Sb or Sr above kMaxS, pair_recursion.cuh): the reduced
@@ -122,15 +134,15 @@ pair_bwd_fwd_wide_kernel(const T* __restrict__ ell_in, const T* __restrict__ pri
 struct Args {
   const void *ell, *prior, *trans, *log_pi, *log_a;
   void *ll_out, *nu1_out, *sxi_out, *stn_out, *scratch;
-  int kb, lkr, sb, sr, tau, design, threads, smem;
+  int kb, lkr, sb, sr, tau, design, threads, smem, seg;
   cudaStream_t stream;
 };
 
-template <typename T, int SB_, int SR_, int kDesign>
+template <typename T, int SB_, int SR_, int kDesign, bool kTrim>
 int launch_one(const Args& a) {
-  auto* kernel = pair_bwd_fwd_kernel<T, SB_, SR_, kDesign>;
-  const int err = prepare_launch(kernel, a.design, a.threads, a.smem, a.sb,
-                                 a.sr, a.tau, sizeof(T),
+  auto* kernel = pair_bwd_fwd_kernel<T, SB_, SR_, kDesign, kTrim>;
+  const int err = prepare_launch(kernel, a.design, a.threads, a.smem, a.seg,
+                                 a.sb, a.sr, a.tau, sizeof(T),
                                  a.scratch != nullptr);
   if (err != 0) return err;
   const dim3 grid((a.kb + a.threads - 1) / a.threads, a.lkr);
@@ -140,15 +152,19 @@ int launch_one(const Args& a) {
       static_cast<const T*>(a.log_a), static_cast<T*>(a.ll_out),
       static_cast<T*>(a.nu1_out), static_cast<T*>(a.sxi_out),
       static_cast<T*>(a.stn_out), static_cast<T*>(a.scratch), a.kb, a.lkr,
-      a.sb, a.sr, a.tau);
+      a.sb, a.sr, a.tau, a.seg);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int SB_, int SR_>
+template <typename T, int SB_, int SR_, bool kTrim = false>
 int launch_shape(const Args& a) {
   switch (a.design) {
-    case kResident: return launch_one<T, SB_, SR_, kResident>(a);
-    case kScratch: return launch_one<T, SB_, SR_, kScratch>(a);
+    case kResident: return launch_one<T, SB_, SR_, kResident, kTrim>(a);
+    case kScratch: return launch_one<T, SB_, SR_, kScratch, kTrim>(a);
+    case kCheckpointed:   // float32 only (pair_recursion.cuh)
+      if constexpr (sizeof(T) == 4)
+        return launch_one<T, SB_, SR_, kCheckpointed, kTrim>(a);
+      return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -177,6 +193,7 @@ int launch(const Args& a) {
   if (a.sb == 2 && a.sr == 1) return launch_shape<T, 2, 1>(a);
   if (a.sb == 2 && a.sr == 2) return launch_shape<T, 2, 2>(a);
   if (a.sb == 2 && a.sr == 3) return launch_shape<T, 2, 3>(a);
+  if (a.sb == 2 && a.sr == 5) return launch_shape<T, 2, 5, true>(a);
   return launch_shape<T, 0, 0>(a);
 }
 
@@ -186,7 +203,7 @@ int launch(const Args& a) {
 // contiguity and ranges (Sb, Sr >= 1, tau >= 1, L*Kr <= 65535; above
 // Sb, Sr = 8 the scratch design, with the wide body's workspace), lays
 // ell out as [L*Kr, Sb, Sr, Kb] and the base bank with Kb last, chooses
-// the design, block size and shared memory as for B1
+// the design, block size, shared memory and segment length as for B1
 // (vbhem_pair_estep_fused_*), and allocates every output and, for the
 // scratch design only, the scratch.  Returns the cudaError_t of the launch
 // (0 = launched).
@@ -195,11 +212,11 @@ int launch(const Args& a) {
                       const void* log_pi, const void* log_a, void* ll_out,    \
                       void* nu1_out, void* sxi_out, void* stn_out,            \
                       void* scratch, int kb, int lkr, int sb, int sr,         \
-                      int tau, int design, int threads, int smem,             \
+                      int tau, int design, int threads, int smem, int seg,    \
                       void* stream) {                                         \
     const Args a{ell, prior, trans, log_pi, log_a, ll_out, nu1_out, sxi_out,  \
                  stn_out, scratch, kb, lkr, sb, sr, tau, design, threads,     \
-                 smem, static_cast<cudaStream_t>(stream)};                    \
+                 smem, seg, static_cast<cudaStream_t>(stream)};               \
     return launch<T>(a);                                                      \
   }
 

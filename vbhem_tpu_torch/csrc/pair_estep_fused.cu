@@ -26,12 +26,16 @@
 //   * the recursion's per-step state stays on chip where the shape lets it
 //     (pair_recursion.cuh): the wrapper (`ops/pair_estep_cuda.py:design`)
 //     picks the block size and keeps every step in shared memory where a
-//     block holds it at enough pairs per SM, and a device-memory scratch
-//     only where none does;
+//     block holds it at enough pairs per SM, else segments of steps and
+//     their carries in shared memory (recomputing a segment's steps in the
+//     forward pass), and a device-memory scratch only where neither fits;
 //   * the shapes the clustering paths launch, (Sb, Sr, D) = (3, 3, 2) and
 //     (3, 2, 2) on the planted bank and (2, 2, 2) on a learned bank of
 //     2-state HMMs, are compile-time specializations whose loops unroll
-//     and whose arrays live in registers; every other shape in Sb, Sr <= 8,
+//     and whose arrays live in registers; so is the padded grid's
+//     (2, 5, 2) (the protocol's grid, Smax = 5, on a bank of 2-state
+//     HMMs), which runs each block at its lane's unmasked states and
+//     forms E3logN only for them; every other shape in Sb, Sr <= 8,
 //     D <= 4 runs a generic instantiation with runtime bounds, and Sb or
 //     Sr above 8 the wide body (pair_recursion.cuh: vectors in device
 //     memory, the scratch design only).  D > 4 never reaches this kernel:
@@ -47,10 +51,12 @@ using namespace vbhem_pair;
 constexpr int kMaxD = 4;
 
 // Specialized instantiations pass SB_, SR_, D_ > 0 and the loops below get
-// compile-time trip counts; the generic one passes 0 and reads the runtime
-// sizes.  Array extents are the compile-time bound either way.
-template <typename T, int SB_, int SR_, int D_, int kDesign>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks<T>)
+// compile-time extents; the generic one passes 0 and reads the runtime
+// sizes.  Array extents are the compile-time bound either way.  kTrim: the
+// body runs each block at the reduced model's live states
+// (pair_recursion.cuh: live_states) and writes zeros at the others.
+template <typename T, int SB_, int SR_, int D_, int kDesign, bool kTrim>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks<T, kTrim>)
 pair_estep_fused_kernel(const T* __restrict__ prior,    // [Sb, Kb]
                         const T* __restrict__ trans,    // [Sb, Sb, Kb]
                         const T* __restrict__ mean,     // [Sb, D, Kb]
@@ -69,12 +75,12 @@ pair_estep_fused_kernel(const T* __restrict__ prior,    // [Sb, Kb]
                         T* __restrict__ scratch,        // kScratch only:
                                                         // [tau-1, Sb*Sr, LKr, Kb]
                         int kb, int lkr, int sb_rt, int sr_rt, int d_rt,
-                        int tau) {
+                        int tau, int seg) {
   constexpr int MSB = Cap<SB_>::value;
   constexpr int MSR = Cap<SR_>::value;
   constexpr int MD = D_ > 0 ? D_ : kMaxD;
   const int sb = SB_ > 0 ? SB_ : sb_rt;
-  const int sr = SR_ > 0 ? SR_ : sr_rt;
+  const int ld = SR_ > 0 ? SR_ : sr_rt;   // Sr of the layouts
   const int d = D_ > 0 ? D_ : d_rt;
 
   // ---- stage the reduced model j in shared memory ----
@@ -85,17 +91,19 @@ pair_estep_fused_kernel(const T* __restrict__ prior,    // [Sb, Kb]
   __shared__ T s_c[MSR];  // D log 2pi - E log|Lambda| + D / lambda
   const int j = blockIdx.y;
   const T two_pi = static_cast<T>(6.283185307179586476925286766559);
-  stage_reduced(red, log_pi, log_a, j, sr);
-  for (int q = threadIdx.x; q < sr; q += blockDim.x) {
-    s_v[q] = v_r[j * sr + q];
-    s_c[q] = (static_cast<T>(d) * log(two_pi) - loglam_r[j * sr + q]) +
-             static_cast<T>(d) / lam_r[j * sr + q];
+  stage_reduced(red, log_pi, log_a, j, ld);
+  for (int q = threadIdx.x; q < ld; q += blockDim.x) {
+    s_v[q] = v_r[j * ld + q];
+    s_c[q] = (static_cast<T>(d) * log(two_pi) - loglam_r[j * ld + q]) +
+             static_cast<T>(d) / lam_r[j * ld + q];
   }
-  for (int q = threadIdx.x; q < sr * d; q += blockDim.x)
-    s_m[q] = m_r[(size_t)j * sr * d + q];
-  for (int q = threadIdx.x; q < sr * d * d; q += blockDim.x)
-    s_w[q] = w_r[(size_t)j * sr * d * d + q];
+  for (int q = threadIdx.x; q < ld * d; q += blockDim.x)
+    s_m[q] = m_r[(size_t)j * ld * d + q];
+  for (int q = threadIdx.x; q < ld * d * d; q += blockDim.x)
+    s_w[q] = w_r[(size_t)j * ld * d * d + q];
   __syncthreads();
+  // the states this block runs
+  const int sr = kTrim ? live_states(red, ld) : ld;
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= kb) return;
@@ -105,32 +113,24 @@ pair_estep_fused_kernel(const T* __restrict__ prior,    // [Sb, Kb]
   T pr[MSB];
   T tr[MSB][MSB];
   T ell[MSB][MSR];
-#pragma unroll
-  for (int b = 0; b < sb; ++b) {
+  VB_FOR(b, SB_, sb) {
     pr[b] = prior[b * skb + i];
-#pragma unroll
-    for (int c = 0; c < sb; ++c) tr[b][c] = trans[(b * sb + c) * skb + i];
+    VB_FOR(c, SB_, sb) { tr[b][c] = trans[(b * sb + c) * skb + i]; }
   }
 
   // ---- E3logN [Sb, Sr] in registers ----
-#pragma unroll
-  for (int b = 0; b < sb; ++b) {
+  VB_FOR(b, SB_, sb) {
     T mu[MD];
     T sg[MD][MD];
-#pragma unroll
-    for (int e = 0; e < d; ++e) {
+    VB_FOR(e, D_, d) {
       mu[e] = mean[(b * d + e) * skb + i];
-#pragma unroll
-      for (int f = 0; f < d; ++f) sg[e][f] = cov[((b * d + e) * d + f) * skb + i];
+      VB_FOR(f, D_, d) { sg[e][f] = cov[((b * d + e) * d + f) * skb + i]; }
     }
-#pragma unroll
-    for (int r = 0; r < sr; ++r) {
+    VB_FOR(r, SR_, sr) {
       T trw = 0, quad = 0;
-#pragma unroll
-      for (int e = 0; e < d; ++e) {
+      VB_FOR(e, D_, d) {
         const T de = mu[e] - s_m[r * d + e];
-#pragma unroll
-        for (int f = 0; f < d; ++f) {
+        VB_FOR(f, D_, d) {
           const T w = s_w[(r * d + e) * d + f];
           trw += w * sg[f][e];
           quad += de * w * (mu[f] - s_m[r * d + f]);
@@ -143,8 +143,16 @@ pair_estep_fused_kernel(const T* __restrict__ prior,    // [Sb, Kb]
   size_t stride;
   T* st = state_base<T, kDesign>(scratch, static_cast<size_t>(j) * skb + i,
                                  static_cast<size_t>(lkr) * skb, stride);
-  pair_recursion<T, SB_, SR_>(pr, tr, ell, red, st, stride, ll_out, nu1_out,
-                              sxi_out, stn_out, j, i, kb, sb_rt, sr_rt, tau);
+  if constexpr (kTrim && sizeof(T) == 4) {
+    pair_recursion_live<T, SB_, SR_, kDesign>(pr, tr, ell, red, st, stride,
+                                              ll_out, nu1_out, sxi_out,
+                                              stn_out, j, i, kb, sb, sr, ld,
+                                              tau, seg);
+  } else {
+    pair_recursion<T, SB_, SR_, kDesign>(pr, tr, ell, red, st, stride,
+                                         ll_out, nu1_out, sxi_out, stn_out, j,
+                                         i, kb, sb, sr, ld, tau, seg);
+  }
 }
 
 // The wide body (Sb or Sr above kMaxS, pair_recursion.cuh): the reduced
@@ -231,15 +239,15 @@ struct Args {
   const void *prior, *trans, *mean, *cov, *log_pi, *log_a, *m_r, *w_r, *v_r,
       *lam_r, *loglam_r;
   void *ll_out, *nu1_out, *sxi_out, *stn_out, *scratch;
-  int kb, lkr, sb, sr, d, tau, design, threads, smem;
+  int kb, lkr, sb, sr, d, tau, design, threads, smem, seg;
   cudaStream_t stream;
 };
 
-template <typename T, int SB_, int SR_, int D_, int kDesign>
+template <typename T, int SB_, int SR_, int D_, int kDesign, bool kTrim>
 int launch_one(const Args& a) {
-  auto* kernel = pair_estep_fused_kernel<T, SB_, SR_, D_, kDesign>;
-  const int err = prepare_launch(kernel, a.design, a.threads, a.smem, a.sb,
-                                 a.sr, a.tau, sizeof(T),
+  auto* kernel = pair_estep_fused_kernel<T, SB_, SR_, D_, kDesign, kTrim>;
+  const int err = prepare_launch(kernel, a.design, a.threads, a.smem, a.seg,
+                                 a.sb, a.sr, a.tau, sizeof(T),
                                  a.scratch != nullptr);
   if (err != 0) return err;
   const dim3 grid((a.kb + a.threads - 1) / a.threads, a.lkr);
@@ -252,15 +260,19 @@ int launch_one(const Args& a) {
       static_cast<const T*>(a.loglam_r), static_cast<T*>(a.ll_out),
       static_cast<T*>(a.nu1_out), static_cast<T*>(a.sxi_out),
       static_cast<T*>(a.stn_out), static_cast<T*>(a.scratch), a.kb, a.lkr,
-      a.sb, a.sr, a.d, a.tau);
+      a.sb, a.sr, a.d, a.tau, a.seg);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int SB_, int SR_, int D_>
+template <typename T, int SB_, int SR_, int D_, bool kTrim = false>
 int launch_shape(const Args& a) {
   switch (a.design) {
-    case kResident: return launch_one<T, SB_, SR_, D_, kResident>(a);
-    case kScratch: return launch_one<T, SB_, SR_, D_, kScratch>(a);
+    case kResident: return launch_one<T, SB_, SR_, D_, kResident, kTrim>(a);
+    case kScratch: return launch_one<T, SB_, SR_, D_, kScratch, kTrim>(a);
+    case kCheckpointed:   // float32 only (pair_recursion.cuh)
+      if constexpr (sizeof(T) == 4)
+        return launch_one<T, SB_, SR_, D_, kCheckpointed, kTrim>(a);
+      return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -294,6 +306,8 @@ int launch(const Args& a) {
   if (a.sb == 3 && a.sr == 3 && a.d == 2) return launch_shape<T, 3, 3, 2>(a);
   if (a.sb == 3 && a.sr == 2 && a.d == 2) return launch_shape<T, 3, 2, 2>(a);
   if (a.sb == 2 && a.sr == 2 && a.d == 2) return launch_shape<T, 2, 2, 2>(a);
+  if (a.sb == 2 && a.sr == 5 && a.d == 2)
+    return launch_shape<T, 2, 5, 2, true>(a);
   return launch_shape<T, 0, 0, 0>(a);
 }
 
@@ -304,11 +318,12 @@ int launch(const Args& a) {
 // above Sb, Sr = 8 the scratch design, with E3logN and the wide body's
 // workspace after the states),
 // chooses the design (0 resident in shared memory, 1 device-memory
-// scratch), the block size `threads` (a multiple of 32 up to 128) and the
-// dynamic shared memory `smem` in bytes, and allocates every output and,
-// for design 1 only, the scratch [tau-1, Sb*Sr, L*Kr, Kb] (else passes
-// null).  Returns the cudaError_t of the launch (0 = launched;
-// cudaErrorInvalidValue for a configuration the kernel does not take).
+// scratch, 2 checkpointed segments of `seg` steps in shared memory), the
+// block size `threads` (a multiple of 32 up to 128) and the dynamic shared
+// memory `smem` in bytes, and allocates every output and, for design 1
+// only, the scratch [tau-1, Sb*Sr, L*Kr, Kb] (else passes null).  Returns
+// the cudaError_t of the launch (0 = launched; cudaErrorInvalidValue for a
+// configuration the kernel does not take).
 #define VBHEM_FUSED_ENTRY(NAME, T)                                            \
   extern "C" int NAME(                                                        \
       const void* prior, const void* trans, const void* mean,                 \
@@ -316,10 +331,10 @@ int launch(const Args& a) {
       const void* m_r, const void* w_r, const void* v_r, const void* lam_r,   \
       const void* loglam_r, void* ll_out, void* nu1_out, void* sxi_out,       \
       void* stn_out, void* scratch, int kb, int lkr, int sb, int sr, int d,   \
-      int tau, int design, int threads, int smem, void* stream) {             \
+      int tau, int design, int threads, int smem, int seg, void* stream) {    \
     const Args a{prior, trans, mean, cov, log_pi, log_a, m_r, w_r, v_r,       \
                  lam_r, loglam_r, ll_out, nu1_out, sxi_out, stn_out, scratch, \
-                 kb, lkr, sb, sr, d, tau, design, threads, smem,              \
+                 kb, lkr, sb, sr, d, tau, design, threads, smem, seg,         \
                  static_cast<cudaStream_t>(stream)};                          \
     return launch<T>(a);                                                      \
   }

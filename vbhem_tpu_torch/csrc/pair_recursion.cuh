@@ -34,8 +34,7 @@
 //   * the per-step state the forward pass needs, w [Sb, Sr], is kept, not
 //     the carry: the forward pass forms
 //       Theta[rp][c][rc] = A[rp][rc] w[c][rc] / S[rp][c]
-//     with S recomputed by FMAs and one reciprocal each, and no exp, a
-//     step ahead of the step that uses them;
+//     with S recomputed by FMAs and one reciprocal each, and no exp;
 //   * an underflow guard.  Where S[rp][c] falls below under_floor (every rc
 //     with a non-negligible w has A ~ 0: a -1e30 masked state or a -inf
 //     log_a entry at the argmax of z, with a spread of z of tens of nats
@@ -44,18 +43,59 @@
 //     its state is stored as log w - 1 (< 0, where w >= 0), so the forward
 //     pass knows to rebuild that column's Theta with exps.  No log(0)
 //     reaches the sum_c trans * lse, where a zero row of a ragged base
-//     HMM's trans would turn it into NaN;
-//   * where the state lives is the design (`kResident`, `kScratch`), chosen
-//     by the wrapper from the shape: all tau-1 steps in dynamic shared
-//     memory, where a block holds them at enough pairs per SM; else all
-//     steps in a device-memory scratch [tau-1, Sb*Sr, L*Kr, Kb] (long tau,
-//     float64 at large S).  Shared memory is laid out value-major,
-//     [slot][Sb*Sr][thread], so a warp's stores and loads fall on
-//     consecutive words;
-//   * float32 bodies are held to 5 blocks of 128 threads per SM
-//     (`__launch_bounds__`), which lets the Sb = Sr = 3 bodies run 640
-//     pairs per SM instead of 512 (measured 5% faster than 4 blocks on an
-//     H100; 6 blocks spill: PERF.md section 6).
+//     HMM's trans would turn it into NaN.  What a guarded step adds to
+//     sum_xi gathers in registers in the exact bodies (kGuardRegs) and
+//     elsewhere goes straight to the pair's own sum_xi output (zeroed
+//     when a guarded step first adds to it), so it takes no registers;
+//   * where the state lives is the design, chosen by the wrapper
+//     (ops/pair_estep_cuda.py: design) from the shape:
+//       kResident     all tau-1 steps in dynamic shared memory, where a
+//                     block holds them at enough pairs per SM;
+//       kCheckpointed in shared memory, segments of `seg` steps (about
+//                     sqrt(tau)): the backward pass keeps the carry at
+//                     each segment's start and leaves the last segment's
+//                     w in place; the forward pass recomputes each earlier
+//                     segment's w from its carry before it runs that
+//                     segment, so it takes one more backward pass of exps
+//                     and (seg + tau/seg) steps' room instead of tau's
+//                     (the padded grid at tau = 50: 13 slots, not 49).
+//                     float32 only: in float64 the correctly rounded exps
+//                     and logs of a recomputed segment beside the forward
+//                     pass's sums spill at (2, 5) (ptxas: 308 B), and the
+//                     float64 launches (the rescoring, DIC) are small
+//                     enough that the scratch's traffic costs little;
+//       kScratch      all steps in a device-memory scratch
+//                     [tau-1, Sb*Sr, L*Kr, Kb], where no block holds even
+//                     the segments (and the wide body's only design).
+//     Shared memory is laid out value-major, [slot][Sb*Sr][thread], so a
+//     warp's stores and loads fall on consecutive words;
+//   * every loop runs over a compile-time extent where the body has one,
+//     so it unrolls and the arrays stay in registers (VB_FOR).  The exact
+//     bodies (the main paths' (Sb, Sr) = (3, 3), (3, 2), (2, 2)) know
+//     their counts.  The padded grid's body (Sb, Sr) = (2, 5) runs each
+//     block at the states its reduced model uses (kTrim, live_states):
+//     the grid pads every cell to Smax = 5 and masks the states past its
+//     S with -1e30, so no pair ever enters them, the plain version gives
+//     exact zeros there, and the body skips them and writes those zeros.
+//     In float32 it holds one instantiation per live count, 1 to 5
+//     (pair_recursion_live), so a cell of S states runs S-state loops
+//     with no guard (42% less time than guarded loops over 5 at the
+//     grid's launch: PERF.md section 6); in float64 (the rescoring and
+//     the hyp gradient's check, where the time matters little) one,
+//     guarded.  A body per padded shape was chosen over one generic body
+//     sized by caps of 2/4/8: a cap of 8 (the next above 5) holds 8x8
+//     sums, which do not fit the registers.  Every other shape in
+//     Sb, Sr <= 8 runs the generic body with runtime counts, its arrays
+//     in local memory;
+//   * registers: the exact float32 bodies are held to 5 blocks of 128
+//     threads per SM (102 registers: `__launch_bounds__`; measured 5%
+//     faster than 4 blocks on an H100, 6 spill: PERF.md section 6); the
+//     (2, 5) float32 body, whose sums [Sr][Sr] and [Sr][Sb], state and
+//     emission matrix take about 110 values, to 2 (255 registers; it
+//     uses about 200); float64 bodies take what they need (255), the
+//     (2, 5) one with kLean and kSumsOut.  ptxas's report of each
+//     (ops/_build.py: ptxas_report) shows no stack frame and no spills for
+//     the (2, 5) bodies in every design they are built in.
 
 #pragma once
 
@@ -71,16 +111,27 @@ constexpr int kMaxThreads = 128;
 constexpr int kMaxSmem = 232448;   // shared memory one block may use
 
 // The least blocks of kMaxThreads an SM must hold, which caps the
-// registers ptxas may give a thread (`__launch_bounds__`), in float32;
-// float64 bodies take what they need.
-template <typename T>
-constexpr int kMinBlocks = sizeof(T) == 4 ? 5 : 1;
+// registers ptxas may give a thread (`__launch_bounds__`): in float32 5,
+// and 2 for the padded grid's body (kTrim, 255 registers: at 3 its
+// instantiations per live count spilled); float64 bodies take what they
+// need.
+template <typename T, bool kTrim>
+constexpr int kMinBlocks = sizeof(T) == 4 ? (kTrim ? 2 : 5) : 1;
 
 // where the per-step state lives (ops/pair_estep_cuda.py: DESIGNS)
 constexpr int kResident = 0;
 constexpr int kScratch = 1;
+constexpr int kCheckpointed = 2;
 
 extern __shared__ __align__(16) unsigned char pair_smem[];
+
+// A loop of v over [0, n), n <= M: where the body has a compile-time extent
+// M it unrolls over M with a guard (which folds away where n is M, known at
+// compile time), so arrays indexed by v stay in registers; M = 0 (the
+// generic body) leaves a loop over the runtime n.  Nest it with braces.
+#define VB_FOR(v, M, n)                                        \
+  _Pragma("unroll") for (int v = 0; v < ((M) > 0 ? (M) : (n)); ++v) \
+    if ((M) == 0 || v < (n))
 
 // Accurate special functions, for what runs once per block.
 __device__ __forceinline__ float dexp(float x) { return expf(x); }
@@ -176,6 +227,26 @@ __device__ __forceinline__ void stage_reduced(Reduced<T, SR_>& red,
   }
 }
 
+// The states of staged reduced model j that a pair can enter: all sr but
+// the trailing ones whose log_pi and every log_a into them are at most
+// -1e29 (the padded grid masks a cell's unused states with -1e30), so
+// that every exp over them is exactly 0.  All sr where every state is so
+// masked.  Uniform across the block.
+template <typename T, int SR_>
+__device__ __forceinline__ int live_states(const Reduced<T, SR_>& red,
+                                           int sr) {
+  const T masked = static_cast<T>(-1e29);
+  int n = sr;
+  while (n > 0) {
+    bool out = red.log_pi[n - 1] <= masked;
+    for (int rp = 0; rp < sr; ++rp)
+      out = out && red.log_a[rp * sr + n - 1] <= masked;
+    if (!out) break;
+    --n;
+  }
+  return n > 0 ? n : sr;
+}
+
 // This thread's state: slot 0 of the design's storage and the distance
 // between two consecutive values (a block's threads in shared memory, the
 // L*Kr*Kb pairs in the scratch).
@@ -191,16 +262,31 @@ __device__ __forceinline__ T* state_base(T* scratch, size_t pix,
   }
 }
 
+// The slots a pair's state takes in the checkpointed design: a segment of
+// seg steps' w, the carry at the start of segments 1 .. nseg-2 (the first
+// starts from 0, the last stays in place after the backward pass), and,
+// where a segment is recomputed, the emission matrix ell it reads (last).
+__host__ __device__ __forceinline__ int checkpointed_slots(int tau,
+                                                           int seg) {
+  const int ns = tau - 1;
+  if (ns <= 0 || seg < 1) return 0;
+  const int len = seg < ns ? seg : ns;
+  const int nseg = (ns + len - 1) / len;
+  return len + (nseg > 2 ? nseg - 2 : 0) + (nseg > 1 ? 1 : 0);
+}
+
 // One backward step: from the rebased carry llo [Sb, Sr] and its shifts
 // sh [Sb] to the next, storing w (or, in a guarded column, log w - 1) at
-// `slot`.
-template <typename T, int SB_, int SR_>
+// `slot`.  sb, sr: the states it runs (NR_ the compile-time extent of the
+// loops over sr, SR_ the arrays'); ld: Sr of the staged reduced model and
+// of the state's layout.
+template <typename T, int SB_, int SR_, int NR_>
 __device__ __forceinline__ void backward_step(
     const T (&ell)[Cap<SB_>::value][Cap<SR_>::value],
     const T (&tr)[Cap<SB_>::value][Cap<SB_>::value],
     T (&llo)[Cap<SB_>::value][Cap<SR_>::value], T (&sh)[Cap<SB_>::value],
     const Reduced<T, SR_>& red, T* __restrict__ slot, size_t stride, int sb,
-    int sr) {
+    int sr, int ld) {
   constexpr int MSB = Cap<SB_>::value;
   constexpr int MSR = Cap<SR_>::value;
   // The generic instantiation keeps z = ell + llo for the guard instead of
@@ -220,94 +306,75 @@ __device__ __forceinline__ void backward_step(
       return ell[c][rc] + llo[c][rc];
     }
   };
-#pragma unroll
-  for (int c = 0; c < sb; ++c) {
+  VB_FOR(c, SB_, sb) {
     T mx = neg_inf<T>();
-#pragma unroll
-    for (int rc = 0; rc < sr; ++rc) {
+    VB_FOR(rc, NR_, sr) {
       w[c][rc] = ell[c][rc] + llo[c][rc];
       if constexpr (kKeepZ) zs[c][rc] = w[c][rc];
       mx = dmax(mx, w[c][rc]);
     }
     mx = finite_or_zero(mx);
     mc[c] = mx;
-#pragma unroll
-    for (int rc = 0; rc < sr; ++rc) {
+    VB_FOR(rc, NR_, sr) {
       w[c][rc] = rexp(w[c][rc] - mx);
-      slot[(c * sr + rc) * stride] = w[c][rc];
+      slot[(c * ld + rc) * stride] = w[c][rc];
     }
   }
   // lse[rp][c] = m_c + amax[rp] + log sum_rc A[rp][rc] w[c][rc]
   T lse[MSR][MSB];
   T smin = static_cast<T>(1);   // any start above the floor
-#pragma unroll
-  for (int rp = 0; rp < sr; ++rp) {
-#pragma unroll
-    for (int c = 0; c < sb; ++c) {
+  VB_FOR(rp, NR_, sr) {
+    VB_FOR(c, SB_, sb) {
       T s = 0;
-#pragma unroll
-      for (int rc = 0; rc < sr; ++rc) s += red.a[rp * sr + rc] * w[c][rc];
+      VB_FOR(rc, NR_, sr) { s += red.a[rp * ld + rc] * w[c][rc]; }
       smin = s < smin ? s : smin;
       lse[rp][c] = s;
     }
   }
   // lse less its part m_c, which is constant in rp
-#pragma unroll
-  for (int rp = 0; rp < sr; ++rp)
-#pragma unroll
-    for (int c = 0; c < sb; ++c)
-      lse[rp][c] = red.amax[rp] + rlog(lse[rp][c]);
+  VB_FOR(rp, NR_, sr) {
+    VB_FOR(c, SB_, sb) { lse[rp][c] = red.amax[rp] + rlog(lse[rp][c]); }
+  }
   if (smin < under_floor<T>()) {   // the guard, rarely taken
-#pragma unroll
-    for (int c = 0; c < sb; ++c) {
+    VB_FOR(c, SB_, sb) {
       bool low = false;
-#pragma unroll
-      for (int rp = 0; rp < sr; ++rp) {
+      VB_FOR(rp, NR_, sr) {
         T s = 0;
-#pragma unroll
-        for (int rc = 0; rc < sr; ++rc) s += red.a[rp * sr + rc] * w[c][rc];
+        VB_FOR(rc, NR_, sr) { s += red.a[rp * ld + rc] * w[c][rc]; }
         low = low || s < under_floor<T>();
       }
       if (!low) continue;
       // column c in the log domain
-#pragma unroll
-      for (int rp = 0; rp < sr; ++rp) {
+      VB_FOR(rp, NR_, sr) {
         T x[MSR];
         T mx = neg_inf<T>();
-#pragma unroll
-        for (int rc = 0; rc < sr; ++rc) {
-          x[rc] = red.log_a[rp * sr + rc] + z_of(c, rc);
+        VB_FOR(rc, NR_, sr) {
+          x[rc] = red.log_a[rp * ld + rc] + z_of(c, rc);
           mx = dmax(mx, x[rc]);
         }
         mx = finite_or_zero(mx);
         T s = 0;
-#pragma unroll
-        for (int rc = 0; rc < sr; ++rc) s += rexp(x[rc] - mx);
+        VB_FOR(rc, NR_, sr) { s += rexp(x[rc] - mx); }
         lse[rp][c] = (rlog(s) + mx) - mc[c];
       }
-#pragma unroll
-      for (int rc = 0; rc < sr; ++rc)
-        slot[(c * sr + rc) * stride] =
+      VB_FOR(rc, NR_, sr) {
+        slot[(c * ld + rc) * stride] =
             (z_of(c, rc) - mc[c]) - static_cast<T>(1);
+      }
     }
   }
   // LL_new[b][rp] = sum_c trans[b][c] (lse[rp][c] + m_c + sh[c]): the
   // carry keeps sum_c trans[b][c] lse[rp][c], the shift the rest
   T base[MSB];
-#pragma unroll
-  for (int c = 0; c < sb; ++c) base[c] = mc[c] + sh[c];
-#pragma unroll
-  for (int b = 0; b < sb; ++b) {
-#pragma unroll
-    for (int rp = 0; rp < sr; ++rp) {
+  VB_FOR(c, SB_, sb) { base[c] = mc[c] + sh[c]; }
+  VB_FOR(b, SB_, sb) {
+    VB_FOR(rp, NR_, sr) {
       T acc = 0;
-#pragma unroll
-      for (int c = 0; c < sb; ++c) acc += tr[b][c] * lse[rp][c];
+      VB_FOR(c, SB_, sb) { acc += tr[b][c] * lse[rp][c]; }
       llo[b][rp] = acc;
     }
     T shift = 0;
-#pragma unroll
-    for (int c = 0; c < sb; ++c) shift += tr[b][c] * base[c];
+    VB_FOR(c, SB_, sb) { shift += tr[b][c] * base[c]; }
     sh[b] = shift;
   }
 }
@@ -322,256 +389,404 @@ struct Step {
   bool logged;
 };
 
-template <typename T, int SB_, int SR_>
+template <typename T, int SB_, int SR_, int NR_>
 __device__ __forceinline__ void load_step(Step<T, SB_, SR_>& st,
                                           const Reduced<T, SR_>& red,
                                           const T* __restrict__ slot,
-                                          size_t stride, int sb, int sr) {
+                                          size_t stride, int sb, int sr,
+                                          int ld) {
   T wmin = static_cast<T>(0);
-#pragma unroll
-  for (int c = 0; c < sb; ++c) {
-#pragma unroll
-    for (int rc = 0; rc < sr; ++rc) st.w[c][rc] = slot[(c * sr + rc) * stride];
+  VB_FOR(c, SB_, sb) {
+    VB_FOR(rc, NR_, sr) { st.w[c][rc] = slot[(c * ld + rc) * stride]; }
     wmin = st.w[c][0] < wmin ? st.w[c][0] : wmin;
   }
   st.logged = wmin < static_cast<T>(0);
-#pragma unroll
-  for (int rp = 0; rp < sr; ++rp)
-#pragma unroll
-    for (int c = 0; c < sb; ++c) {
+  VB_FOR(rp, NR_, sr) {
+    VB_FOR(c, SB_, sb) {
       T s = 0;
-#pragma unroll
-      for (int rc = 0; rc < sr; ++rc) s += red.a[rp * sr + rc] * st.w[c][rc];
+      VB_FOR(rc, NR_, sr) { s += red.a[rp * ld + rc] * st.w[c][rc]; }
       st.inv[rp][c] = rrcp(s);
     }
+  }
 }
+
+// Bodies whose sum_xi gathers in the pair's own output at every step (in
+// device memory) instead of in hsum, in registers: the float64 bodies of
+// 10 or more state values a step, whose correctly rounded exps and logs
+// leave no room for hsum's Sr*Sr values.
+template <typename T, int SB_, int SR_>
+constexpr bool kSumsOut = sizeof(T) == 8 && SB_ * SR_ >= 10;
+
+// Bodies whose guarded steps gather what they add to sum_xi in
+// registers: the exact bodies (Sb * Sr <= 9), which have room for it.
+template <typename T, int SB_, int SR_>
+constexpr bool kGuardRegs = SB_ > 0 && SR_ > 0 && SB_ * SR_ < 10;
+
+// What guarded steps add to sum_xi: with kGuardRegs in v [Sr][Sr], else
+// in the pair's own sum_xi output, value [rp][rc] at p[(rp * ld + rc) * s],
+// zeroed when a guarded step first adds to it (`used`).
+template <typename T, int SB_, int SR_>
+struct GuardSum {
+  static constexpr int M = kGuardRegs<T, SB_, SR_> ? SR_ : 1;
+  T* p;
+  size_t s;
+  bool used;
+  T v[M][M];
+};
 
 // One forward step on a stored step: xi[rp][c][rc] = foo[rp][c]
 // Theta[rp][c][rc] with foo = nu trans, summed into the next nu and into
-// sum_xi, which gathers A[rp][rc] hsum[rp][rc] + sxi_log[rp][rc]: hsum
-// from the common case (its A applied once, after the last step), sxi_log
-// from guarded steps.
-template <typename T, int SB_, int SR_>
+// sum_xi: in the common case as hsum[rp][rc] (its A applied once, after
+// the last step), in a guarded step column by column into `gs`.
+template <typename T, int SB_, int SR_, int NR_>
 __device__ __forceinline__ void forward_step(
     const T (&tr)[Cap<SB_>::value][Cap<SB_>::value],
     T (&nu)[Cap<SR_>::value][Cap<SB_>::value],
     T (&stn)[Cap<SR_>::value][Cap<SB_>::value],
-    T (&hsum)[Cap<SR_>::value][Cap<SR_>::value],
-    T (&sxi_log)[Cap<SR_>::value][Cap<SR_>::value],
-    const Reduced<T, SR_>& red, const Step<T, SB_, SR_>& st, int sb,
-    int sr) {
+    T (&hsum)[Cap<SR_>::value][Cap<SR_>::value], GuardSum<T, SB_, SR_>& gs,
+    const Reduced<T, SR_>& red, const Step<T, SB_, SR_>& st, int sb, int sr,
+    int ld) {
   constexpr int MSB = Cap<SB_>::value;
   constexpr int MSR = Cap<SR_>::value;
   T foo[MSR][MSB];
-#pragma unroll
-  for (int rp = 0; rp < sr; ++rp)
-#pragma unroll
-    for (int c = 0; c < sb; ++c) {
+  VB_FOR(rp, NR_, sr) {
+    VB_FOR(c, SB_, sb) {
       T f = 0;
-#pragma unroll
-      for (int b = 0; b < sb; ++b) f += nu[rp][b] * tr[b][c];
+      VB_FOR(b, SB_, sb) { f += nu[rp][b] * tr[b][c]; }
       foo[rp][c] = f;
     }
+  }
   // Theta = A w / S: with g = foo / S, the next nu is
   // nn[rc][c] = w[c][rc] sum_rp g[rp][c] A[rp][rc], and sum_xi gains
-  // A[rp][rc] h[rp][rc] with h[rp][rc] = sum_c g[rp][c] w[c][rc]
+  // A[rp][rc] h[rp][rc] with h[rp][rc] = sum_c g[rp][c] w[c][rc].  Formed
+  // whether or not the step is guarded, without a branch, so these FMAs
+  // interleave with the next step's loads; a guarded step keeps hsum and
+  // forms nn again below.  Bodies with kSumsOut, short of registers, form
+  // them only in unguarded steps, g in place of foo.
   T nn[MSR][MSB];
-  T h[MSR][MSR];
-  T g[MSR][MSB];
-#pragma unroll
-  for (int rp = 0; rp < sr; ++rp)
-#pragma unroll
-    for (int c = 0; c < sb; ++c) g[rp][c] = foo[rp][c] * st.inv[rp][c];
-#pragma unroll
-  for (int c = 0; c < sb; ++c)
-#pragma unroll
-    for (int rc = 0; rc < sr; ++rc) {
-      T t = 0;
-#pragma unroll
-      for (int rp = 0; rp < sr; ++rp) t += g[rp][c] * red.a[rp * sr + rc];
-      nn[rc][c] = st.w[c][rc] * t;
+  if constexpr (kSumsOut<T, SB_, SR_>) {
+    if (!st.logged) {
+      VB_FOR(rp, NR_, sr) {
+        VB_FOR(c, SB_, sb) { foo[rp][c] *= st.inv[rp][c]; }
+      }
+      VB_FOR(c, SB_, sb) {
+        VB_FOR(rc, NR_, sr) {
+          T t = 0;
+          VB_FOR(rp, NR_, sr) { t += foo[rp][c] * red.a[rp * ld + rc]; }
+          nn[rc][c] = st.w[c][rc] * t;
+        }
+      }
+      VB_FOR(rp, NR_, sr) {
+        VB_FOR(rc, NR_, sr) {
+          T acc = 0;
+          VB_FOR(c, SB_, sb) { acc += foo[rp][c] * st.w[c][rc]; }
+          gs.p[(rp * ld + rc) * gs.s] += red.a[rp * ld + rc] * acc;
+        }
+      }
     }
-#pragma unroll
-  for (int rp = 0; rp < sr; ++rp)
-#pragma unroll
-    for (int rc = 0; rc < sr; ++rc) {
-      T acc = hsum[rp][rc];
-#pragma unroll
-      for (int c = 0; c < sb; ++c) acc += g[rp][c] * st.w[c][rc];
-      h[rp][rc] = acc;
+  } else {
+    T g[MSR][MSB];
+    VB_FOR(rp, NR_, sr) {
+      VB_FOR(c, SB_, sb) { g[rp][c] = foo[rp][c] * st.inv[rp][c]; }
     }
-  if (st.logged) {   // a guarded column: this step again, column by column
-#pragma unroll
-    for (int rp = 0; rp < sr; ++rp)
-#pragma unroll
-      for (int rc = 0; rc < sr; ++rc) h[rp][rc] = hsum[rp][rc];
-#pragma unroll
-    for (int c = 0; c < sb; ++c) {
-#pragma unroll
-      for (int rc = 0; rc < sr; ++rc) nn[rc][c] = 0;
-#pragma unroll
-      for (int rp = 0; rp < sr; ++rp) {
+    VB_FOR(c, SB_, sb) {
+      VB_FOR(rc, NR_, sr) {
+        T t = 0;
+        VB_FOR(rp, NR_, sr) { t += g[rp][c] * red.a[rp * ld + rc]; }
+        nn[rc][c] = st.w[c][rc] * t;
+      }
+    }
+    VB_FOR(rp, NR_, sr) {
+      VB_FOR(rc, NR_, sr) {
+        T acc = hsum[rp][rc];
+        VB_FOR(c, SB_, sb) { acc += g[rp][c] * st.w[c][rc]; }
+        hsum[rp][rc] = st.logged ? hsum[rp][rc] : acc;
+      }
+    }
+  }
+  if (st.logged) {   // a guarded column: this step column by column
+    if (!kGuardRegs<T, SB_, SR_> && !gs.used) {
+      VB_FOR(rp, NR_, sr) {
+        VB_FOR(rc, NR_, sr) { gs.p[(rp * ld + rc) * gs.s] = 0; }
+      }
+      gs.used = true;
+    }
+    VB_FOR(c, SB_, sb) {
+      VB_FOR(rc, NR_, sr) { nn[rc][c] = 0; }
+      VB_FOR(rp, NR_, sr) {
         T x[MSR];
         T s = 0;
         if (st.w[c][0] < static_cast<T>(0)) {   // w holds log w - 1
           T mx = neg_inf<T>();
-#pragma unroll
-          for (int rc = 0; rc < sr; ++rc) {
-            x[rc] = red.log_a[rp * sr + rc] + st.w[c][rc];
+          VB_FOR(rc, NR_, sr) {
+            x[rc] = red.log_a[rp * ld + rc] + st.w[c][rc];
             mx = dmax(mx, x[rc]);
           }
           mx = finite_or_zero(mx);
-#pragma unroll
-          for (int rc = 0; rc < sr; ++rc) {
+          VB_FOR(rc, NR_, sr) {
             x[rc] = rexp(x[rc] - mx);
             s += x[rc];
           }
         } else {
-#pragma unroll
-          for (int rc = 0; rc < sr; ++rc) {
-            x[rc] = red.a[rp * sr + rc] * st.w[c][rc];
+          VB_FOR(rc, NR_, sr) {
+            x[rc] = red.a[rp * ld + rc] * st.w[c][rc];
             s += x[rc];
           }
         }
         const T f = foo[rp][c] / s;
-#pragma unroll
-        for (int rc = 0; rc < sr; ++rc) {
+        VB_FOR(rc, NR_, sr) {
           const T xi = f * x[rc];
-          sxi_log[rp][rc] += xi;
+          if constexpr (kGuardRegs<T, SB_, SR_>) {
+            gs.v[rp][rc] += xi;
+          } else {
+            gs.p[(rp * ld + rc) * gs.s] += xi;
+          }
           nn[rc][c] += xi;
         }
       }
     }
   }
-#pragma unroll
-  for (int rp = 0; rp < sr; ++rp)
-#pragma unroll
-    for (int rc = 0; rc < sr; ++rc) hsum[rp][rc] = h[rp][rc];
-#pragma unroll
-  for (int r = 0; r < sr; ++r)
-#pragma unroll
-    for (int b = 0; b < sb; ++b) {
+  VB_FOR(r, NR_, sr) {
+    VB_FOR(b, SB_, sb) {
       nu[r][b] = nn[r][b];
       stn[r][b] += nn[r][b];
     }
+  }
 }
 
 // Backward pass, termination and forward pass of pair (j, i).  SB_ / SR_
-// are the compile-time state counts of a specialized instantiation (its
-// loops unroll), or 0 for the generic one, which reads sb_rt / sr_rt.
+// are the compile-time extents of a specialized instantiation (its loops
+// unroll), or 0 for the generic one; NR_ the extent of its loops over the
+// states it runs (SR_, or a live count below it: pair_recursion_live).
 //   pr [Sb], tr [Sb][Sb], ell [Sb][Sr]: this pair's base HMM and emission
 //     matrix, in registers;
 //   red: reduced model j, in shared memory;
-//   st, stride: this pair's state for all tau-1 steps (state_base);
+//   st, stride: this pair's state (state_base); kCheckpointed keeps
+//     segments of `seg` steps and their carries, the other designs all
+//     tau-1 steps;
+//   sb, sr: the states the recursion runs (sr below ld where the trailing
+//     reduced states are masked, live_states); ld: Sr of the staged model,
+//     the state and the outputs, which hold exact zeros at states sr..ld-1;
 //   outputs ll [lkr, kb], nu1 [lkr, Sr, kb], sxi [lkr, Sr, Sr, kb],
 //     stn [lkr, Sr, Sb, kb].
-template <typename T, int SB_, int SR_>
+template <typename T, int SB_, int SR_, int kDesign, int NR_ = SR_>
 __device__ __forceinline__ void pair_recursion(
     const T (&pr)[Cap<SB_>::value],
     const T (&tr)[Cap<SB_>::value][Cap<SB_>::value],
     const T (&ell)[Cap<SB_>::value][Cap<SR_>::value],
-    const Reduced<T, SR_>& red,
-    T* __restrict__ st, size_t stride, T* __restrict__ ll_out,
-    T* __restrict__ nu1_out, T* __restrict__ sxi_out, T* __restrict__ stn_out,
-    int j, int i, int kb, int sb_rt, int sr_rt, int tau) {
+    const Reduced<T, SR_>& red, T* __restrict__ st, size_t stride,
+    T* __restrict__ ll_out, T* __restrict__ nu1_out, T* __restrict__ sxi_out,
+    T* __restrict__ stn_out, int j, int i, int kb, int sb, int sr, int ld,
+    int tau, int seg) {
   constexpr int MSB = Cap<SB_>::value;
   constexpr int MSR = Cap<SR_>::value;
-  const int sb = SB_ > 0 ? SB_ : sb_rt;
-  const int sr = SR_ > 0 ? SR_ : sr_rt;
+  constexpr bool kCk = kDesign == kCheckpointed;
+  // float64 bodies of 10 or more state values a step (the padded grid's
+  // (2, 5)) hold about 60 values across steps in two registers each (nu,
+  // sum_t_nu, the transitions and, but for kSumsOut, hsum) beside the
+  // correctly rounded exps and logs, so they load each stored step as it
+  // runs, not a step ahead, and read the staged reduced model (and,
+  // recomputing a segment, ell) back from shared memory at every step, a
+  // compiler barrier apart, instead of holding them in registers: some 30
+  // loads a step.
+  constexpr bool kLean = sizeof(T) == 8 && SB_ * SR_ >= 10;
   const size_t skb = static_cast<size_t>(kb);
   const size_t pix = static_cast<size_t>(j) * skb + i;  // in [LKr, Kb]
-  const size_t slot_len = static_cast<size_t>(sb * sr) * stride;
+  const size_t slot_len = static_cast<size_t>(sb * ld) * stride;
   const int ns = tau - 1;
+  // steps per segment and segments: the designs that keep every step
+  // have one segment of ns steps, known here, so their loops below index
+  // the steps as the recursion had before segments
+  const int len = kCk ? seg : ns;
+  const int nseg = ns <= 0 ? 0 : kCk ? (ns + len - 1) / len : 1;
 
   // ---- backward: carry LL_old [Sb, Sr] ----
   // LL_old[b][r] = llo[b][r] + sh[b]: llo sums logs of sums S near 1 and
   // the rows' log_a maxima, so it stays near the spread of one step
   // however long tau is; the shift sh[b] takes the part constant in r.
   // Every use of the carry but the termination's ll_elbo is a softmax
-  // over r, where sh[b] cancels.
+  // over r, where sh[b] cancels.  kCheckpointed: the segment's w at slots
+  // 0 .. seg-1, the carry at the start of segment s (1 <= s <= nseg-2) at
+  // slot seg + s - 1.
   T llo[MSB][MSR];
   T sh[MSB];
-#pragma unroll
-  for (int b = 0; b < sb; ++b) {
+  VB_FOR(b, SB_, sb) {
     sh[b] = 0;
-#pragma unroll
-    for (int r = 0; r < sr; ++r) llo[b][r] = 0;
+    VB_FOR(r, NR_, sr) { llo[b][r] = 0; }
   }
-  for (int k = 0; k < ns; ++k)
-    backward_step<T, SB_, SR_>(ell, tr, llo, sh, red, st + k * slot_len,
-                               stride, sb, sr);
+  {
+    int off = 0, s = 0;
+    for (int k = 0; k < ns; ++k) {
+      if constexpr (kLean) asm volatile("" ::: "memory");
+      if constexpr (kCk) {
+        if (k == 0 && nseg > 1) {   // ell, for the recomputed segments
+          T* es = st + (checkpointed_slots(tau, seg) - 1) * slot_len;
+          VB_FOR(b, SB_, sb) {
+            VB_FOR(r, NR_, sr) { es[(b * ld + r) * stride] = ell[b][r]; }
+          }
+        }
+        if (off == 0 && s > 0 && s < nseg - 1) {
+          T* ck = st + (seg + s - 1) * slot_len;
+          VB_FOR(b, SB_, sb) {
+            VB_FOR(r, NR_, sr) { ck[(b * ld + r) * stride] = llo[b][r]; }
+          }
+        }
+      }
+      backward_step<T, SB_, SR_, NR_>(ell, tr, llo, sh, red,
+                                      st + (kCk ? off : k) * slot_len,
+                                      stride, sb, sr, ld);
+      if constexpr (kCk) {
+        if (++off == len) {
+          off = 0;
+          ++s;
+        }
+      }
+    }
+  }
 
   // ---- terminate (t = 1) and start the forward pass ----
   T nu[MSR][MSB];
+  VB_FOR(r, SR_, ld) {
+    VB_FOR(b, SB_, sb) { nu[r][b] = 0; }
+  }
   T ll = 0;
-#pragma unroll
-  for (int b = 0; b < sb; ++b) {
+  VB_FOR(b, SB_, sb) {
     T x[MSR];
     T mx = neg_inf<T>();
-#pragma unroll
-    for (int r = 0; r < sr; ++r) {
+    VB_FOR(r, NR_, sr) {
       x[r] = (red.log_pi[r] + ell[b][r]) + llo[b][r];
       mx = dmax(mx, x[r]);
     }
     mx = finite_or_zero(mx);
     T s = 0;
-#pragma unroll
-    for (int r = 0; r < sr; ++r) {
+    VB_FOR(r, NR_, sr) {
       x[r] = rexp(x[r] - mx);
       s += x[r];
     }
     ll += pr[b] * ((rlog(s) + mx) + sh[b]);
     const T f = pr[b] * rrcp(s);
-#pragma unroll
-    for (int r = 0; r < sr; ++r) nu[r][b] = f * x[r];
+    VB_FOR(r, NR_, sr) { nu[r][b] = f * x[r]; }
   }
   ll_out[pix] = ll;
 
+  // sums over every state of the layout: those past sr stay exact zeros
   T stn[MSR][MSB];
   T hsum[MSR][MSR];
-  T sxi_log[MSR][MSR];
-#pragma unroll
-  for (int r = 0; r < sr; ++r) {
+  VB_FOR(r, SR_, ld) {
     T n1 = 0;
-#pragma unroll
-    for (int b = 0; b < sb; ++b) {
+    VB_FOR(b, SB_, sb) {
       stn[r][b] = nu[r][b];
       n1 += nu[r][b];
     }
-    nu1_out[static_cast<size_t>(j * sr + r) * skb + i] = n1;
-#pragma unroll
-    for (int rc = 0; rc < sr; ++rc) {
-      hsum[r][rc] = 0;
-      sxi_log[r][rc] = 0;
+    VB_FOR(rc, SR_, ld) { hsum[r][rc] = 0; }
+    nu1_out[static_cast<size_t>(j * ld + r) * skb + i] = n1;
+  }
+  GuardSum<T, SB_, SR_> gs{
+      sxi_out + static_cast<size_t>(j) * ld * ld * skb + i, skb,
+      kSumsOut<T, SB_, SR_>, {}};
+  if constexpr (kSumsOut<T, SB_, SR_>) {
+    VB_FOR(r, NR_, sr) {
+      VB_FOR(rc, NR_, sr) { gs.p[(r * ld + rc) * gs.s] = 0; }
     }
   }
 
   // ---- forward: t = 2 .. tau, the backward steps in reverse ----
-  // each step's state is loaded, and its reciprocals formed, a step ahead,
-  // beside the current step's chain
-  if (ns > 0) {
-    Step<T, SB_, SR_> cur;
-    load_step(cur, red, st + (ns - 1) * slot_len, stride, sb, sr);
-    for (int o = ns - 1; o >= 0; --o) {
-      Step<T, SB_, SR_> nxt;
-      load_step(nxt, red, st + (o > 0 ? o - 1 : 0) * slot_len, stride, sb,
-                sr);
-      forward_step<T, SB_, SR_>(tr, nu, stn, hsum, sxi_log, red, cur, sb,
-                                sr);
-      cur = nxt;
+  for (int s = nseg - 1; s >= 0; --s) {
+    const int n = kCk ? min(len, ns - s * len) : ns;
+    if constexpr (kCk) {
+      if (s < nseg - 1) {   // segment s's w again, from its carry
+        T rl[MSB][MSR];
+        T rsh[MSB];       // unused: the shifts matter only to ll_elbo
+        VB_FOR(b, SB_, sb) {
+          rsh[b] = 0;
+          VB_FOR(r, NR_, sr) {
+            rl[b][r] = s > 0 ? st[(seg + s - 1) * slot_len +
+                                  (b * ld + r) * stride]
+                             : static_cast<T>(0);
+          }
+        }
+        // ell, read back: not held through the forward pass
+        const T* es = st + (checkpointed_slots(tau, seg) - 1) * slot_len;
+        for (int o = 0; o < n; ++o) {
+          if constexpr (kLean) asm volatile("" ::: "memory");
+          T re[MSB][MSR];
+          VB_FOR(b, SB_, sb) {
+            VB_FOR(r, NR_, sr) { re[b][r] = es[(b * ld + r) * stride]; }
+          }
+          backward_step<T, SB_, SR_, NR_>(re, tr, rl, rsh, red,
+                                          st + o * slot_len, stride, sb, sr,
+                                          ld);
+        }
+      }
+    }
+    if constexpr (kCk || kLean) {
+      // each step loaded as it runs: no step ahead in registers, which
+      // the recomputing segments and the float64 (2, 5) body lack
+      for (int o = n - 1; o >= 0; --o) {
+        if constexpr (kLean) asm volatile("" ::: "memory");
+        Step<T, SB_, SR_> cur;
+        load_step<T, SB_, SR_, NR_>(cur, red, st + o * slot_len, stride, sb,
+                                    sr, ld);
+        forward_step<T, SB_, SR_, NR_>(tr, nu, stn, hsum, gs, red, cur, sb,
+                                       sr, ld);
+      }
+    } else {
+      // each step's state is loaded, and its reciprocals formed, a step
+      // ahead, beside the current step's chain
+      Step<T, SB_, SR_> cur;
+      load_step<T, SB_, SR_, NR_>(cur, red, st + (n - 1) * slot_len, stride,
+                                  sb, sr, ld);
+      for (int o = n - 1; o >= 0; --o) {
+        Step<T, SB_, SR_> nxt;
+        load_step<T, SB_, SR_, NR_>(
+            nxt, red, st + (o > 0 ? o - 1 : 0) * slot_len, stride, sb, sr, ld);
+        forward_step<T, SB_, SR_, NR_>(tr, nu, stn, hsum, gs, red, cur, sb,
+                                       sr, ld);
+        cur = nxt;
+      }
     }
   }
 
-#pragma unroll
-  for (int r = 0; r < sr; ++r) {
-#pragma unroll
-    for (int rc = 0; rc < sr; ++rc)
-      sxi_out[static_cast<size_t>((j * sr + r) * sr + rc) * skb + i] =
-          red.a[r * sr + rc] * hsum[r][rc] + sxi_log[r][rc];
-#pragma unroll
-    for (int b = 0; b < sb; ++b)
-      stn_out[static_cast<size_t>((j * sr + r) * sb + b) * skb + i] = stn[r][b];
+  VB_FOR(r, SR_, ld) {
+    VB_FOR(rc, SR_, ld) {
+      T v = red.a[r * ld + rc] * hsum[r][rc];
+      if constexpr (kGuardRegs<T, SB_, SR_>) {
+        v += gs.v[r][rc];
+      } else if (gs.used && r < sr && rc < sr) {
+        v += gs.p[(r * ld + rc) * gs.s];
+      }
+      gs.p[(r * ld + rc) * gs.s] = v;
+    }
+    VB_FOR(b, SB_, sb) {
+      stn_out[static_cast<size_t>((j * ld + r) * sb + b) * skb + i] = stn[r][b];
+    }
   }
+}
+
+// pair_recursion at the live count sr of a body with compile-time extents
+// (kTrim): one instantiation per count from 1 to SR_, each with its loops
+// unrolled over exactly its states, so a lane's masked states cost no
+// instruction; the block's count picks one (uniform across the block).
+template <typename T, int SB_, int SR_, int kDesign, int NR_ = SR_>
+__device__ __forceinline__ void pair_recursion_live(
+    const T (&pr)[Cap<SB_>::value],
+    const T (&tr)[Cap<SB_>::value][Cap<SB_>::value],
+    const T (&ell)[Cap<SB_>::value][Cap<SR_>::value],
+    const Reduced<T, SR_>& red, T* __restrict__ st, size_t stride,
+    T* __restrict__ ll_out, T* __restrict__ nu1_out, T* __restrict__ sxi_out,
+    T* __restrict__ stn_out, int j, int i, int kb, int sb, int sr, int ld,
+    int tau, int seg) {
+  if constexpr (NR_ > 1) {
+    if (sr < NR_) {
+      pair_recursion_live<T, SB_, SR_, kDesign, NR_ - 1>(
+          pr, tr, ell, red, st, stride, ll_out, nu1_out, sxi_out, stn_out, j,
+          i, kb, sb, sr, ld, tau, seg);
+      return;
+    }
+  }
+  pair_recursion<T, SB_, SR_, kDesign, NR_>(pr, tr, ell, red, st, stride,
+                                            ll_out, nu1_out, sxi_out, stn_out,
+                                            j, i, kb, sb, NR_, ld, tau, seg);
 }
 
 // ---------------------------------------------------------------------------
@@ -887,24 +1102,28 @@ inline int prepare_wide_launch(Kernel kernel, int design, int threads,
       static_cast<int>(smem)));
 }
 
-// Host side: lets a kernel of the resident design take `smem` bytes of
-// dynamic shared memory, with the SM's carveout all shared memory, so
-// every block the wrapper's design counted on is resident.  Returns the
-// cudaError_t, or cudaErrorInvalidValue for a launch configuration the
-// kernels do not take.
+// Host side: lets a kernel of the resident or the checkpointed design take
+// `smem` bytes of dynamic shared memory, with the SM's carveout all shared
+// memory, so every block the wrapper's design counted on is resident.
+// Returns the cudaError_t, or cudaErrorInvalidValue for a launch
+// configuration the kernels do not take.
 template <typename Kernel>
 inline int prepare_launch(Kernel kernel, int design, int threads, int smem,
-                          int sb, int sr, int tau, int itemsize,
+                          int seg, int sb, int sr, int tau, int itemsize,
                           bool has_scratch) {
   if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
       smem < 0 || smem > kMaxSmem ||
-      (design != kResident && design != kScratch) ||
+      (design != kResident && design != kScratch &&
+       design != kCheckpointed) ||
+      (design == kCheckpointed && seg < 1) ||
       has_scratch != (design == kScratch))
     return static_cast<int>(cudaErrorInvalidValue);
   if (design == kScratch)
     return smem == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
-  const long long need = static_cast<long long>(threads) * (tau - 1) * sb *
-                         sr * itemsize;
+  const int slots =
+      design == kResident ? tau - 1 : checkpointed_slots(tau, seg);
+  const long long need =
+      static_cast<long long>(threads) * slots * sb * sr * itemsize;
   if (need > smem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem == 0) return 0;
   cudaError_t err = cudaFuncSetAttribute(

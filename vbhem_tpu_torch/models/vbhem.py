@@ -1487,7 +1487,9 @@ def grid_lane_bytes(kb: int, sb: int, kmax: int, smax: int, tau: int,
       * kernel B1's outputs, 1 + Smax + Smax^2 + Smax * Sb values a pair;
       * B1's scratch, (tau - 1) * Sb * Smax values a pair, where
         ``pair_estep_cuda.design`` takes the scratch design for the
-        launch (the padded grid's usual case; 0 where it is resident);
+        launch (0 in the resident and checkpointed designs, which keep
+        the state in shared memory: the padded grid's launches take the
+        checkpointed one);
       * the EM iteration's plain tensors of that size: the assignment
         logits, hat_z and z_ni, the state's copies of hat_z and ll_elbo
         under the lane freeze, the count and moment contractions of
@@ -1509,8 +1511,10 @@ def lane_chunk(base: H3M, kmax: int, smax: int, tau: int,
     of the grid's ``n_lanes`` (cell, trial) lanes run together, so that
     their bytes (:func:`grid_lane_bytes`) fill at most GRID_MEMORY_SHARE of
     the card's free memory (``torch.cuda.mem_get_info``), and their
-    L*Kmax stays within the kernels' launch grid.  None (no chunking)
-    where everything fits, and on the CPU."""
+    L*Kmax stays within the kernels' launch grid; the fewest chunks that
+    does, made equal (1920 lanes of which 1909 fit run as two chunks of
+    960, not 1909 and 11).  None (no chunking) where everything fits, and
+    on the CPU."""
     dev = base.hmm.mean.device
     if dev.type != "cuda":
         return None
@@ -1522,7 +1526,9 @@ def lane_chunk(base: H3M, kmax: int, smax: int, tau: int,
                           .multi_processor_count)
     lanes = max(1, int(free * GRID_MEMORY_SHARE) // per)
     lanes = min(lanes, pair_estep_cuda.MAX_GRID_Y // kmax)
-    return None if lanes >= n_lanes else int(lanes)
+    if lanes >= n_lanes:
+        return None
+    return -(-n_lanes // -(-n_lanes // lanes))
 
 
 def grid_cells(ks, ss, device):

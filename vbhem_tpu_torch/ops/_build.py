@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -121,6 +122,31 @@ def build() -> Path:
         lib_path.with_suffix(".log").write_text(log)
         os.replace(so, lib_path)
     return lib_path
+
+
+def ptxas_report(lib_path: Optional[Path] = None) -> dict:
+    """ptxas's report of each kernel in the build log beside the library
+    (``<name>.log``, the ``-Xptxas -v`` output :func:`build` keeps):
+    {mangled name: {'registers', 'stack', 'spill_stores', 'spill_loads'}}
+    (bytes for the last three), for the library of the current sources
+    unless ``lib_path`` names another."""
+    log = (lib_path or library_path()).with_suffix(".log")
+    report, cur = {}, None
+    for line in log.read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^' ]+)", line)
+        if m:
+            cur = report.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return report
 
 
 def load() -> ctypes.CDLL:

@@ -16,8 +16,11 @@ trials of a (K, S) cell go in one launch.
 
 Both kernels keep the recursion's per-step state (Sb*Sr values a step and
 pair) where :func:`design` puts it for the shape: in shared memory for all
-tau-1 steps ('resident') where a block holds it at enough pairs per SM,
-else in a device-memory scratch ('scratch').
+tau-1 steps ('resident') where a block holds it at enough pairs per SM;
+else, in float32, in shared memory as segments of about sqrt(tau) steps
+and the carry at each segment's start, each segment's steps recomputed in
+the forward pass ('checkpointed'); else in a device-memory scratch
+('scratch').
 
 Sizes: Sb and Sr up to :data:`MAX_STATES` run bodies that keep a pair's
 vectors in registers; above it, each kernel's wide body keeps them in a
@@ -43,7 +46,7 @@ from .pair_estep import PairStats, expected_pair_ll_variational, pair_bwd_fwd
 # and each kernel's launches by design.
 LAUNCHES = 0
 BWD_FWD_LAUNCHES = 0
-DESIGNS = ("resident", "scratch")   # the kernels' codes 0 and 1
+DESIGNS = ("resident", "scratch", "checkpointed")   # the kernels' codes
 DESIGN_LAUNCHES = {"B1": dict.fromkeys(DESIGNS, 0),
                    "B3": dict.fromkeys(DESIGNS, 0)}
 
@@ -70,22 +73,52 @@ SMS = 132   # the H100 SXM's SMs, where the wrapper cannot ask the card
 # faster holding 256 than the scratch and than designs that held up to
 # about 700 by recomputing steps (PERF.md §6).
 RESIDENT_PAIRS_PER_SM = 256
+# Pairs per SM the checkpointed design must hold (or all of the launch's)
+# to be taken over the scratch: a warp per scheduler of the SM's four.  Its
+# shared memory holds 416 at the padded grid's launch (Sb=2, Sr=5, tau=50,
+# float32, 520 B a pair).  float32 only (design_of).
+CHECKPOINTED_PAIRS_PER_SM = 128
 
 _C_FN = {torch.float32: "vbhem_pair_estep_fused_f32",
          torch.float64: "vbhem_pair_estep_fused_f64"}
-_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _BF_C_FN = {torch.float32: "vbhem_pair_bwd_fwd_f32",
             torch.float64: "vbhem_pair_bwd_fwd_f64"}
-_BF_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_BF_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 class PairDesign(NamedTuple):
     """Where B1 and B3 keep the recursion's per-step state: ``kind`` one of
     :data:`DESIGNS`; ``threads`` pairs per block; ``smem_bytes`` of dynamic
-    shared memory per block (0 for the scratch)."""
+    shared memory per block (0 for the scratch); ``seg`` steps a segment
+    (the checkpointed design; 0 for the others)."""
     kind: str
     threads: int
     smem_bytes: int
+    seg: int = 0
+
+
+def checkpointed_slots(tau: int, seg: int) -> int:
+    """Steps' room a pair of the checkpointed design takes
+    (``checkpointed_slots`` in ``csrc/pair_recursion.cuh``): a segment of
+    ``seg`` steps, the carries at the start of segments 1 .. nseg-2, and,
+    where a segment is recomputed, the emission matrix it reads."""
+    ns = tau - 1
+    if ns < 1 or seg < 1:
+        return 0
+    length = min(seg, ns)
+    nseg = -(-ns // length)
+    return length + max(nseg - 2, 0) + (nseg > 1)
+
+
+def checkpoint_segment(tau: int) -> int:
+    """The segment length of the checkpointed design at ``tau``: the one
+    that needs the fewest slots (:func:`checkpointed_slots`), among equals
+    the longest; about sqrt(tau - 1)."""
+    if tau < 2:
+        return 1
+    return min(range(tau - 1, 0, -1),
+               key=lambda seg: checkpointed_slots(tau, seg))
 
 
 def pairs_per_sm(threads: int, smem_bytes: int) -> int:
@@ -99,26 +132,32 @@ def pairs_per_sm(threads: int, smem_bytes: int) -> int:
 
 def design_of(kind: str, sb: int, sr: int, tau: int,
               itemsize: int) -> Optional[PairDesign]:
-    """Design ``kind`` at a shape.  The resident design takes the block
-    size that holds the most pairs per SM, among equals the smallest (at
-    the pipeline's launch blocks of 32 ran 5% faster than blocks of 128
-    holding as many pairs, PERF.md §6); None where no block of 32 pairs
-    holds every step's state."""
+    """Design ``kind`` at a shape.  The resident and the checkpointed
+    designs take the block size that holds the most pairs per SM, among
+    equals the smallest (at the pipeline's launch blocks of 32 ran 5%
+    faster than blocks of 128 holding as many pairs, PERF.md §6; at a
+    small Kb, as the hyp objective's 40, fewer threads idle); None where
+    no block of 32 pairs holds the design's state (every step's, or the
+    checkpointed design's segment and carries), and for the checkpointed
+    design in float64, which the kernels do not build (its recomputed
+    segments spill the float64 registers: csrc/pair_recursion.cuh)."""
     if kind == "scratch":
         return PairDesign("scratch", THREAD_CHOICES[0], 0)
-    if kind != "resident":
+    if kind not in DESIGNS:
         raise ValueError(f"unknown design {kind!r}")
-    if is_wide(sb, sr):
+    if is_wide(sb, sr) or (kind == "checkpointed" and itemsize != 4):
         return None
+    seg = checkpoint_segment(tau) if kind == "checkpointed" else 0
+    slots = checkpointed_slots(tau, seg) if seg else tau - 1
     best = None
     for threads in sorted(THREAD_CHOICES):
-        smem = threads * (tau - 1) * sb * sr * itemsize
+        smem = threads * slots * sb * sr * itemsize
         if smem > SMEM_DYNAMIC_MAX:
             continue
         held = pairs_per_sm(threads, smem)
         if best is None or held > pairs_per_sm(best.threads,
                                                best.smem_bytes):
-            best = PairDesign("resident", threads, smem)
+            best = PairDesign(kind, threads, smem, seg)
     return best
 
 
@@ -154,12 +193,20 @@ def design(sb: int, sr: int, tau: int, itemsize: int, pairs: int,
     in flight per SM hide.  The resident design keeps every step's state
     in shared memory, which caps the pairs an SM holds: it is taken where
     it holds RESIDENT_PAIRS_PER_SM pairs per SM, or all of the launch's.
-    Else the scratch, whose pairs in flight only registers limit.  The
-    wide body (:func:`is_wide`) has only the scratch design."""
-    res = design_of("resident", sb, sr, tau, itemsize)
-    if res is not None and pairs_per_sm(res.threads, res.smem_bytes) >= min(
-            RESIDENT_PAIRS_PER_SM, -(-pairs // sms)):
-        return res
+    Else, in float32, the checkpointed design, which keeps about
+    2 sqrt(tau) steps' room a pair for one more backward pass of exps,
+    where it holds CHECKPOINTED_PAIRS_PER_SM pairs per SM (or all of the
+    launch's).  Else
+    the scratch, whose pairs in flight only registers limit, at the cost
+    of writing and reading every step's state in device memory.  The wide
+    body (:func:`is_wide`) has only the scratch design."""
+    per_sm = -(-pairs // sms)
+    for kind, need in (("resident", RESIDENT_PAIRS_PER_SM),
+                       ("checkpointed", CHECKPOINTED_PAIRS_PER_SM)):
+        des = design_of(kind, sb, sr, tau, itemsize)
+        if des is not None and pairs_per_sm(
+                des.threads, des.smem_bytes) >= min(need, per_sm):
+            return des
     return design_of("scratch", sb, sr, tau, itemsize)
 
 
@@ -245,8 +292,9 @@ def _state_args(des: PairDesign, dev, dt, lkr, kb, sb, sr, tau, work=0):
     """The design's arguments of the C interface after the outputs: the
     scratch [tau-1, Sb*Sr, L*Kr, Kb] followed by ``work`` values a pair
     (the wide body's workspace), allocated for the scratch design only,
-    else None; and, after the shape, the design's code, block size and
-    shared memory.  Returns (scratch tensor or None, pointer, tail)."""
+    else None; and, after the shape, the design's code, block size, shared
+    memory and segment length.  Returns (scratch tensor or None, pointer,
+    tail)."""
     if des.kind not in DESIGNS:
         raise ValueError(f"unknown design {des.kind!r}")
     scratch = None
@@ -254,7 +302,7 @@ def _state_args(des: PairDesign, dev, dt, lkr, kb, sb, sr, tau, work=0):
         scratch = torch.empty((((tau - 1) * sb * sr + work) * lkr * kb,),
                               dtype=dt, device=dev)
     ptr = None if scratch is None else scratch.data_ptr()
-    tail = (DESIGNS.index(des.kind), des.threads, des.smem_bytes)
+    tail = (DESIGNS.index(des.kind), des.threads, des.smem_bytes, des.seg)
     return scratch, ptr, tail
 
 

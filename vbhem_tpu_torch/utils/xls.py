@@ -138,8 +138,10 @@ def _decode_rk(rk: int) -> float:
 def _parse_sst(chunks: List[bytes]) -> List[str]:
     """Shared string table, possibly spanning CONTINUE records.
 
-    Each continuation restarts with a fresh option byte
-    ([MS-XLS] 2.5.293 XLUnicodeRichExtendedString).
+    Where a string's characters go on in the next record, that record
+    starts with a fresh option byte, which says whether they go on as
+    latin-1 or as UTF-16 ([MS-XLS] 2.5.293 XLUnicodeRichExtendedString);
+    rich-text runs and extended data that go on carry none.
     """
     strings: List[str] = []
     ci, pos = 0, 8  # skip cstTotal/cstUnique
@@ -173,14 +175,16 @@ def _parse_sst(chunks: List[bytes]) -> List[str]:
         remaining = cch
         high = bool(grbit & 0x01)
         while remaining:
-            advance()
             width = 2 if high else 1
             n_here = min(remaining, avail() // width)
             if n_here == 0:
-                # string continues in the next record: re-read grbit
+                # the characters go on in the next record, after its
+                # option byte
                 ci += 1
-                pos = 0
-                high = bool(take(1)[0] & 0x01)
+                if ci >= len(chunks) or not chunks[ci]:
+                    raise ValueError("SST truncated")
+                high = bool(chunks[ci][0] & 0x01)
+                pos = 1
                 continue
             raw = take(n_here * width)
             parts.append(raw.decode("utf-16le" if high else "latin-1"))
