@@ -114,10 +114,11 @@ Phases (any failure exits non-zero and prints no result line):
      rescored cell; every kept lane's bound at least its pre-optimization
      bound minus the monotone contract's tolerance; the learned hyps
      inside their bounds; every score finite; the (2, 2) cell's Rand index
-     1.0 and the selection K=2, S=[2, 2], Rand index 1.0; each stage's
-     wall time, lanes, L-BFGS steps, objective calls, EM iterations,
-     reverted lanes, the selected cell's hyps and each cell's float32
-     against float64 gap printed;
+     1.0 and the selection K=2, S=[2, 2], Rand index 1.0; every cell's
+     float32 bound under its learned hyps within GRID_GAP_LIMIT of its
+     float64 rescoring; each stage's wall time, lanes, L-BFGS steps,
+     objective calls, EM iterations (beside F32_TERMS_BEFORE), reverted
+     lanes, the selected cell's hyps and each cell's gap printed;
   13. runner (after phase 12): ``experiments.runner.run_repeat`` for repeat
      0 with all four methods (VBHEM with DIC, VHEM with AIC/BIC, CCFD, PPK
      with AIC/BIC, and the Dunn index) at the reference data scale (20
@@ -1680,6 +1681,13 @@ PROTOCOL_HYPS_SEED = 7     # the hyps-on protocol's own data draw
 # them; at 15 the selection fails, PERF.md §6); the 5 survivors a subject
 # or cell are the reference configuration's cap already
 PROTOCOL_HYP_STEPS = 25
+# the hyps-on stages' counts on an H100 (NVIDIA H100 80GB HBM3, 700 W) at
+# PROTOCOL_HYP_STEPS before the bounds' prior and posterior terms were
+# evaluated in float64: float32's rounding of them made the EM stopping
+# test fire by chance (tools/hyp_stage_dtype.py; float64 runs took 3,682
+# EM iterations in the VBHEM stage)
+F32_TERMS_BEFORE = {"VBHEM": "10,471 EM iterations, 10,738 B1 launches",
+                    "VBEM": "12,330 B2 launches"}
 
 
 def _value_grad(fun, hyps0, specs, n, dtype):
@@ -1886,6 +1894,10 @@ def phase_protocol_hyps(fails: Failures, device,
           flush=True)
     print(_hyp_stage_line("protocol hyps VBEM", vinfo), flush=True)
     b2 = vb_launches["B2"] + vb_launches["B2_fused"]
+    print(f"protocol hyps VBEM: the stage's EM iterations "
+          f"{vinfo['hyp_em_iters']} + {vinfo['hyp_e_steps']} final E-steps, "
+          f"B2 launches {b2}; before the float64 bound terms "
+          f"{F32_TERMS_BEFORE['VBEM']}", flush=True)
     fails.check(b2 >= vb_iters + vinfo["hyp_e_steps"] > 0,
                 f"protocol hyps VBEM: B2 launched {b2} times for the "
                 f"stage's {vb_iters} EM iterations (restarts and hyp "
@@ -1922,6 +1934,10 @@ def phase_protocol_hyps(fails: Failures, device,
     print(_hyp_stage_line("protocol hyps VBHEM", st), flush=True)
     b1_want = sum(info["grid_chunk_iters"]) + st["hyp_em_iters"] \
         + st["hyp_e_steps"]
+    print(f"protocol hyps VBHEM: the hyp stage's EM iterations "
+          f"{st['hyp_em_iters']}, B1 launches "
+          f"{st['hyp_em_iters'] + st['hyp_e_steps']}; before the float64 "
+          f"bound terms {F32_TERMS_BEFORE['VBHEM']}", flush=True)
     fails.check(launches["B1"] == b1_want > 0,
                 f"protocol hyps VBHEM: B1 launched {launches['B1']} times "
                 f"for the {sum(info['grid_chunk_iters'])} EM iterations of "
@@ -1951,6 +1967,11 @@ def phase_protocol_hyps(fails: Failures, device,
     gaps = _cell_gaps(info)
     print(f"protocol hyps VBHEM: per-cell (f32 - f64) / |f64| under each "
           f"cell's learned hyps {json.dumps(gaps)}", flush=True)
+    worst = max(abs(g) for g in gaps.values())
+    fails.check(worst <= GRID_GAP_LIMIT,
+                f"protocol hyps VBHEM: every cell's float32 ELBO under its "
+                f"learned hyps within {GRID_GAP_LIMIT:.0e} of its float64 "
+                f"rescoring (largest gap {worst:.3e})")
     sel = (info["model_best_k"], info["model_best_s"])
     print(f"protocol hyps VBHEM: selected cell's learned hyps "
           f"{ {f: getattr(cell_hyps[sel], f).double().cpu().numpy().tolist() for f in cell_hyps[sel]._fields} }",
@@ -2119,11 +2140,11 @@ def _bound_terms(base, post, hyps, cfg):
     evaluates them: the pair E-step (kernel B1 in the bank's dtype), the
     soft assignments and ``vbhem.elbo``."""
     tilde_n = (cfg.nv * base.num_hmms) * base.omega
-    exps = vbhem.reduced_expectations(post)
+    post_w, exps_w, exps = vbhem.wide_expectations(post)
     pair = vbhem.e_step(base, post, exps, cfg.tau)
     hat_z, z_ni, nj = vbhem.soft_assignments(tilde_n, exps.log_omega,
                                              pair.ll_elbo)
-    return vbhem.elbo(post, exps, pair, hat_z, z_ni, nj, hyps,
+    return vbhem.elbo(post_w, exps_w, pair, hat_z, z_ni, nj, hyps,
                       return_terms=True)
 
 
@@ -2555,11 +2576,11 @@ def phase_demo(fails: Failures, device) -> dict:
 # ---------------------------------------------------------------------------
 
 def em_iteration(base, post, hyps, tilde_n, tau, pair_fn):
-    exps = vbhem.reduced_expectations(post)
+    post_w, exps_w, exps = vbhem.wide_expectations(post)
     pair = pair_fn(base, post, exps, tau)
     hat_z, z_ni, nj = vbhem.soft_assignments(tilde_n, exps.log_omega,
                                              pair.ll_elbo)
-    ll = vbhem.elbo(post, exps, pair, hat_z, z_ni, nj, hyps)
+    ll = vbhem.elbo(post_w, exps_w, pair, hat_z, z_ni, nj, hyps)
     stats = vbhem.aggregate_stats(base, pair, z_ni, nj)
     return vbhem.m_step(stats, hyps), ll
 

@@ -64,7 +64,7 @@ def bound(base, post, hyps, form):
     """The bound, its terms and hat_z's largest |row sum - 1|, with hat_z
     normalized by ``form``."""
     tilde_n = (CONFIG.nv * base.num_hmms) * base.omega
-    exps = vbhem.reduced_expectations(post)
+    post_w, exps_w, exps = vbhem.wide_expectations(post)
     pair = vbhem.e_step(base, post, exps, CONFIG.tau)
     hat_z, z_ni, nj = vbhem.soft_assignments(tilde_n, exps.log_omega,
                                              pair.ll_elbo)
@@ -75,7 +75,7 @@ def bound(base, post, hyps, form):
             + tiny(log_z.dtype)
         z_ni = hat_z * tilde_n[:, None]
         nj = torch.sum(z_ni, dim=-2) + tiny(log_z.dtype)
-    total, terms = vbhem.elbo(post, exps, pair, hat_z, z_ni, nj, hyps,
+    total, terms = vbhem.elbo(post_w, exps_w, pair, hat_z, z_ni, nj, hyps,
                               return_terms=True)
     rows = float(torch.max(torch.abs(hat_z.double().sum(-1) - 1.0)))
     return total, terms, rows

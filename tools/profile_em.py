@@ -7,11 +7,16 @@ VBHEM: at the bench shape (Kb=8192, one lane of Kr=8) and at the largest
 cell of chip_smoke.py's ``cluster`` grid (Kb=8192, 8 lanes of Kr=3), both
 with Sb=Sr=3, D=2, tau=10 in float32, it
 
-  * times each stage of the iteration alone (``reduced_expectations``,
-    ``e_step``, the kernel wrapper, ``soft_assignments``, ``elbo``,
-    ``aggregate_stats``, ``m_step``) and the whole iteration, by CUDA
-    events over ``n`` calls after warm-up, beside the host's time to
-    enqueue the same calls;
+  * times each stage of the iteration alone (``wide_expectations``, the
+    float64 expectations for the bound and their float32 rounding for the
+    E-step, of which ``reduced_expectations`` is the part in float64
+    only in a float64 run; ``e_step``, the kernel wrapper,
+    ``soft_assignments``, ``elbo`` on the expectations the iteration gives
+    it, ``aggregate_stats``, ``m_step``) and the whole iteration
+    (``vbhem._em_iteration``), by CUDA events over ``n`` calls after
+    warm-up, beside the host's time to enqueue the same calls;
+  * lists the device kernels of ``elbo`` by their time (a profiler
+    window of 10 calls; 3 for VBEM);
   * records a torch.profiler window of ``iters`` whole iterations and
     reads from its trace the device kernels launched, the device busy
     time (the union of the kernels' intervals), the window's wall time
@@ -135,6 +140,34 @@ def profile_window(step, iters, trace_file: Path, **names) -> dict:
     return window
 
 
+def kernel_breakdown(fn, calls, trace_file: Path, top=8) -> dict:
+    """Device kernels of ``calls`` calls of ``fn`` in a torch.profiler
+    window: kernels and device ms a call, and the ``top`` kernel names by
+    device time with their ms and launches a call."""
+    fn()
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace_file))
+    kernels = [e for e in json.loads(trace_file.read_text())["traceEvents"]
+               if e.get("cat") == "kernel"]
+    by_name = {}
+    for e in kernels:
+        ms, k = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + float(e["dur"]) / 1e3, k + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"kernels_per_call": len(kernels) / calls,
+            "device_ms_per_call": sum(v[0] for v in by_name.values())
+            / calls,
+            "top": [{"name": name[:120], "ms_per_call": ms / calls,
+                     "launches_per_call": k / calls}
+                    for name, (ms, k) in ranked]}
+
+
 def profile_vbem(n, iters, trace_dir: Path, n_per_group=4096, trials=20):
     """Stages of one VBEM iteration at chip_smoke.py's VBEM path."""
     name = (f"VBEM {2 * n_per_group} subjects x {trials} restarts, 25 "
@@ -178,6 +211,10 @@ def profile_vbem(n, iters, trace_dir: Path, n_per_group=4096, trials=20):
         out[stage] = {"event_ms": ev, "host_enqueue_ms": host}
         print(f"[{name}] {stage}: {ev:.4f} ms by events, host enqueue "
               f"{host:.4f} ms", flush=True)
+    out["elbo_kernels"] = kernel_breakdown(
+        stages["elbo"], 3, trace_dir / "trace_vbem_elbo.json")
+    print(f"[{name}] elbo kernels: {json.dumps(out['elbo_kernels'])}",
+          flush=True)
     state = [post]
 
     def step():
@@ -270,7 +307,7 @@ def profile_shape(name, kb, lanes, kr, sr, n, iters, trace_dir: Path):
                                                 cfg.nv)
                               for _ in range(lanes)])
     tilde_n = (cfg.nv * kb) * base.omega
-    exps = vbhem.reduced_expectations(post)
+    post_w, exps_w, exps = vbhem.wide_expectations(post)
     pair = vbhem.e_step(base, post, exps, tau)
     hat_z, z_ni, nj = vbhem.soft_assignments(tilde_n, exps.log_omega,
                                              pair.ll_elbo)
@@ -280,21 +317,18 @@ def profile_shape(name, kb, lanes, kr, sr, n, iters, trace_dir: Path):
              post.niw.beta, exps.log_lam, tau)
 
     def iteration(p):
-        ex = vbhem.reduced_expectations(p)
-        pr = vbhem.e_step(base, p, ex, tau)
-        hz, zn, nn = vbhem.soft_assignments(tilde_n, ex.log_omega,
-                                            pr.ll_elbo)
-        vbhem.elbo(p, ex, pr, hz, zn, nn, hyps)
-        return vbhem.m_step(vbhem.aggregate_stats(base, pr, zn, nn), hyps)
+        return vbhem._em_iteration(base, p, hyps, tilde_n, tau)[0]
 
     stages = {
+        "wide_expectations": lambda: vbhem.wide_expectations(post),
         "reduced_expectations": lambda: vbhem.reduced_expectations(post),
         "e_step": lambda: vbhem.e_step(base, post, exps, tau),
         "kernel_wrapper(pair_bwd_fwd_fused_cuda)":
             lambda: pair_estep_cuda.pair_bwd_fwd_fused_cuda(*kargs),
         "soft_assignments": lambda: vbhem.soft_assignments(
             tilde_n, exps.log_omega, pair.ll_elbo),
-        "elbo": lambda: vbhem.elbo(post, exps, pair, hat_z, z_ni, nj, hyps),
+        "elbo": lambda: vbhem.elbo(post_w, exps_w, pair, hat_z, z_ni, nj,
+                                   hyps),
         "aggregate_stats": lambda: vbhem.aggregate_stats(base, pair, z_ni,
                                                          nj),
         "m_step": lambda: vbhem.m_step(stats, hyps),
@@ -307,6 +341,10 @@ def profile_shape(name, kb, lanes, kr, sr, n, iters, trace_dir: Path):
         print(f"[{name}] {stage}: {ev:.4f} ms by events, host enqueue "
               f"{host:.4f} ms", flush=True)
 
+    out["elbo_kernels"] = kernel_breakdown(
+        stages["elbo"], 10, trace_dir / f"trace_{kb}_{lanes}x{kr}_elbo.json")
+    print(f"[{name}] elbo kernels: {json.dumps(out['elbo_kernels'])}",
+          flush=True)
     state = [post]
 
     def step():

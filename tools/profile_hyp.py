@@ -209,13 +209,14 @@ def profile_vbhem(n, trace_dir: Path, device, batches):
 
     def e_step(post):
         with torch.no_grad():
-            exps = vbhem.reduced_expectations(post, cm, sm)
-            return post, exps, vbhem.e_step(base, post, exps, cfg.tau)
+            post_w, exps_w, exps = vbhem.wide_expectations(post, cm, sm)
+            return (post_w, exps_w, vbhem.e_step(base, post, exps, cfg.tau),
+                    exps)
 
     def soft(c):
         with torch.no_grad():
-            return c + (vbhem.soft_assignments(tilde_n, c[1].log_omega,
-                                               c[2].ll_elbo),)
+            return c[:3] + (vbhem.soft_assignments(tilde_n, c[3].log_omega,
+                                                   c[2].ll_elbo),)
 
     def bound(c):
         theta = _theta(h0, specs, n_lanes)

@@ -96,10 +96,29 @@ def pack(hyps, specs) -> np.ndarray:
     return np.concatenate(parts)
 
 
+def _cast_inside(val: torch.Tensor, dtype, spec: HypSpec) -> torch.Tensor:
+    """``val`` in ``dtype``, kept inside the spec's box: where the cast
+    rounds a value at the box's edge out of it, the nearest value of
+    ``dtype`` inside.  v0's lower bound D - 1 + e^-20 is D - 1 in float32,
+    where the bound's Wishart normalizer lgamma((v0 + 1 - D) / 2) is
+    lgamma(0) = inf: the bound is -inf and every EM run under it goes on
+    to max_iter."""
+    out = val.to(dtype)
+    if out.dtype == val.dtype:
+        return out
+    lo, hi = (torch.tensor(b, dtype=dtype) for b in (spec.lo, spec.hi))
+    if float(lo) < spec.lo:
+        lo = torch.nextafter(lo, torch.tensor(np.inf, dtype=dtype))
+    if float(hi) > spec.hi:
+        hi = torch.nextafter(hi, torch.tensor(-np.inf, dtype=dtype))
+    return torch.clamp(out, float(lo), float(hi))
+
+
 def unpack(theta: torch.Tensor, hyps_template, specs):
     """Flat vectors theta [..., P] -> hyps whose learned leaves carry
     theta's leading axes ([...] for scalars, [..., D] for m0 and w0), in
-    the template's dtypes; the leaves not learned stay the template's.
+    the template's dtypes and inside their boxes in those dtypes
+    (:func:`_cast_inside`); the leaves not learned stay the template's.
     Differentiable in theta."""
     out = hyps_template
     i = 0
@@ -110,7 +129,7 @@ def unpack(theta: torch.Tensor, hyps_template, specs):
         ref = getattr(hyps_template, s.name)
         if ref.dim() == 0:
             val = val[..., 0]
-        out = out._replace(**{s.name: val.to(ref.dtype)})
+        out = out._replace(**{s.name: _cast_inside(val, ref.dtype, s)})
     return out
 
 

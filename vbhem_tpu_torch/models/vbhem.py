@@ -36,8 +36,8 @@ from ..ops.gmm import (fit_gmm_from_means, mix_hier_em,
                        sample_without_replacement)
 from ..ops.kmeans import (kmeans, kmeans_pp_from_uniforms,
                           weighted_kmeans_energy)
-from ..utils.numeric import (e_log_det_lambda, e_log_dirichlet, inv_psd,
-                             lane_hyp, log_wishart_b, logdet_psd,
+from ..utils.numeric import (block_cast, e_log_det_lambda, e_log_dirichlet,
+                             inv_psd, lane_hyp, log_wishart_b, logdet_psd,
                              masked_e_log_dirichlet,
                              masked_log_dirichlet_const, sym, tiny)
 from . import vbhmm
@@ -371,13 +371,31 @@ def m_step(stats: ClusterStats, hyps: VBHEMHyps,
 # ELBO (vbhemh3m_lb.m)
 # ---------------------------------------------------------------------------
 
+def wide_expectations(post: H3MPosterior,
+                      cmask: Optional[torch.Tensor] = None,
+                      smask: Optional[torch.Tensor] = None):
+    """The reduced expectations for both readers of an EM iteration:
+    (the posterior in float64, its expectations in float64, those
+    expectations in the posterior's dtype).  The bound (:func:`elbo`)
+    takes the first two, the E-step and the soft assignments the last.
+    In a float64 run all three are the posterior and one set of
+    expectations; in float32 the posterior is cast in one block and the
+    E-step gets the float64 expectations rounded."""
+    dtype = post.alpha.dtype
+    post_w, = block_cast((post,), torch.float64)
+    exps_w = reduced_expectations(post_w, cmask, smask)
+    exps, = block_cast((exps_w,), dtype)
+    return post_w, exps_w, exps
+
+
 def elbo(post: H3MPosterior, exps: ReducedExpectations, pair: PairStats,
          hat_z: torch.Tensor, z_ni: torch.Tensor, nj: torch.Tensor,
          hyps: VBHEMHyps, cmask: Optional[torch.Tensor] = None,
          smask: Optional[torch.Tensor] = None, return_terms: bool = False,
          group=None):
     """The 10-term VBHEM lower bound (`vbhemh3m_lb.m:88-186`), one value
-    per lane: [...].  With cmask [..., Kr] and smask [..., Sr] (bool) it
+    per lane: [...], in the dtype of ``hat_z`` (the run's).  With cmask
+    [..., Kr] and smask [..., Sr] (bool) it
     is the bound over the ACTIVE sub-grid of each padded lane, equal to
     the bound of the unpadded (K, S) model
     (`vbhem_tpu.models.vbhem.elbo_masked`); without them every entry is
@@ -385,24 +403,47 @@ def elbo(post: H3MPosterior, exps: ReducedExpectations, pair: PairStats,
     -1e30 expectation, as the JAX package does: (mask * count) * log_a is
     0 * -1e30, while count * -1e30 first can overflow float32 to -inf and
     then 0 * inf is NaN.  With ``return_terms`` also the dict of the ten
-    terms (lt1..lt10 in `vbhemh3m_lb.m` order, before their signs).
-    ``hyps`` is one set or one per lane, as in :func:`m_step`.  With
-    ``group`` (the Kb axis sharded over its ranks) lt1 and lt7, the only
-    terms that sum over Kb, are summed over the ranks in one collective;
-    every other term is computed alike on every rank from the same
-    posterior and the reduced Nj."""
+    terms (lt1..lt10 in `vbhemh3m_lb.m` order, before their signs), in
+    float64.  ``hyps`` is one set or one per lane, as in :func:`m_step`.
+    With ``group`` (the Kb axis sharded over its ranks) lt1 and lt7, the
+    only terms that sum over Kb, are summed over the ranks in one
+    collective; every other term is computed alike on every rank from the
+    same posterior and the reduced Nj.
+
+    Every term but lt1 and lt7 is evaluated in float64 whatever the run's
+    dtype: those terms scale with the hyperparameters and concentrations
+    (lgamma(S eps0) - S lgamma(eps0), (eps0 - 1) sum E[log A], the
+    posterior's Dirichlet constants, the Normal-Wishart constants), and
+    under learned hyperparameters (eps0 up to e^30) their float32 rounding
+    is thousands of nats, more than the EM stopping test's tolerance.
+    ``post``, ``nj`` and ``hyps`` are cast in one block; ``exps`` are used
+    as given in float64 (:func:`wide_expectations`), else recomputed from
+    the cast posterior.  lt1 and lt7, the data terms over [..., Kb, Kr],
+    stay in the run's dtype (their float32 rounding, about 1e-7 of the
+    bound, is far below the stopping test's 1e-5).  The sum of the terms
+    is rounded to the run's dtype."""
     dtype = hat_z.dtype
-    d = post.niw.dim
-    niw = post.niw
-    two_pi = 2.0 * math.pi
+    wd = torch.float64
     ks = (-2, -1)           # the (Kr, Sr) axes of each lane
     if cmask is None:
         cmask = torch.ones(post.alpha.shape, dtype=torch.bool,
                            device=hat_z.device)
         smask = torch.ones(post.alpha.shape[:-1] + (post.num_states,),
                            dtype=torch.bool, device=hat_z.device)
-    cm = cmask.to(dtype)                                      # [..., Kr]
-    sm = smask.to(dtype)                                      # [..., Sr]
+    cmd = cmask.to(dtype)[..., None, :]                      # [.., 1, Kr]
+    lt1 = torch.sum(cmd * z_ni * pair.ll_elbo, dim=ks)
+    lt7 = torch.sum(cmd * hat_z * torch.log(hat_z), dim=ks)
+    if group is not None:
+        lt1, lt7 = _all_reduce_sum((lt1, lt7), group)
+
+    post, nj, hyps = block_cast((post, nj, hyps), wd)
+    if exps.log_a.dtype != wd:
+        exps = reduced_expectations(post, cmask, smask)
+    d = post.niw.dim
+    niw = post.niw
+    two_pi = 2.0 * math.pi
+    cm = cmask.to(wd)                                         # [..., Kr]
+    sm = smask.to(wd)                                         # [..., Sr]
     cs = cm[..., :, None] * sm[..., None, :]                  # [..,Kr,Sr]
     css = cs[..., :, :, None] * sm[..., None, None, :]        # [..,Kr,Sr,Sr]
     kr_a = torch.sum(cm, dim=-1)
@@ -416,10 +457,6 @@ def elbo(post: H3MPosterior, exps: ReducedExpectations, pair: PairStats,
                   - sr_a * torch.lgamma(hyps.epsilon0))
     log_b0 = log_wishart_b(logdet_w0inv, hyps.v0, d)
 
-    lt1 = torch.sum(cm[..., None, :] * z_ni * pair.ll_elbo, dim=ks)
-    lt7 = torch.sum(cm[..., None, :] * hat_z * torch.log(hat_z), dim=ks)
-    if group is not None:
-        lt1, lt7 = _all_reduce_sum((lt1, lt7), group)
     lt2 = torch.sum(cm * nj * exps.log_omega, dim=-1)
     lt3 = kr_a * log_c_eta0 + (hyps.eta0 - 1.0) * torch.sum(
         cs * exps.log_pi, dim=ks)
@@ -429,7 +466,7 @@ def elbo(post: H3MPosterior, exps: ReducedExpectations, pair: PairStats,
     # Lt5: E[log p(mu, Lambda)] over all active (j, k)
     dm = niw.m - lane_hyp(hyps.m0, 1, 2)                       # [..,Kr,Sr,D]
     m_w_m = torch.einsum("...d,...de,...e->...", dm, niw.w, dm)
-    w0inv_diag = lane_hyp(hyps.w0inv_diag.to(dtype), 1, 2)
+    w0inv_diag = lane_hyp(hyps.w0inv_diag, 1, 2)
     tr_w0inv_w = torch.sum(w0inv_diag * torch.diagonal(niw.w, dim1=-2,
                                                        dim2=-1), dim=-1)
     lam0 = lane_hyp(hyps.lambda0, 0, 2)                        # [.., 1, 1]
@@ -463,7 +500,8 @@ def elbo(post: H3MPosterior, exps: ReducedExpectations, pair: PairStats,
                             dim=ks)
             - 0.5 * d * kr_a * sr_a - h_ent)
 
-    total = lt1 + lt2 + lt3 + lt4 + lt5 + lt6 - lt7 - lt8 - lt9 - lt10
+    total = (lt1 + lt2 + lt3 + lt4 + lt5 + lt6 - lt7 - lt8 - lt9
+             - lt10).to(dtype)
     if return_terms:
         terms = (lt1, lt2, lt3, lt4, lt5, lt6, lt7, lt8, lt9, lt10)
         return total, {f"lt{i}": t for i, t in enumerate(terms, 1)}
@@ -501,11 +539,12 @@ def _em_iteration(base: H3M, post: H3MPosterior, hyps: VBHEMHyps,
     ``group`` ``base`` is this rank's shard of a bank sharded over the
     group's ranks, and the statistics and the ELBO are summed over them."""
     masks = masks or (None, None)
-    exps = reduced_expectations(post, *masks)
+    post_w, exps_w, exps = wide_expectations(post, *masks)
     pair = e_step(base, post, exps, tau)
     hat_z, z_ni, nj = soft_assignments(tilde_n, exps.log_omega, pair.ll_elbo,
                                        group)
-    ll = elbo(post, exps, pair, hat_z, z_ni, nj, hyps, *masks, group=group)
+    ll = elbo(post_w, exps_w, pair, hat_z, z_ni, nj, hyps, *masks,
+              group=group)
     stats = aggregate_stats(base, pair, z_ni, nj, group)
     return m_step(stats, hyps, covar_type), ll, pair.ll_elbo, hat_z, stats
 
@@ -1287,14 +1326,14 @@ def neg_elbo_objective(base: H3M, init_posts: H3MPosterior,
                               min_diff=config.min_diff,
                               covar_type=config.covar_type, cmask=masks[0],
                               smask=masks[1])
-                post = st.post
-                exps = reduced_expectations(post, *masks)
-                pair = e_step(base, post, exps, config.tau)
+                post_w, exps_w, exps = wide_expectations(st.post, *masks)
+                pair = e_step(base, st.post, exps, config.tau)
                 hat_z, z_ni, nj = soft_assignments(tilde_n, exps.log_omega,
                                                    pair.ll_elbo)
             hypmod.tally(stats, "em_iters", int(torch.max(st.it)))
             hypmod.tally(stats, "e_steps", 1)
-            vals.append(-elbo(post, exps, pair, hat_z, z_ni, nj, h, *masks))
+            vals.append(-elbo(post_w, exps_w, pair, hat_z, z_ni, nj, h,
+                              *masks))
         return torch.cat(vals)
     return fun
 

@@ -29,9 +29,9 @@ from ..config import VBConfig
 from ..containers import HMMPosterior, NIW, SeqBatch, tree_map
 from ..ops.fb import FBStats
 from ..ops.fb_cuda import e_step_auto
-from ..utils.numeric import (e_log_det_lambda, e_log_dirichlet, lane_hyp,
-                             log_dirichlet_const, log_wishart_b, logdet_psd,
-                             tiny)
+from ..utils.numeric import (block_cast, e_log_det_lambda, e_log_dirichlet,
+                             lane_hyp, log_dirichlet_const, log_wishart_b,
+                             logdet_psd, tiny)
 from . import vbhmm
 from .vbhmm import SuffStats, VBHyps
 
@@ -103,9 +103,15 @@ def elbo(batch: SeqBatch, post: GroupedPosterior, fb: FBStats,
          stats: GroupedStats, hyps: VBHyps) -> torch.Tensor:
     """The grouped bound, one value per lane: Dirichlet terms summed over
     the groups, NIW terms shared (`vbhmm_em_lb.m`, usegroups branches).
-    ``hyps`` is one set or one per lane."""
+    ``hyps`` is one set or one per lane.  As in :func:`.vbhmm.elbo`, every
+    term but the E-step's sums lt63 and lt64 is evaluated in float64 and
+    the sum is rounded to the run's dtype."""
+    dtype = fb.gamma.dtype
     g, k = post.alpha.shape[-2:]
     d = batch.x.shape[-1]
+    lt63 = torch.sum(fb.gamma * fb.log_rho, dim=(-3, -2, -1))
+    lt64 = torch.sum(fb.phi_norm, dim=-1)
+    post, stats, hyps = block_cast((post, stats, hyps), torch.float64)
     niw = post.niw
     two_pi = 2.0 * math.pi
     sh = stats.shared
@@ -142,8 +148,6 @@ def elbo(batch: SeqBatch, post: GroupedPosterior, fb: FBStats,
                            - beta0 * niw.v * m_w_m, dim=-1)
     lt52 = (k * log_b0 + 0.5 * (hyps.v0 - d - 1.0) * torch.sum(log_lam, -1)
             - 0.5 * torch.sum(niw.v * tr_w0inv_w, dim=-1))
-    lt63 = torch.sum(fb.gamma * fb.log_rho, dim=(-3, -2, -1))
-    lt64 = torch.sum(fb.phi_norm, dim=-1)
     lt6 = lt2a + lt2b + lt63 - lt64
     lt7 = (torch.sum((post.alpha - 1.0) * log_pi, dim=(-2, -1))
            + torch.sum(log_dirichlet_const(post.alpha), dim=-1)
@@ -154,7 +158,8 @@ def elbo(batch: SeqBatch, post: GroupedPosterior, fb: FBStats,
                       + 0.5 * niw.v * d, dim=-1)
     lt8 = (0.5 * torch.sum(log_lam + d * torch.log(niw.beta / two_pi),
                            dim=-1) - 0.5 * d * k - h_ent)
-    return lt1 + lt2a + lt2b + lt3 + lt4 + lt51 + lt52 - lt6 - lt7 - lt8
+    return (lt1 + lt2a + lt2b + lt3 + lt4 + lt51 + lt52 - lt6 - lt7
+            - lt8).to(dtype)
 
 
 class GroupedEMState(NamedTuple):

@@ -3,13 +3,18 @@
 Dirichlet / Wishart normalizers (with masked forms for the padded (K, S)
 grid), and small symmetric positive-definite
 inverses and log-determinants.  Dtype-polymorphic: float64 for the CPU
-parity tests, float32 on the card.
+parity tests, float32 on the card.  The engines' bounds call the
+normalizers in float64 in every run (:func:`block_cast`): in float32,
+lgamma(S eps0) - S lgamma(eps0) and the posterior's Dirichlet constants
+are differences of numbers as large as 1e12 whose rounding dwarfs the
+bound's change between EM iterations.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 __all__ = [
     "tiny",
@@ -28,6 +33,7 @@ __all__ = [
     "quad_diff",
     "lane_contract",
     "lane_hyp",
+    "block_cast",
 ]
 
 
@@ -237,3 +243,36 @@ def lane_hyp(h: torch.Tensor, own: int, axes: int) -> torch.Tensor:
         return h
     cut = h.dim() - own
     return h.reshape(h.shape[:cut] + (1,) * axes + h.shape[cut:])
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [x for part in tree for x in _leaves(part)]
+    return [] if tree is None else [tree]
+
+
+def _rebuild(tree, parts):
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_rebuild(part, parts) for part in tree])
+    return None if tree is None else next(parts)
+
+
+def block_cast(trees: tuple, dtype) -> tuple:
+    """``trees`` (tensors or NamedTuples of them) with every tensor in
+    ``dtype``, cast as one block: the tensors are flattened into one
+    vector, cast once and split back into views of their shapes (torch's
+    own flatten helpers, one call each way), so a posterior with its
+    hyperparameters costs two launches, not one a tensor.  Tensors in
+    ``dtype`` already are kept as they are.  Differentiable."""
+    leaves = [x for t in trees for x in _leaves(t)]
+    todo = [x for x in leaves if x.dtype != dtype]
+    if not todo:
+        return tuple(trees)
+    if len(todo) == 1:
+        cast = iter([todo[0].to(dtype)])
+    else:
+        cast = iter(_unflatten_dense_tensors(
+            _flatten_dense_tensors(todo).to(dtype), todo))
+    parts = iter([x if x.dtype == dtype else next(cast) for x in leaves])
+    return tuple(_rebuild(t, parts) for t in trees)
+
