@@ -1,0 +1,7 @@
+"""b1_roofline.grid: kernel B1's share of its bound in the traced grid
+job, each lane at its own cell's S, at the H100's published peaks."""
+from gpubench.lib import layers
+
+
+def read(ctx):
+    return layers.b1_roofline(ctx)

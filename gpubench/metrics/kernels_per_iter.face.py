@@ -1,0 +1,7 @@
+"""kernels_per_iter.face: every device kernel of the traced face-demo grid
+job (its starts, EM, rescoring and results) over its EM iterations."""
+from gpubench.lib import layers
+
+
+def read(ctx):
+    return layers.kernels_per_iter(ctx)
