@@ -20,6 +20,7 @@ import torch
 from .. import hyp as hypmod
 from ..config import VBConfig
 from ..containers import SeqBatch, tree_map
+from ..utils import profiling
 from . import vbhmm
 from .rescore import vbem_rescore_lanes
 
@@ -45,6 +46,11 @@ def learn_bank(gen: torch.Generator, batches: Sequence[SeqBatch], k: int,
     Returns (list of VBHMMResult, info dict with ``model_em_iters``, the
     EM iterations the restarts ran, and with hyps on the stage's counts
     under 'hyp_*' keys, see :func:`.vbhmm.learn_hyps_lanes`)."""
+    with profiling.span("learn_bank"):
+        return _learn_bank(gen, batches, k, config)
+
+
+def _learn_bank(gen, batches, k, config):
     shapes = {(tuple(b.x.shape), tuple(b.lengths.shape)) for b in batches}
     if len(shapes) != 1:
         raise ValueError(f"learn_bank needs subjects of one shape, got "
@@ -56,28 +62,33 @@ def learn_bank(gen: torch.Generator, batches: Sequence[SeqBatch], k: int,
     hyps0 = vbhmm.VBHyps.from_config(config, bank.x.shape[-1], dtype, dev)
     numtrials = 1 if k == 1 else config.numtrials
 
-    post0 = vbhmm.random_init(gen, bank, k, hyps0, config.covar_type,
-                              lanes=(numtrials,))
-    states = vbhmm.vbem_em(bank, post0, hyps0, max_iter=config.max_iter,
-                           min_diff=config.min_diff,
-                           covar_type=config.covar_type)  # lanes [S, L]
+    with profiling.span("learn_bank.starts"):
+        post0 = vbhmm.random_init(gen, bank, k, hyps0, config.covar_type,
+                                  lanes=(numtrials,))
+    with profiling.span("learn_bank.em"):
+        states = vbhmm.vbem_em(bank, post0, hyps0, max_iter=config.max_iter,
+                               min_diff=config.min_diff,
+                               covar_type=config.covar_type)  # lanes [S, L]
     info = {"model_em_iters": int(torch.max(states.it))}
     subj = torch.arange(n_subj, device=dev)
     if config.learn_hyps:
         final = _learn_bank_hyps(bank, states, hyps0, numtrials, config, info)
     else:
-        if dtype == torch.float32:
-            # per-subject restart selection on float64 bounds
-            best = torch.argmax(vbem_rescore_lanes(bank, states.post, hyps0),
-                                dim=1)
-        else:
-            best = torch.argmax(states.ll, dim=1)
-        final = tree_map(lambda a: a[subj, best], states)
-    res = vbhmm.finalize(bank, final)
-    if config.sortclusters:
-        res = vbhmm.standardize(res, config.sortclusters)
-    return [tree_map(lambda a, i=i: a[i], res)
-            for i in range(n_subj)], info
+        with profiling.span("learn_bank.pick"):
+            if dtype == torch.float32:
+                # per-subject restart selection on float64 bounds
+                best = torch.argmax(
+                    vbem_rescore_lanes(bank, states.post, hyps0), dim=1)
+            else:
+                best = torch.argmax(states.ll, dim=1)
+            final = tree_map(lambda a: a[subj, best], states)
+    with profiling.span("learn_bank.finalize"):
+        res = vbhmm.finalize(bank, final)
+        if config.sortclusters:
+            res = vbhmm.standardize(res, config.sortclusters)
+    with profiling.span("learn_bank.split"):
+        return [tree_map(lambda a, i=i: a[i], res)
+                for i in range(n_subj)], info
 
 
 def _learn_bank_hyps(bank: SeqBatch, states, hyps0, numtrials: int,

@@ -36,6 +36,7 @@ from ..ops.gmm import (fit_gmm_from_means, mix_hier_em,
                        sample_without_replacement)
 from ..ops.kmeans import (kmeans, kmeans_pp_from_uniforms,
                           weighted_kmeans_energy)
+from ..utils import profiling
 from ..utils.numeric import (block_cast, e_log_det_lambda, e_log_dirichlet,
                              inv_psd, lane_hyp, log_wishart_b, logdet_psd,
                              masked_e_log_dirichlet,
@@ -618,12 +619,24 @@ def vbhem_em(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
     # function of ``ll`` and ``it`` alone, ``ll`` is the same bits on every
     # rank because its sums over Kb come out of the all-reduce and every
     # other term is computed the same way on every rank from the same
-    # posterior, so the ranks leave the loop together.
-    st = body(st0)
-    while not bool(torch.all(st.done)):
-        active = ~st.done
-        st = tree_map(lambda new, old: torch.where(_lane(active, new), new,
-                                                    old), body(st), st)
+    # posterior, so the ranks leave the loop together.  Each iteration's
+    # span ends on its ``done`` check, whose sync waits for its device work.
+    with profiling.span("vbhem_em.iter"):
+        st = body(st0)
+        finished = bool(torch.all(st.done))
+    n_iter = 1
+    while not finished:
+        with profiling.span("vbhem_em.iter"):
+            active = ~st.done
+            st = tree_map(lambda new, old: torch.where(_lane(active, new),
+                                                        new, old),
+                          body(st), st)
+            finished = bool(torch.all(st.done))
+        n_iter += 1
+    if profiling.active():
+        profiling.count("vbhem_em.lane_iters_active", int(torch.sum(st.it)))
+        profiling.count("vbhem_em.lane_iters_launched",
+                        n_iter * math.prod(lanes))
     return st
 
 
@@ -1611,19 +1624,21 @@ def fit_grid_batched(gen: torch.Generator, base: H3M, ks, ss,
     n_lanes = n_cells * trials
     if trial_chunk is None:
         trial_chunk = lane_chunk(base, kmax, smax, config.tau, n_lanes)
-    post0 = draw_lanes(mode, gen, base, kmax, smax, hyps, config.nv, n_lanes,
-                       trial_chunk)
+    with profiling.span("cluster_batched.starts"):
+        post0 = draw_lanes(mode, gen, base, kmax, smax, hyps, config.nv,
+                           n_lanes, trial_chunk)
     ci = torch.arange(n_cells, device=dev).repeat_interleave(trials)
     cm, sm = cmasks[ci], smasks[ci]
     chunk = trial_chunk or n_lanes
     parts = []
     for a in range(0, n_lanes, chunk):
         sl = slice(a, min(a + chunk, n_lanes))
-        parts.append(vbhem_em_masked(
-            base, tree_map(lambda x: x[sl], post0), hyps, nv=config.nv,
-            tau=config.tau, cmask=cm[sl], smask=sm[sl],
-            max_iter=config.max_iter, min_diff=config.min_diff,
-            covar_type=config.covar_type))
+        with profiling.span("cluster_batched.em"):
+            parts.append(vbhem_em_masked(
+                base, tree_map(lambda x: x[sl], post0), hyps, nv=config.nv,
+                tau=config.tau, cmask=cm[sl], smask=sm[sl],
+                max_iter=config.max_iter, min_diff=config.min_diff,
+                covar_type=config.covar_type))
     states = parts[0] if len(parts) == 1 else tree_map(
         lambda *xs: torch.cat(xs), *parts)
     states = tree_map(lambda x: x.reshape((n_cells, trials) + x.shape[1:]),
@@ -1711,6 +1726,11 @@ def cluster_batched(gen: torch.Generator, base: H3M, k, s,
     (the lanes per chunk, None for one chunk) and ``grid_chunk_iters``
     (the EM iterations, one pair E-step each, of every chunk of the
     restarts, mode after mode)."""
+    with profiling.span("cluster_batched"):
+        return _cluster_batched(gen, base, k, s, config, hyps)
+
+
+def _cluster_batched(gen, base, k, s, config, hyps):
     from . import rescore as rescore_mod
     modes = front_end_modes(config.initmode)
     ks = list(k) if isinstance(k, (list, tuple, range)) else [int(k)]
@@ -1753,54 +1773,56 @@ def cluster_batched(gen: torch.Generator, base: H3M, k, s,
             return (tree_map(lambda a: a[ci, int(best_trial[ci])], states),
                     hyps0)
 
-    rescore_f64 = dtype == torch.float32
-    scores = np.full((len(ks), len(ss)), -np.inf)
-    scores_device = np.full((len(ks), len(ss)), -np.inf)
-    results, em_iters, cell_hyps = {}, {}, {}
-    for ci, (kk, sv) in enumerate(cells):
-        st, cell_hyps[(kk, sv)] = cell_state(ci)
-        em_iters[(kk, sv)] = int(its[ci])
-        p = st.post
-        post = H3MPosterior(
-            alpha=p.alpha[:kk].clone(), eta=p.eta[:kk, :sv].clone(),
-            epsilon=p.epsilon[:kk, :sv, :sv].clone(),
-            niw=NIW(beta=p.niw.beta[:kk, :sv].clone(),
-                    v=p.niw.v[:kk, :sv].clone(),
-                    m=p.niw.m[:kk, :sv].clone(),
-                    w=p.niw.w[:kk, :sv].clone()))
-        hat_z = st.hat_z[:, :kk].clone()
-        stats = st.stats
-        results[(kk, sv)] = VBHEMResult(
-            post=post, h3m=post.to_h3m(), ll=st.ll.clone(), hat_z=hat_z,
-            ll_elbo=st.ll_elbo[:, :kk].clone(), nj=stats.nj[:kk].clone(),
-            label=torch.argmax(hat_z, dim=-1),
-            counts_n1=stats.nj_rho1[:kk, :sv].clone(),
-            counts=stats.nj_rho[:kk, :sv].clone(),
-            trans_counts=stats.nj_rho2rho[:kk, :sv, :sv].clone())
-        ki, si = ks.index(kk), ss.index(sv)
-        corr = math.lgamma(kk + 1) + math.lgamma(sv + 1)
-        ll = float(st.ll)
-        scores_device[ki, si] = ll + corr
-        if rescore_f64 and np.isfinite(ll):
-            scores[ki, si] = rescore_mod.elbo_f64(
-                base, post, cell_hyps[(kk, sv)], config.nv,
-                config.tau) + corr
-        else:
-            scores[ki, si] = scores_device[ki, si]
+    with profiling.span("cluster_batched.rescore"):
+        rescore_f64 = dtype == torch.float32
+        scores = np.full((len(ks), len(ss)), -np.inf)
+        scores_device = np.full((len(ks), len(ss)), -np.inf)
+        results, em_iters, cell_hyps = {}, {}, {}
+        for ci, (kk, sv) in enumerate(cells):
+            st, cell_hyps[(kk, sv)] = cell_state(ci)
+            em_iters[(kk, sv)] = int(its[ci])
+            p = st.post
+            post = H3MPosterior(
+                alpha=p.alpha[:kk].clone(), eta=p.eta[:kk, :sv].clone(),
+                epsilon=p.epsilon[:kk, :sv, :sv].clone(),
+                niw=NIW(beta=p.niw.beta[:kk, :sv].clone(),
+                        v=p.niw.v[:kk, :sv].clone(),
+                        m=p.niw.m[:kk, :sv].clone(),
+                        w=p.niw.w[:kk, :sv].clone()))
+            hat_z = st.hat_z[:, :kk].clone()
+            stats = st.stats
+            results[(kk, sv)] = VBHEMResult(
+                post=post, h3m=post.to_h3m(), ll=st.ll.clone(), hat_z=hat_z,
+                ll_elbo=st.ll_elbo[:, :kk].clone(), nj=stats.nj[:kk].clone(),
+                label=torch.argmax(hat_z, dim=-1),
+                counts_n1=stats.nj_rho1[:kk, :sv].clone(),
+                counts=stats.nj_rho[:kk, :sv].clone(),
+                trans_counts=stats.nj_rho2rho[:kk, :sv, :sv].clone())
+            ki, si = ks.index(kk), ss.index(sv)
+            corr = math.lgamma(kk + 1) + math.lgamma(sv + 1)
+            ll = float(st.ll)
+            scores_device[ki, si] = ll + corr
+            if rescore_f64 and np.isfinite(ll):
+                scores[ki, si] = rescore_mod.elbo_f64(
+                    base, post, cell_hyps[(kk, sv)], config.nv,
+                    config.tau) + corr
+            else:
+                scores[ki, si] = scores_device[ki, si]
     del states
 
-    best_k, best_s, model_ll_k, s_star = _two_stage_select(scores, ks, ss)
-    from .. import __version__
-    info = {"model_ll": scores, "model_ll_device": scores_device,
-            "model_ll_k": model_ll_k, "model_best_s_per_k": s_star,
-            "model_k": ks, "model_s": ss,
-            "model_best_k": best_k, "model_best_s": best_s,
-            "model_all": results, "model_hyps": cell_hyps,
-            "model_em_iters": em_iters, "grid_trial_chunk": chunk,
-            "grid_chunk_iters": chunk_iters,
-            "vbhemopt": config, "version": __version__}
-    if config.learn_hyps:
-        info["hyp"] = hyp_stats
+    with profiling.span("cluster_batched.select"):
+        best_k, best_s, model_ll_k, s_star = _two_stage_select(scores, ks, ss)
+        from .. import __version__
+        info = {"model_ll": scores, "model_ll_device": scores_device,
+                "model_ll_k": model_ll_k, "model_best_s_per_k": s_star,
+                "model_k": ks, "model_s": ss,
+                "model_best_k": best_k, "model_best_s": best_s,
+                "model_all": results, "model_hyps": cell_hyps,
+                "model_em_iters": em_iters, "grid_trial_chunk": chunk,
+                "grid_chunk_iters": chunk_iters,
+                "vbhemopt": config, "version": __version__}
+        if config.learn_hyps:
+            info["hyp"] = hyp_stats
     return results[(best_k, best_s)], info
 
 

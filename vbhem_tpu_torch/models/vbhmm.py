@@ -31,6 +31,7 @@ from .. import hyp as hypmod
 from ..ops.fb import FBStats
 from ..ops.fb_cuda import e_step_auto
 from ..ops.gmm import GMM, fit_gmm, fit_gmm_split
+from ..utils import profiling
 from ..utils.numeric import (block_cast, e_log_det_lambda, e_log_dirichlet,
                              inv_psd, lane_contract, lane_hyp,
                              log_dirichlet_const, log_wishart_b, logdet_psd,
@@ -309,14 +310,28 @@ def vbem_em(batch: SeqBatch, init_post: HMMPosterior, hyps: VBHyps,
                        gamma=gamma, stats=stats, done=done)
 
     ll0 = torch.full(lanes, -torch.finfo(dtype).max, dtype=dtype, device=dev)
-    st = body(EMState(post=init_post, ll=ll0, last_ll=ll0,
-                      it=torch.zeros(lanes, dtype=torch.int64, device=dev),
-                      gamma=None, stats=None,
-                      done=torch.zeros(lanes, dtype=torch.bool, device=dev)))
-    while not bool(torch.all(st.done)):
-        active = ~st.done
-        st = tree_map(lambda new, old: torch.where(_lane(active, new), new,
-                                                    old), body(st), st)
+    st0 = EMState(post=init_post, ll=ll0, last_ll=ll0,
+                  it=torch.zeros(lanes, dtype=torch.int64, device=dev),
+                  gamma=None, stats=None,
+                  done=torch.zeros(lanes, dtype=torch.bool, device=dev))
+    # each iteration's span ends on its ``done`` check, whose sync waits
+    # for its device work
+    with profiling.span("vbem_em.iter"):
+        st = body(st0)
+        finished = bool(torch.all(st.done))
+    n_iter = 1
+    while not finished:
+        with profiling.span("vbem_em.iter"):
+            active = ~st.done
+            st = tree_map(lambda new, old: torch.where(_lane(active, new),
+                                                        new, old),
+                          body(st), st)
+            finished = bool(torch.all(st.done))
+        n_iter += 1
+    if profiling.active():
+        profiling.count("vbem_em.lane_iters_active", int(torch.sum(st.it)))
+        profiling.count("vbem_em.lane_iters_launched",
+                        n_iter * math.prod(lanes))
     return st
 
 
