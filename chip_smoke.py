@@ -187,13 +187,22 @@ Phases (any failure exits non-zero and prints no result line):
      mesh (1, 1), the EM loop under the world group and
      ``sharded_fit_trials``, each bit for bit its unsharded run.  A rank
      that fails or misses the deadline fails the phase;
+  19. kmeans (after phase 14): the 'wtkmeans' start's k-means kernels
+     (``csrc/kmeans.cu``) against the plain ``ops.kmeans`` on the same
+     card tensors at phase 14's shapes (Kb=8192, Sb=2, 64 lanes, (Kr, Sr)
+     = (2, 2) and (3, 3)), each of the four k-means from the plain float64
+     run's inputs: float64 assignments equal and centers within 1e-12;
+     float32 no more lanes off the float64 run than the plain float32
+     path leaves, up to 2% of the lanes; the four timed by CUDA events.
+     Phase 14 also counts the k-means launches of each draw (four for
+     'wtkmeans', none for the other modes) and of its 'auto' runs;
   18. fb assoc (last): ``ops.fb.forward_backward_assoc`` (plain PyTorch,
      on no path) on CUDA tensors against B2's entry 1 at 256 ragged
      sequences of T=4096, K=2 and K=4, float64 (gamma and xi_sum within
      1e-9 and 1e-8 absolute, phi_norm within 1e-10 relative); both timed
      in float32 by CUDA events.
 
-B3 is checked in phase 2 like B1 and B2.  Each of phases 3-9 and 11-18
+B3 is checked in phase 2 like B1 and B2.  Each of phases 3-9 and 11-19
 sets every
 kernel's launch count (B1's and B3's also by design) to 0 just before it
 runs its path and reads the counts just after.  Prints a JSON line
@@ -230,6 +239,8 @@ from vbhem_tpu_torch.models import (hmm_tools, vbhem, vbhmm, vbhmm_groups,
 from vbhem_tpu_torch.ops import _build
 from vbhem_tpu_torch.ops import fb as fb_plain
 from vbhem_tpu_torch.ops import fb_cuda
+from vbhem_tpu_torch.ops import kmeans as kmeans_plain
+from vbhem_tpu_torch.ops import kmeans_cuda
 from vbhem_tpu_torch.ops import pair_estep as plain
 from vbhem_tpu_torch.ops import pair_estep_cuda
 from vbhem_tpu_torch.utils.numeric import e_log_dirichlet
@@ -247,6 +258,11 @@ KERNELS = {
     "B3": {"name": "pair_bwd_fwd", "route": "cuda",
            "source": "vbhem_tpu_torch/csrc/pair_bwd_fwd.cu",
            "replaces": "vbhem_tpu/ops/pair_estep_pallas.py:110"},
+    # the 'wtkmeans' start's Lloyd and energy k-means; the JAX package's
+    # k-means is plain jnp, no TPU kernel
+    "kmeans": {"name": "kmeans", "route": "cuda",
+               "source": "vbhem_tpu_torch/csrc/kmeans.cu",
+               "replaces": None},
 }
 # where each kernel's wide body (more than 8 states) lives
 WIDE_SOURCES = {"B1": "vbhem_tpu_torch/csrc/pair_recursion.cuh",
@@ -256,7 +272,8 @@ WIDE_SOURCES = {"B1": "vbhem_tpu_torch/csrc/pair_recursion.cuh",
 # entries apart (entry 1 and the fused E-step)
 COUNTERS = {"B1": (pair_estep_cuda, "LAUNCHES"), "B2": (fb_cuda, "LAUNCHES"),
             "B2_fused": (fb_cuda, "FUSED_LAUNCHES"),
-            "B3": (pair_estep_cuda, "BWD_FWD_LAUNCHES")}
+            "B3": (pair_estep_cuda, "BWD_FWD_LAUNCHES"),
+            "kmeans": (kmeans_cuda, "LAUNCHES")}
 # device kernel names; both B2 entries run fb_resident_kernel at the main
 # path's shapes (fb_streamed_kernel serves long sequences)
 DEVICE_NAMES = {"B1": "pair_estep_fused_kernel", "B2": "fb_resident_kernel",
@@ -2208,11 +2225,20 @@ def phase_initmodes(fails: Failures, device, vbem) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         mem0 = torch.cuda.memory_allocated()
+        reset_counts()
         t0 = time.perf_counter()
         post0 = vbhem.draw_lanes(mode, gen, base, 2, 2, hyps, cfg.nv, n)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         init_gib = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 30
+        drawn = read_counts()["kmeans"]
+        path["kmeans"] += drawn
+        # 'wtkmeans': Lloyd into Kr, the energy k-means, the global Lloyd,
+        # each cluster's Lloyd; the other modes launch none
+        want = 4 if mode == "wtkmeans" else 0
+        fails.check(drawn == want,
+                    f"initmodes {mode}: the draw launched the k-means "
+                    f"kernels {drawn} times (want {want})")
         reset_counts()
         t0 = time.perf_counter()
         st = vbhem.vbhem_em(base, post0, hyps, nv=cfg.nv, tau=cfg.tau,
@@ -2285,6 +2311,11 @@ def phase_initmodes(fails: Failures, device, vbem) -> dict:
     fails.check(launches["B1"] == iters > 0,
                 f"initmodes cluster auto: B1 launched {launches['B1']} "
                 f"times for {iters} EM iterations")
+    # one wtkmeans draw a cell: four k-means launches
+    fails.check(launches["kmeans"] == 4 * len(AUTO_GRID[0]),
+                f"initmodes cluster auto: the k-means kernels launched "
+                f"{launches['kmeans']} times for {len(AUTO_GRID[0])} "
+                f"wtkmeans draws")
     fails.check(info["model_best_k"] == 2 and ri == 1.0,
                 f"initmodes cluster auto: K={info['model_best_k']} "
                 f"(want 2), Rand index {ri}")
@@ -2317,6 +2348,10 @@ def phase_initmodes(fails: Failures, device, vbem) -> dict:
     fails.check(glaunches["B3"] == rescored,
                 f"initmodes cluster_batched auto: B3 launched "
                 f"{glaunches['B3']} times for {rescored} rescored cells")
+    fails.check(glaunches["kmeans"] > 0 and glaunches["kmeans"] % 4 == 0,
+                f"initmodes cluster_batched auto: the k-means kernels "
+                f"launched {glaunches['kmeans']} times (four a wtkmeans "
+                f"draw)")
     fails.check(best == (2, 2) and ri == 1.0,
                 f"initmodes cluster_batched auto: selected {best} (want "
                 f"(2, 2)), Rand index {ri}")
@@ -2326,6 +2361,140 @@ def phase_initmodes(fails: Failures, device, vbem) -> dict:
     out["grid"] = {"wall_s": wall, "launches": glaunches, "gaps": gaps}
     out["launches"] = {k: path[k] + launches[k] + glaunches[k]
                        for k in path}
+    return out
+
+
+# (Kr, Sr) of the k-means phase: phase 14's cell, and its 'auto' grid's
+# padded cell (every lane of cluster_batched draws at max K, max S)
+KMEANS_SHAPES = ((2, 2), (3, 3))
+KMEANS_F64_TOL = 1e-12
+# float32: a lane is off where its assignment differs from the plain
+# float64 run's or a center leaves it by more than KMEANS_F32_TOL of the
+# largest |center|; the kernel may leave at most KMEANS_F32_SLACK of the
+# lanes more off than the plain float32 path does
+KMEANS_F32_TOL = 1e-4
+KMEANS_F32_SLACK = 0.02
+
+
+def kmeans_stage_inputs(base, kr, sr, draws) -> list:
+    """The four k-means of 'wtkmeans' on ``base``, each stage's inputs
+    from the plain version's previous stage: [(name, x, seeds, weights,
+    energy?)], with the plain version's (assignment, centers) of each
+    appended."""
+    means, _, valid = vbhem._pool(base)
+    lw = vbhem.long_run_weights(base)
+    seeds_kr = kmeans_plain.kmeans_pp_from_uniforms(means, kr, valid,
+                                                    draws["u_assign"])
+    seeds_sr = kmeans_plain.kmeans_pp_from_uniforms(means, sr, valid,
+                                                    draws["u_global"])
+    a1, c1 = kmeans_plain.kmeans(None, means, kr, weights=valid,
+                                 init_centers=seeds_kr)
+    a2, c2 = kmeans_plain.weighted_kmeans_energy(means, lw, c1)
+    wts = vbhem.wtkmeans_cluster_weights(base, a2, kr)
+    seeds_c = kmeans_plain.kmeans_pp_from_uniforms(means, sr, wts,
+                                                   draws["u_cluster"])
+    return [("lloyd_kr", means, seeds_kr, valid, False, (a1, c1)),
+            ("energy", means, c1, lw, True, (a2, c2)),
+            ("lloyd_sr", means, seeds_sr, valid, False,
+             kmeans_plain.kmeans(None, means, sr, weights=valid,
+                                 init_centers=seeds_sr)),
+            ("cluster", means, seeds_c, wts, False,
+             kmeans_plain.kmeans(None, means, sr, weights=wts,
+                                 init_centers=seeds_c))]
+
+
+def _kmeans_run(x, seeds, w, energy, kernel):
+    if energy:
+        fn = (kmeans_cuda.weighted_kmeans_energy_auto if kernel
+              else kmeans_plain.weighted_kmeans_energy)
+        return fn(x, w, seeds)
+    if kernel:
+        return kmeans_cuda.kmeans_auto(x, seeds, weights=w)
+    return kmeans_plain.kmeans(None, x, seeds.shape[-2], weights=w,
+                               init_centers=seeds)
+
+
+def _lanes_off(got, want, tol) -> int:
+    """Lanes (every axis but the points' and the centers') whose
+    assignment differs from ``want``'s or whose centers leave it by more
+    than ``tol`` of its largest |center|."""
+    (a, c), (b, d) = got, want
+    scale = float(torch.max(torch.abs(d)))
+    off = torch.any(a != b, -1) | (torch.amax(torch.abs(
+        c.double() - d.double()), (-1, -2)) > tol * scale)
+    return int(torch.sum(off))
+
+
+def phase_kmeans(fails: Failures, device, vbem) -> dict:
+    """The 'wtkmeans' start's k-means kernels (``csrc/kmeans.cu`` through
+    ``ops.kmeans_cuda``) against the plain version (``ops.kmeans``) on the
+    same card tensors, at the shapes phase 14's wtkmeans draws use: phase
+    4's bank (Kb=8192, Sb=2, M=16384 pooled states), PIPELINE_TRIALS lanes,
+    (Kr, Sr) in KMEANS_SHAPES, the draws of ``vbhem.draw_wtkmeans``.  Each
+    of the four k-means (Lloyd into Kr, the energy k-means, the global
+    Lloyd into Sr, each cluster's Lloyd, a (lane, cluster) a block) takes
+    the plain float64 run's inputs.  Float64: the kernels' assignments
+    equal the plain version's and their centers lie within
+    KMEANS_F64_TOL relative.  Float32 (the same inputs rounded): against
+    the plain float64 run, the kernels leave no more lanes off (see
+    KMEANS_F32_TOL) than the plain float32 path, up to KMEANS_F32_SLACK
+    of the lanes.  Then the four float32 stages are timed by CUDA events,
+    kernels and plain, at the last shape."""
+    base32 = vbhem.h3m_from_results(vbem["results"], device=device)
+    base64 = _to_f64(base32)
+    n = PIPELINE_TRIALS
+    out = {"cases": {}}
+    worst64 = 0.0
+    for kr, sr in KMEANS_SHAPES:
+        gen = torch.Generator(device="cpu").manual_seed(16)
+        inputs = kmeans_stage_inputs(
+            base64, kr, sr, vbhem.draw_wtkmeans(gen, base64, kr, sr, (n,)))
+        for name, x, seeds, w, energy, want in inputs:
+            case = f"kmeans ({kr},{sr}) {name}"
+            reset_counts()
+            a, c = _kmeans_run(x, seeds, w, energy, True)
+            torch.cuda.synchronize()
+            launched = read_counts()["kmeans"]
+            rel = float(torch.max(torch.abs(c - want[1]))
+                        / torch.max(torch.abs(want[1])))
+            worst64 = max(worst64, rel)
+            same = bool(torch.equal(a, want[0]))
+            fails.check(launched == 1 and same and rel <= KMEANS_F64_TOL,
+                        f"{case} float64: {launched} launch, assignments "
+                        f"{'equal' if same else 'DIFFER'}, centers within "
+                        f"{rel:.2e} relative (<= {KMEANS_F64_TOL:.0e})")
+            x32, s32, w32 = x.float(), seeds.float(), w.float()
+            off = {path: _lanes_off(_kmeans_run(x32, s32, w32, energy,
+                                                path == "kernel"),
+                                    want, KMEANS_F32_TOL)
+                   for path in ("kernel", "plain")}
+            lanes = int(np.prod(want[1].shape[:-2]))
+            slack = math.ceil(KMEANS_F32_SLACK * lanes)
+            fails.check(off["kernel"] <= off["plain"] + slack,
+                        f"{case} float32: lanes off the plain float64 run "
+                        f"{off['kernel']} (kernel) vs {off['plain']} (plain"
+                        f" float32) of {lanes}, slack {slack}")
+            out["cases"][case] = {"f64_rel": rel, "f64_assign_equal": same,
+                                  "f32_lanes_off": off, "lanes": lanes}
+    out["max_abs_err"] = worst64
+    # timing: the four float32 stages at the last shape
+    stages = [(x.float(), seeds.float(), w.float(), energy)
+              for _, x, seeds, w, energy, _ in inputs]
+    del inputs
+
+    def run(kernel):
+        for x, seeds, w, energy in stages:
+            _kmeans_run(x, seeds, w, energy, kernel)
+
+    for kernel in (True, False):
+        run(kernel)
+    out["kernel_ms"] = _time(lambda: run(True), 5, device) * 1e3
+    out["plain_ms"] = _time(lambda: run(False), 2, device) * 1e3
+    print(f"kmeans: four float32 k-means at (Kr, Sr) = ({kr}, {sr}), {n} "
+          f"lanes, M={stages[0][0].shape[0]}: kernels "
+          f"{out['kernel_ms']:.3f} ms, plain {out['plain_ms']:.3f} ms by "
+          f"CUDA events on {nvidia_smi_line()}; largest float64 center "
+          f"gap {worst64:.2e}", flush=True)
     return out
 
 
@@ -3476,6 +3645,7 @@ def main() -> int:
                                "unpadded need the grid's bank")
         run("protocol", lambda: phase_protocol(fails, device, vbem))
         run("initmodes", lambda: phase_initmodes(fails, device, vbem))
+        run("kmeans", lambda: phase_kmeans(fails, device, vbem))
         run("hyp gradient", lambda: phase_hyp_gradient(fails, device, vbem))
         run("timing B2", lambda: timing_b2(device, vbem))
         run("timing B3", lambda: timing_b3(device, vbem))
@@ -3567,6 +3737,22 @@ def main() -> int:
                 entry1_ms=t.get("entry1_device_ms"),
                 entry1_bound_ms=t.get("entry1_bound", {}).get("bound_ms"),
                 entry1_wrapper_ms=t.get("entry1", {}).get("estep_ms"))
+    km = results.get("kmeans", {})
+    lines.append(dict(
+        KERNELS["kmeans"],
+        # phase 14's path (its draws, its 'auto' cluster and grid), each
+        # run counted from 0 just before it
+        launches=results.get("initmodes", {}).get("launches", {})
+        .get("kmeans"),
+        max_abs_err=km.get("max_abs_err"), ms=km.get("kernel_ms"),
+        wrapper_ms=km.get("kernel_ms"), plain_ms=km.get("plain_ms"),
+        bound_ms=None, bound_by=None, library_ms=None,
+        launches_by_path={path: results[path]["launches"].get("kmeans")
+                          for path in ("VBHEM path", "pipeline", "grid",
+                                       "protocol", "protocol hyps",
+                                       "runner", "initmodes", "demo")
+                          if path in results
+                          and "launches" in results[path]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all",
           flush=True)
     if fails.items:

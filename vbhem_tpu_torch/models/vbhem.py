@@ -34,8 +34,8 @@ from ..ops import pair_estep_cuda
 from ..ops.pair_estep_cuda import pair_estep_fused_auto
 from ..ops.gmm import (fit_gmm_from_means, mix_hier_em,
                        sample_without_replacement)
-from ..ops.kmeans import (kmeans, kmeans_pp_from_uniforms,
-                          weighted_kmeans_energy)
+from ..ops import kmeans_cuda
+from ..ops.kmeans import kmeans_pp_from_uniforms
 from ..utils import profiling
 from ..utils.numeric import (block_cast, e_log_det_lambda, e_log_dirichlet,
                              inv_psd, lane_hyp, log_wishart_b, logdet_psd,
@@ -784,11 +784,13 @@ def wtkmeans_assign(base: H3M, seeds: torch.Tensor) -> torch.Tensor:
     kmeans++ seeds [*L, Kr, D]: plain k-means of the base emission means
     over the valid states (the reference's seeded `kmeans`), then the
     energy-adjusted weighted k-means of `my_weighted_kmeans.m` under the
-    long-run state weights.  Returns each pool state's cluster [*L, M]."""
+    long-run state weights; on the card each is one launch of
+    ``csrc/kmeans.cu`` (:mod:`~vbhem_tpu_torch.ops.kmeans_cuda`).
+    Returns each pool state's cluster [*L, M]."""
     means, _, valid = _pool(base)
-    _, init_c = kmeans(None, means, seeds.shape[-2], weights=valid,
-                       init_centers=seeds)
-    assign, _ = weighted_kmeans_energy(means, long_run_weights(base), init_c)
+    _, init_c = kmeans_cuda.kmeans_auto(means, seeds, weights=valid)
+    assign, _ = kmeans_cuda.weighted_kmeans_energy_auto(
+        means, long_run_weights(base), init_c)
     return assign
 
 
@@ -813,9 +815,10 @@ def wtkmeans_from_draws(base: H3M, kr: int, sr: int, hyps: VBHEMHyps,
     the clusters of :func:`wtkmeans_assign`, the kmeans++ seeds of the
     global k-means into Sr centers [*L, Sr, D] and of each cluster's
     [*L, Kr, Sr, D] (weighted by :func:`wtkmeans_cluster_weights`), and
-    uniform draws for the random dynamics.  Every W comes from the first
-    base HMM's first state covariance, the reference's recipe
-    (`:411-419`)."""
+    uniform draws for the random dynamics.  On the card the global and the
+    per-cluster k-means are one launch of ``csrc/kmeans.cu`` each, a
+    (lane, cluster) a block.  Every W comes from the first base HMM's
+    first state covariance, the reference's recipe (`:411-419`)."""
     means, covs, valid = _pool(base)
     dtype, dev = means.dtype, means.device
     kb = base.num_hmms
@@ -823,11 +826,11 @@ def wtkmeans_from_draws(base: H3M, kr: int, sr: int, hyps: VBHEMHyps,
     lanes = tuple(assign.shape[:-1])
     shp = lanes + (kr, sr)
     nj_virt = nv * kb / kr
-    _, global_c = kmeans(None, means, sr, weights=valid,
-                         init_centers=global_seeds)          # [*L, Sr, D]
+    _, global_c = kmeans_cuda.kmeans_auto(
+        means, global_seeds, weights=valid)                  # [*L, Sr, D]
     wts = wtkmeans_cluster_weights(base, assign, kr)
-    _, centers = kmeans(None, means, sr, weights=wts,
-                        init_centers=cluster_seeds)          # [*L,Kr,Sr,D]
+    _, centers = kmeans_cuda.kmeans_auto(
+        means, cluster_seeds, weights=wts)                   # [*L,Kr,Sr,D]
     has = torch.any((assign[..., None, :] == torch.arange(
         kr, device=dev)[:, None]) & (valid > 0), dim=-1)      # [*L, Kr]
     centers = torch.where(has[..., None, None], centers,
@@ -867,18 +870,23 @@ def wtkmeans_from_uniforms(base: H3M, kr: int, sr: int, hyps: VBHEMHyps,
                            u_trans: torch.Tensor) -> H3MPosterior:
     """'wtkmeans' from the draws of :func:`draw_wtkmeans`: the seeds
     from their uniforms, then :func:`wtkmeans_assign` and
-    :func:`wtkmeans_from_draws`."""
+    :func:`wtkmeans_from_draws`.  While profiling records, the Lloyd
+    kernels' iterations are read back once at the end
+    (:func:`~vbhem_tpu_torch.ops.kmeans_cuda.count_iterations`)."""
     means, _, valid = _pool(base)
     dev = means.device
     assign = wtkmeans_assign(base, kmeans_pp_from_uniforms(
         means, kr, valid, u_assign))
-    return wtkmeans_from_draws(
+    post = wtkmeans_from_draws(
         base, kr, sr, hyps, nv, assign,
         kmeans_pp_from_uniforms(means, sr, valid, u_global),
         kmeans_pp_from_uniforms(
             means, sr, wtkmeans_cluster_weights(base, assign, kr),
             u_cluster),
         u_prior.to(dev), u_trans.to(dev))
+    if profiling.active():
+        kmeans_cuda.count_iterations()
+    return post
 
 
 def init_wtkmeans(gen: torch.Generator, base: H3M, kr: int, sr: int,
@@ -1424,7 +1432,10 @@ def cluster(gen: torch.Generator, base: H3M, k, s,
     'auto' runs the cell's restarts once per mode of AUTO_MODES (baseem,
     gmmNew, wtkmeans) and keeps the best solution
     (`vbhem_h3m_cluster.m:363-399`); ``info['model_initmode']`` names the
-    mode each cell kept.
+    mode each cell kept.  On the card 'wtkmeans' (alone or in 'auto')
+    takes K and S up to 8 and D up to 4, its k-means kernels' range: a
+    grid beyond it is refused before anything is drawn
+    (:func:`~vbhem_tpu_torch.ops.kmeans_cuda.check_grid`).
 
     With ``config.learn_hyps`` every mode's unique restart solutions are
     hyp-optimized together (:func:`optimize_solution_hyps_batched`), the
@@ -1438,6 +1449,8 @@ def cluster(gen: torch.Generator, base: H3M, k, s,
     ks = list(k) if isinstance(k, (list, tuple, range)) else [int(k)]
     ss = list(s) if isinstance(s, (list, tuple, range)) else [int(s)]
     dim = base.hmm.mean.shape[-1]
+    if "wtkmeans" in modes:
+        kmeans_cuda.check_grid(base.hmm.mean.device, max(ks), max(ss), dim)
     hyps0 = hyps if hyps is not None else VBHEMHyps.from_config(
         config, dim, base.hmm.mean.dtype, base.hmm.mean.device)
 
@@ -1709,7 +1722,8 @@ def cluster_batched(gen: torch.Generator, base: H3M, k, s,
     the hyp stage and the selection (the reference keeps the best mode
     per cell, `vbhem_h3m_cluster.m:363-399`; the best over the union of
     the modes' trials is the same winner, only uniqueLL then sees every
-    mode's solutions together).
+    mode's solutions together).  'wtkmeans' on the card takes the grids
+    :func:`cluster` describes.
 
     With ``config.learn_hyps`` the cells' unique restart solutions are
     hyp-optimized as lanes of one L-BFGS over the whole grid
@@ -1737,6 +1751,8 @@ def _cluster_batched(gen, base, k, s, config, hyps):
     ss = list(s) if isinstance(s, (list, tuple, range)) else [int(s)]
     dim = base.hmm.mean.shape[-1]
     dtype = base.hmm.mean.dtype
+    if "wtkmeans" in modes:
+        kmeans_cuda.check_grid(base.hmm.mean.device, max(ks), max(ss), dim)
     hyps0 = hyps if hyps is not None else VBHEMHyps.from_config(
         config, dim, dtype, base.hmm.mean.device)
 
