@@ -898,7 +898,11 @@ def fb_inputs(seed, lanes, n, t, k, device, dtype, per_seq=False,
               ragged=False, mask_per_lane=False):
     """Sub-normalized scores, emission scores and a mask for B2, drawn on
     the card.  The mask is one row per subject (the first lane axis),
-    shared by the restarts, unless ``mask_per_lane``."""
+    shared by the restarts, unless ``mask_per_lane``.  ``ragged``: False,
+    every sequence T steps; True, 1..T steps; 'empty', as the face demo's
+    padded banks: 2..T steps, each subject's last 0..N/4 sequences empty
+    (length 0, an all-false mask row), the first subject's last one
+    always."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def rand(shape):
@@ -911,7 +915,13 @@ def fb_inputs(seed, lanes, n, t, k, device, dtype, per_seq=False,
     log_rho = (torch.randn(lanes + (n, t, k), generator=g, device=device,
                            dtype=torch.float64) * 2.0 - 1.0).to(dtype)
     rows = lanes if mask_per_lane else lanes[:1] + (1,) * (len(lanes) - 1)
-    if ragged:
+    if ragged == "empty":
+        lengths = torch.floor(rand(rows + (n,)) * (t - 1)).long() + 2
+        real = n - torch.floor(rand(rows) * (n // 4 + 1)).long()
+        lengths = torch.where(torch.arange(n, device=device)
+                              < real[..., None], lengths, 0)
+        lengths[(0,) * len(rows) + (-1,)] = 0
+    elif ragged:
         lengths = torch.floor(rand(rows + (n,)) * t).long() + 1
         lengths[..., 0] = 1
         lengths[..., -1] = t
@@ -922,6 +932,7 @@ def fb_inputs(seed, lanes, n, t, k, device, dtype, per_seq=False,
 
 
 FULL = (8192, 20)      # subjects x restarts of the VBEM main path
+FACE_VBEM = (8192, 50)  # viewers x restarts of the face demo's VBEM bank
 B2_CASES = [
     # name, lanes, N, T, K, per_seq, ragged, mask_per_lane
     ("small", (1,), 256, 50, 2, False, False, False),
@@ -933,10 +944,16 @@ B2_CASES = [
     ("lanes", (16, 20), 25, 50, 2, False, True, False),
     ("full_width", FULL, 25, 50, 2, False, False, False),
     ("full_width_k3", FULL, 25, 50, 3, False, False, False),
+    # the face demo's ragged bank: 15-20 trials of 2-16 fixations, padded
+    # to 20 x 16 with empty sequences
+    ("face_vbem_k1", FACE_VBEM, 20, 16, 1, False, "empty", False),
+    ("face_vbem_k2", FACE_VBEM, 20, 16, 2, False, "empty", False),
+    ("face_vbem_k3", FACE_VBEM, 20, 16, 3, False, "empty", False),
 ]
 # entry 1 only: tiles too large for shared memory, so the streamed design
 B2_STREAMED_CASES = [
     ("long_t_streamed", (2,), 64, 2000, 8, False, True, False),
+    ("empty_streamed", (2,), 64, 2000, 8, False, "empty", False),
 ]
 # entry 1 only: K past the register bodies (K = 8 is B2_CASES' k8), the
 # wide body
@@ -944,6 +961,7 @@ B2_WIDE_CASES = [
     ("k9", (2,), 128, 20, 9, False, True, False),
     ("k12", (2,), 128, 20, 12, False, True, False),
     ("k9_lanes_per_seq", (4, 3), 25, 50, 9, True, True, True),
+    ("empty_k9", (2,), 128, 20, 9, False, "empty", False),
 ]
 # the fused E-step at every case of B2_CASES with D=2, and these
 B2_FUSED_EXTRA = [
@@ -1005,13 +1023,26 @@ def _f64(a):
     return a.double() if a.is_floating_point() else a
 
 
+def _gate_empty(fails, name, dtype, got, mask):
+    """Every output of an empty sequence (an all-false mask row) exactly
+    0: gamma, xi_sum, phi_norm and the masked log_rho."""
+    empty = ~torch.broadcast_to(mask, got.gamma.shape[:-1])[..., 0]
+    nonzero = {f: int(torch.count_nonzero(getattr(got, f)[empty]))
+               for f in got._fields}
+    dt = "f32" if dtype == torch.float32 else "f64"
+    fails.check(bool(torch.any(empty)) and not any(nonzero.values()),
+                f"B2 {name} {dt}: the {int(torch.sum(empty))} empty "
+                f"sequences' outputs exactly 0 (nonzero: {nonzero})")
+
+
 def phase_parity_b2(fails: Failures, device) -> float:
     """Both B2 entries against the plain version in float64 on the
     kernel's inputs, as for B1, in all four FBStats fields: entry 1
     (forward_backward_cuda) at B2_CASES (resident design) and
     B2_STREAMED_CASES (streamed design); the fused E-step (e_step_fused,
     whose plain version is expected_log_gauss then forward_backward) at
-    B2_CASES with D=2 and B2_FUSED_EXTRA.  Returns the largest absolute
+    B2_CASES with D=2 and B2_FUSED_EXTRA.  Where a case has empty sequences
+    their outputs must also be exactly 0.  Returns the largest absolute
     float32 error seen."""
     max_abs_f32 = 0.0
     for dtype in (torch.float32, torch.float64):
@@ -1026,6 +1057,8 @@ def phase_parity_b2(fails: Failures, device) -> float:
                 fails, f"entry1 {name} ({des.kind})", dtype, got,
                 lambda: fb_plain.forward_backward(*map(_f64, args)),
                 lambda: fb_plain.forward_backward(*args))
+            if ragged == "empty":
+                _gate_empty(fails, f"entry1 {name}", dtype, got, args[3])
             if dtype == torch.float32:
                 max_abs_f32 = max(max_abs_f32, err)
             del got, args
@@ -1045,9 +1078,11 @@ def phase_parity_b2(fails: Failures, device) -> float:
             err = _parity_fb(fails, f"fused {name} D={d}", dtype, got,
                              lambda: plain_fn(_f64),
                              lambda: plain_fn(lambda a: a))
+            if ragged == "empty":
+                _gate_empty(fails, f"fused {name} D={d}", dtype, got, mask)
             if dtype == torch.float32:
                 max_abs_f32 = max(max_abs_f32, err)
-            del got, x, niw
+            del got, x, mask, niw
         # the E-step's dispatch at K past the fused entry's: log_rho in
         # PyTorch, then entry 1's wide body
         x, mask, pz1, trans, niw = fused_inputs(

@@ -33,9 +33,11 @@ from vbhem_tpu_torch.ops import fb_cuda
 FIELDS = ("log_rho", "gamma", "xi_sum", "phi_norm")
 
 
-def make_case(seed, n=6, t=7, k=3, lanes=(), per_seq=False, ragged=True):
+def make_case(seed, n=6, t=7, k=3, lanes=(), per_seq=False, ragged=True,
+              empty=False):
     """Sub-normalized scores (like exp of digamma expectations), emission
-    scores and a ragged mask with a length-1 sequence, as numpy."""
+    scores and a ragged mask with a length-1 sequence (and with ``empty``
+    a length-0 one, a padded trial), as numpy."""
     rng = np.random.default_rng(seed)
     ps = lanes + ((n,) if per_seq else ())
     log_pz1 = np.log(rng.dirichlet(np.ones(k), ps) * 0.8)
@@ -44,6 +46,8 @@ def make_case(seed, n=6, t=7, k=3, lanes=(), per_seq=False, ragged=True):
     lengths = rng.integers(1, t + 1, size=n) if ragged else np.full(n, t)
     lengths[0] = 1
     lengths[-1] = t
+    if empty:
+        lengths[1] = 0
     mask = np.arange(t)[None, :] < lengths[:, None]
     return log_pz1, log_trans, log_rho, mask
 
@@ -60,6 +64,11 @@ CASES = {
     "lanes": dict(lanes=(2, 3)),
     "lanes_per_seq": dict(lanes=(3,), per_seq=True),
 }
+# empty sequences (length 0) beside real ones: the port's own cases
+EMPTY_CASES = {"empty": dict(empty=True), "empty_t1": dict(t=1, empty=True),
+               "empty_k9": dict(k=9, t=4, empty=True),
+               "empty_lanes": dict(lanes=(2, 3), empty=True)}
+ALL_CASES = {**CASES, **EMPTY_CASES}
 
 
 def jax_fb(case):
@@ -183,7 +192,7 @@ def kernel_transliteration(log_pz1, log_trans, log_rho, mask, tc_max):
                     sum_max += mx
                 g[j + 1] = alpha
             gamma[s, c0:c0 + tc] = g[1:]                # tile_out
-        phi[s] = sum_logc + sum_max
+        phi[s] = sum_logc + sum_max if msk[0] else 0.0  # empty: 0
         beta, xi = np.ones(k), np.zeros((k, k))
         for c0 in reversed(starts):                     # backward
             tc = min(tc_max, t_max - c0)
@@ -218,9 +227,11 @@ def kernel_transliteration(log_pz1, log_trans, log_rho, mask, tc_max):
                                      ("full_length", 1),
                                      # the wide body (csrc/fb_wide.cu) runs
                                      # this arithmetic over all of T at once
-                                     ("k9", 4), ("k12", 5)])
+                                     ("k9", 4), ("k12", 5),
+                                     ("empty", 3), ("empty_t1", 16),
+                                     ("empty_k9", 4)])
 def test_kernel_algorithm_matches_plain(name, tc):
-    case = make_case(5, **CASES[name])
+    case = make_case(5, **ALL_CASES[name])
     want = tfb.forward_backward(*port(case))
     rho_out, gamma, xi, phi = kernel_transliteration(*case, tc)
     np.testing.assert_array_equal(rho_out, want.log_rho.numpy())
@@ -252,9 +263,13 @@ def test_validate_rejects_what_the_kernel_cannot_take():
     p, a, r, m = port(make_case(6, n=4, t=5, k=2))
     auto = fb_cuda.forward_backward_auto
     m0 = m.clone()
-    m0[2, :] = False                     # a sequence with step 0 masked out
+    m0[3, 0] = False                     # step 0 masked, later steps not
     with pytest.raises(ValueError, match="step 0"):
         auto(p, a, r, m0)
+    m0[3, :] = False                     # an empty sequence: taken, and 0
+    got = auto(p, a, r, m0)
+    for f in FIELDS:
+        assert torch.all(getattr(got, f)[3] == 0.0), f
     # K above 8 is taken (the wide body on the card; the plain version
     # here); empty shapes are not
     got = auto(*port(make_case(6, n=4, t=3, k=9)))
@@ -332,7 +347,7 @@ def test_emission_constants_give_expected_log_gauss(d):
 
 
 def make_fused_case(seed, lanes=(2, 3), n=5, t=6, k=2, d=2, ragged=True,
-                    per_seq=False):
+                    per_seq=False, empty=False):
     """x and a mask with one row per subject (shared by its restarts), a
     random posterior per lane and its scores, as torch float64."""
     rng = np.random.default_rng(seed)
@@ -342,6 +357,8 @@ def make_fused_case(seed, lanes=(2, 3), n=5, t=6, k=2, d=2, ragged=True,
                else np.full(rows + (n,), t))
     lengths[..., 0] = 1
     lengths[..., -1] = t
+    if empty:
+        lengths[..., 1] = 0
     mask = torch.as_tensor(np.arange(t) < lengths[..., None])
     niw = to_niw(random_niw(rng, lanes + (k,), d))
     ps = lanes + ((n,) if per_seq else ())
@@ -528,7 +545,7 @@ def resident_transliteration(log_pz1, log_trans, mw, mask_rep, rows, t, k,
             total += np.log(c) if valid else 0.0
             g[(t - 1) * k:t * k] = delta * (1.0 / c)
             row[(t - 1) * k:t * k] = p_prev * (1.0 / c)
-            phi[s] = total
+            phi[s] = total if mask_bit(msk, 0) else 0.0  # empty: 0
             beta, xi = np.ones(k), np.zeros((k, k))  # backward on px / c
             for pos in range(t - 1, 0, -1):
                 valid = mask_bit(msk, pos) != 0
@@ -562,9 +579,10 @@ def _check_against(got, want, rtol, atol):
 @pytest.mark.parametrize("name,rows", [("shared_ragged", 4), ("t1", 4),
                                        ("k1", 2), ("k8", 4), ("lanes", 4),
                                        ("lanes_per_seq", 5),
-                                       ("full_length", 32)])
+                                       ("full_length", 32), ("empty", 4),
+                                       ("empty_t1", 4), ("empty_lanes", 4)])
 def test_resident_entry1_algorithm_matches_plain(name, rows, warp):
-    log_pz1, log_trans, log_rho, mask = port(make_case(8, **CASES[name]))
+    log_pz1, log_trans, log_rho, mask = port(make_case(8, **ALL_CASES[name]))
     want = tfb.forward_backward(log_pz1, log_trans, log_rho, mask)
     *lanes, n, t, k = log_rho.shape
     lanes = tuple(lanes)
@@ -584,6 +602,8 @@ def test_resident_entry1_algorithm_matches_plain(name, rows, warp):
     ("k8", dict(k=8, t=4), 4),
     ("t1", dict(t=1), 4),
     ("one_lane_axis", dict(lanes=(3,), ragged=False), 32),
+    ("empty", dict(empty=True), 4),
+    ("empty_d3_k3", dict(d=3, k=3, empty=True), 3),
 ])
 @pytest.mark.parametrize("warp", [32, 2])
 def test_resident_fused_algorithm_matches_plain(name, kw, rows, warp):

@@ -403,9 +403,9 @@ print('ran')
 
 @pytest.mark.parametrize("ragged", [False, True], ids=["bank", "ragged"])
 def test_demo_learn_subjects(ragged):
-    """The demo's per-subject VBEM over S: subjects of one shape are the
-    lanes of ``learn_bank``, ragged ones go through ``vbhmm.learn`` one by
-    one; either way each subject keeps one of the S values."""
+    """The demo's per-subject VBEM over S: one ``learn_bank`` call, whose
+    padded bank takes subjects of one shape or ragged ones alike; either
+    way each subject keeps one of the S values."""
     from vbhem_tpu_torch.experiments import demo_fixations as demo
     gen = torch.Generator().manual_seed(5)
     batches, _ = demo.synth_subjects(gen, n_per_group=2, n_trials=4, t=6,

@@ -324,6 +324,8 @@ def _port_grids():
     grids.append((list(range(1, kmax + 1)), list(range(1, smax + 1)), 2))
     for f in sorted((ROOT / "gpubench" / "configs").glob("*.json")):
         cfg = json.loads(f.read_text())
+        if "grid" not in cfg:           # a VBEM-only configuration
+            continue
         d = len(cfg["groups"][0]["mean"][0])
         grids.append((cfg["grid"]["k"], cfg["grid"]["s"], d))
     return grids

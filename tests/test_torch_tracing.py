@@ -23,7 +23,7 @@ from vbhem_tpu_torch.utils.planted import planted_bank
 
 STAGES = ("cluster_batched", "learn_bank")
 PHASES = {"cluster_batched": {"starts", "em", "rescore", "select"},
-          "learn_bank": {"starts", "em", "pick", "finalize", "split"}}
+          "learn_bank": {"pad", "starts", "em", "pick", "finalize", "split"}}
 ENGINE = {"cluster_batched": "vbhem_em", "learn_bank": "vbem_em"}
 CHUNK = 12            # lanes a chunk of the 32-lane grid: three chunks
 

@@ -3,8 +3,8 @@
 // and fb_fused_*.cu.
 //
 // The caller validates shapes, dtypes, contiguity and ranges (K in 1..8,
-// T >= 1, step 0 valid for every sequence, lanes divisible by mask_rep and
-// x_rep), picks the design (`rows` = sequences per block of the resident
+// T >= 1, every mask row a prefix of its steps, so a row whose step 0 is
+// masked is an empty sequence, lanes divisible by mask_rep and x_rep), picks the design (`rows` = sequences per block of the resident
 // design, 0 for the streamed one) and allocates every output.  The mask is
 // int32 [Bm, N, mask_words(T)] of bits (bit j of word w for step 32 w + j,
 // 16-byte aligned) for the resident design and uint8 [Bm, N, T] for the

@@ -99,7 +99,11 @@
 // E-step's dispatch computes log_rho in PyTorch for such shapes and
 // launches entry 1.
 //
-// Numerics follow ops/fb.py (`vbhmm_fb.m:289-377`) in both designs.
+// Numerics follow ops/fb.py (`vbhmm_fb.m:289-377`) in both designs.  A
+// sequence whose mask row is all false (length 0: a padded trial of a
+// ragged bank) is empty and contributes nothing: zero gamma, xi_sum and
+// phi_norm, and a zero masked log_rho.  Both designs run its passes on its
+// padded steps, which zero gamma and xi_sum, and write its phi_norm as 0.
 //
 // This header holds both designs and their launchers; fb.cu holds the C
 // interface, and fb_entry1_f32.cu, fb_entry1_f64.cu, fb_fused_f32.cu and
@@ -479,8 +483,8 @@ __device__ __forceinline__ void copy_row(const T* __restrict__ in,
 // scores are 0, so its max adds 0 to sum_t max.
 
 // forward (vbhmm_fb.m:299-323); returns sum_t log c_t + sum_t max_k
-// log_rho_t.  Step 0 is valid for every sequence (the callers guarantee
-// it).  The normalization runs one step late, off the recursion's chain:
+// log_rho_t.  Step 0 is taken as valid (for an empty sequence, whose mask
+// row is all false, the caller discards the sum).  The normalization runs one step late, off the recursion's chain:
 // from delta_{t-1} (alpha_{t-1} before its division by c_{t-1}), the
 // product (delta_{t-1} A) o px_t and c_{t-1} = sum delta_{t-1} with its
 // reciprocal go in parallel, and
@@ -700,7 +704,12 @@ fb_resident_kernel(const T* __restrict__ src,      // log_rho or x
   __syncthreads();
   if (r < rows) {
     T* g = s_g + r * l.ldg;
-    phi_out[s] = forward<T, K, D>(q, rho, g, mw, t_max);
+    // an empty sequence (its mask row all false) runs the same passes on
+    // its zero scores: the backward pass zeroes its gamma and adds nothing
+    // to xi_sum, and its phi_norm is written as 0 (a branch around the
+    // passes cost the full-width launch 7% of its time)
+    const T phi = forward<T, K, D>(q, rho, g, mw, t_max);
+    phi_out[s] = mask_bit(mw, 0) ? phi : T(0);
     backward<T, K, D>(q, rho, g, mw, t_max,
                       xi_out + static_cast<long long>(s) * K * K);
   }
@@ -819,7 +828,8 @@ fb_streamed_kernel(const T* __restrict__ log_rho,          // [B*N, T, K]
       for (int j = 0; j < tc; ++j) {
         const int t = c0 + j;
         if (t == 0) {
-          // step 0 is valid for every sequence (the callers check it)
+          // step 0 starts every sequence; an empty one's phi_norm is
+          // written as 0 below
           sum_max = load_px<T, K>(rho, px);
           T c = 0;
 #pragma unroll
@@ -847,7 +857,7 @@ fb_streamed_kernel(const T* __restrict__ log_rho,          // [B*N, T, K]
     __syncthreads();
     tile_out(gamma, seq0, row_len, c0 * K, s_g, LDG, K, rows, tc * K);
   }
-  if (active) phi_out[s] = sum_logc + sum_max;
+  if (active) phi_out[s] = msk[0] ? sum_logc + sum_max : T(0);
 
   // ---- backward (vbhmm_fb.m:325-362): gamma in place, xi_sum ----
   // position p sits at tile column j = p - c0 + 1; column 0 holds

@@ -93,6 +93,14 @@ fb_wide_kernel(const T* __restrict__ log_rho,           // [B*N, T, K]
   const T* r = log_rho + s * row;
   T* ro = rho_out + s * row;
   T* g = gamma + s * row;   // alpha_t, then gamma_t
+  T* xi = xi_out + s * k * k;
+  if (msk[0] == 0) {
+    // an empty sequence (its mask row all false) contributes nothing
+    for (long long e = 0; e < row; ++e) ro[e] = g[e] = T(0);
+    for (int e = 0; e < k * k; ++e) xi[e] = T(0);
+    phi_out[s] = T(0);
+    return;
+  }
 
   // ---- forward (vbhmm_fb.m:299-323) ----
   T sum_logc = 0, sum_max = 0;
@@ -100,7 +108,7 @@ fb_wide_kernel(const T* __restrict__ log_rho,           // [B*N, T, K]
     const bool on = msk[t] != 0;
     for (int q = 0; q < k; ++q) ro[t * k + q] = on ? r[t * k + q] : T(0);
     if (t == 0) {
-      // step 0 is valid for every sequence (the callers check it)
+      // step 0 is valid: an empty sequence returned above
       sum_max = load_px(r, px, k);
       T c = 0;
       for (int q = 0; q < k; ++q) {
@@ -123,7 +131,6 @@ fb_wide_kernel(const T* __restrict__ log_rho,           // [B*N, T, K]
   phi_out[s] = sum_logc + sum_max;
 
   // ---- backward (vbhmm_fb.m:325-362): gamma in place, xi_sum ----
-  T* xi = xi_out + s * k * k;
   for (int q = 0; q < k; ++q) {
     beta[q] = T(1);
     for (int l = 0; l < k; ++l) xi[q * k + l] = T(0);
@@ -177,7 +184,8 @@ int launch_wide(const void* log_rho, const void* mask, const void* log_pz1,
 }  // namespace
 
 // Plain C interface for ctypes: entry 1 for K above 8.  The caller
-// validates shapes, dtypes and contiguity, checks step 0, lays the mask
+// validates shapes, dtypes and contiguity, checks that each mask row is a
+// prefix of its steps (a row whose step 0 is masked is empty), lays the mask
 // out as uint8 [Bm, N, T] (as for the streamed design) and allocates every
 // output and the workspace [K*K + 3K, B*N].  Returns the cudaError_t of
 // the launch (0 = launched).

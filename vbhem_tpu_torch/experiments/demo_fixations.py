@@ -25,9 +25,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import math
 import os
 import time
+
 import numpy as np
 import torch
 
@@ -115,39 +115,12 @@ def learn_subjects(gen: torch.Generator, batches, s_grid, cfg: VBConfig):
     """Per-subject VBEM with selection over ``s_grid``
     (`vbdemo_face.m:21-40`): each subject keeps the S that maximizes its
     bound + lgamma(S+1), as ``vbhmm.learn`` selects over K (the float64
-    bound where compute is float32).  Subjects of one shape are the lanes
-    of ``batch.learn_bank``, one call per S; otherwise ``vbhmm.learn``
-    runs subject by subject.  Returns (results, selected S per subject)."""
-    from ..models import vbhmm
-    shapes = {(tuple(b.x.shape), tuple(b.lengths.shape)) for b in batches}
-    if len(shapes) > 1:
-        results, s_sel = [], []
-        for b in batches:
-            res, info = vbhmm.learn(gen, b, list(s_grid), cfg)
-            results.append(res)
-            s_sel.append(int(info["model_best_k"]))
-        return results, s_sel
-    from ..containers import tree_map
+    bound where compute is float32).  One call of ``batch.learn_bank``,
+    whose padded bank takes subjects of any shape.  Returns (results,
+    selected S per subject)."""
     from ..models import batch as vbem_batch
-    from ..models.rescore import vbem_rescore_lanes
-    bank = SeqBatch(x=torch.stack([b.x for b in batches]),
-                    lengths=torch.stack([b.lengths for b in batches]))
-    per_s, scores = [], []
-    for s_ in s_grid:
-        res, info = vbem_batch.learn_bank(gen, batches, s_, cfg)
-        posts = tree_map(lambda *a: torch.stack(a), *[r.post for r in res])
-        hyps = info.get("learned_hyps")
-        if hyps is None:
-            hyps = vbhmm.VBHyps.from_config(cfg, bank.x.shape[-1],
-                                            bank.x.dtype, bank.x.device)
-        ll = vbem_rescore_lanes(bank, posts, hyps) \
-            if bank.x.dtype == torch.float32 else torch.stack(
-                [r.ll for r in res])
-        scores.append(ll.double().cpu().numpy() + math.lgamma(s_ + 1))
-        per_s.append(res)
-    best = np.argmax(np.stack(scores), axis=0)
-    return ([per_s[b][i] for i, b in enumerate(best)],
-            [int(s_grid[b]) for b in best])
+    results, info = vbem_batch.learn_bank(gen, batches, list(s_grid), cfg)
+    return results, info["model_best_k"]
 
 
 def cluster_subjects(gen: torch.Generator, results, k_grid, s_grid,

@@ -91,20 +91,23 @@ def _views(batch: SeqBatch, lanes) -> tuple:
 # ---------------------------------------------------------------------------
 
 def check_lengths(batch: SeqBatch):
-    """Raise unless every sequence has at least one step: the E-step's
-    recursion starts at step 0 and does not check it itself.  One host
-    sync; the EM loops call it once, not once per E-step."""
-    if not bool(torch.all(batch.lengths >= 1)):
-        raise ValueError("every sequence must have at least one step "
-                         "(lengths >= 1): an empty sequence has no forward "
-                         "recursion")
+    """Raise unless every subject (each of the data's leading axes) has at
+    least one step.  A sequence of length 0 beside real ones is allowed: it
+    is a padded trial of a ragged bank, and the E-step gives it zero
+    responsibilities, statistics and bound.  One host sync; the EM loops
+    call it once, not once per E-step."""
+    if not bool(torch.all(batch.total >= 1)):
+        raise ValueError("every subject must have at least one step "
+                         "(sum of lengths >= 1): a subject of empty "
+                         "sequences has no data")
 
 
 def e_step(batch: SeqBatch, post: HMMPosterior) -> FBStats:
     """Expected log emissions and the scaled forward-backward of every
     lane (`vbhmm_fb.m`): kernel B2 on the card (its fused entry where the
-    shape allows), the plain version on the CPU.  Every sequence must have
-    a step (see :func:`check_lengths`)."""
+    shape allows), the plain version on the CPU.  A sequence of length 0
+    contributes nothing; every subject must have a step (see
+    :func:`check_lengths`)."""
     x, mask = _views(batch, post.alpha.shape[:-1])
     return e_step_auto(x, mask, e_log_dirichlet(post.alpha),
                        e_log_dirichlet(post.epsilon), post.niw)
@@ -112,23 +115,35 @@ def e_step(batch: SeqBatch, post: HMMPosterior) -> FBStats:
 
 def suff_stats(batch: SeqBatch, fb: FBStats) -> SuffStats:
     """Masked statistics of every lane, by matmuls over the flattened
-    (sequence, step) axis (`vbhmm_em.m:158-246`)."""
+    (sequence, step) axis (`vbhmm_em.m:158-246`).
+
+    The moments are taken about each subject's mean point, and the means
+    shifted back: the scatter is E[x x^T] - xbar xbar^T, and for data far
+    from the origin (fixations in pixels) float32 rounding of that
+    difference moved the EM's bound by more than its stopping tolerance,
+    so float32 runs stopped tens of iterations before float64 ones."""
     dtype = batch.x.dtype
-    x, _ = _views(batch, fb.gamma.shape[:-3])
+    x, mask = _views(batch, fb.gamma.shape[:-3])
     d = x.shape[-1]
     gamma = fb.gamma                                   # [..., N, T, K] masked
     nk1 = torch.sum(gamma[..., 0, :], dim=-2)
     nk = torch.sum(gamma, dim=(-3, -2)) + tiny(dtype)
     m_trans = torch.sum(fb.xi_sum, dim=-3)
     nx = batch.x.dim() - 3
+    w = mask.to(dtype)[..., None]
+    center = torch.sum(x * w, dim=(-3, -2), keepdim=True) / torch.clamp(
+        torch.sum(w, dim=(-3, -2), keepdim=True), min=1.0)
     g2 = gamma.flatten(-3, -2)                         # [..., N*T, K]
-    x2 = x.flatten(-3, -2)                             # [*X, 1.., N*T, D]
+    x2 = (x - center).flatten(-3, -2)                  # [*X, 1.., N*T, D]
     xbar = lane_contract(g2, x2, nx) / nk[..., None]
     xx = (x2[..., :, None] * x2[..., None, :]).flatten(-2)
     m2 = lane_contract(g2, xx, nx).unflatten(-1, (d, d)) \
         / nk[..., None, None]
     s = sym(m2 - xbar[..., :, None] * xbar[..., None, :])
-    return SuffStats(nk1=nk1, nk=nk, m_trans=m_trans, xbar=xbar, s=s)
+    center = center.reshape(center.shape[:nx] + (1,) * (xbar.dim() - nx - 1)
+                            + (d,))
+    return SuffStats(nk1=nk1, nk=nk, m_trans=m_trans, xbar=xbar + center,
+                     s=s)
 
 
 def _quad(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -401,8 +416,9 @@ def random_init(gen: torch.Generator, batch: SeqBatch, k: int,
                 hyps: VBHyps, covar_type: str = "full",
                 lanes=()) -> HMMPosterior:
     """'random' initmode (`vbhmm_init.m:25-91`): a GMM fit on the pooled
-    data from a random-sample start, one per restart lane; padded rows get
-    zero weight.  The result has axes [*X, *lanes]."""
+    data from a random-sample start, one per restart lane; padded steps and
+    empty sequences get zero weight and seed no start.  The result has
+    axes [*X, *lanes]."""
     x, w = _pooled(batch)
     g = fit_gmm(gen, x, k, weights=w, lanes=lanes)
     return _from_gmm(batch, g, hyps, covar_type, len(tuple(lanes)))

@@ -86,8 +86,10 @@ def forward_backward(log_pz1: torch.Tensor, log_trans: torch.Tensor,
     log_pz1   [..., K] or [..., N, K]        E[log pi], not normalized
     log_trans [..., K, K] or [..., N, K, K]  E[log A], row format
     log_rho   [..., N, T, K]                 expected log emissions
-    mask      [..., N, T] bool (broadcasts against log_rho[..., 0]); every
-              sequence must have mask[..., 0] true.
+    mask      [..., N, T] bool (broadcasts against log_rho[..., 0]); each
+              row a prefix of its steps.  An all-false row is an empty
+              sequence (a padded trial of a ragged bank): its gamma,
+              xi_sum, phi_norm and masked log_rho come out exactly 0.
 
     A Python loop over T: the plain version of kernel B2."""
     t_max = log_rho.shape[-2]

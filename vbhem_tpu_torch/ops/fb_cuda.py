@@ -185,19 +185,19 @@ def _check_shapes(named: dict, lanes, n, t_max, k, log_rho_dim):
 
 
 def check_step0(mask):
-    """Raise unless every sequence's step 0 is unmasked (the recursion
-    starts there, as fb_pallas.py:73 assumes).  Reads the mask on the
-    host: one synchronization."""
-    if not bool(torch.all(mask[..., 0])):
-        raise ValueError("every sequence must have step 0 unmasked "
-                         "(mask[..., 0] all true): an empty sequence has no "
-                         "forward recursion")
+    """Raise unless every sequence whose step 0 is masked has no valid
+    step at all: the recursion starts at step 0, and a sequence masked
+    there is empty (length 0), contributing nothing.  Reads the mask on
+    the host: one synchronization."""
+    if bool(torch.any(~mask[..., 0] & torch.any(mask, dim=-1))):
+        raise ValueError("a sequence with step 0 masked must be empty "
+                         "(every mask row a prefix of its steps)")
 
 
 def validate(log_pz1, log_trans, log_rho, mask, step0=True):
     """Check what entry 1 accepts; raise ValueError otherwise.  With
-    ``step0`` also check every sequence's step 0 (a host sync; the VBEM
-    loop checks its lengths once instead).
+    ``step0`` also check that a sequence masked at step 0 is empty (a host
+    sync; the VBEM loop checks its lengths once instead).
 
     Returns (lanes, n, t, k, pz1_per_seq, trans_per_seq): ``lanes`` is the
     tuple of leading lane axes of ``log_rho``."""
@@ -220,7 +220,8 @@ def validate(log_pz1, log_trans, log_rho, mask, step0=True):
 
 def validate_fused(x, mask, log_pz1, log_trans, emis):
     """Check what the fused entry accepts; raise ValueError otherwise.
-    Step 0 is not checked here (the caller guarantees it).
+    The mask rows are not read here (the caller makes each a prefix of
+    its steps).
 
     Returns (lanes, n, t, k, d, pz1_per_seq, trans_per_seq, design)."""
     named = dict(x=x, mask=mask, log_pz1=log_pz1, log_trans=log_trans,
@@ -396,7 +397,8 @@ def forward_backward_auto(log_pz1, log_trans, log_rho, mask) -> FBStats:
     log_pz1 [..., K] or [..., N, K], log_trans [..., K, K] or
     [..., N, K, K], log_rho [..., N, T, K] (contiguous), all float32 or all
     float64; mask [..., N, T] bool, broadcasting against log_rho's lanes,
-    with every sequence's step 0 unmasked; K >= 1; all on one device.
+    each row a prefix of its steps (an all-false row is an empty sequence:
+    zero gamma, xi_sum and phi_norm); K >= 1; all on one device.
 
     CPU tensors take the plain version; CUDA tensors launch entry 1 of the
     kernel (or raise)."""
@@ -413,8 +415,9 @@ def e_step_fused(x, mask, log_pz1, log_trans, emis) -> FBStats:
     lanes, one row per subject shared by its restarts), mask [..., N, T]
     bool likewise, log_pz1 / log_trans as for :func:`forward_backward_auto`,
     emis [..., K, 1 + D + D*D] from :func:`.fb.emission_constants` (its
-    leading axes are the lanes).  Every sequence's step 0 must be unmasked;
-    that is not checked here.  The shape must take the resident design
+    leading axes are the lanes).  Each mask row must be a prefix of its
+    steps (an all-false row is an empty sequence); that is not checked
+    here.  The shape must take the resident design
     (:func:`design`).  Every tensor must be on one CUDA device: the plain
     version of this entry is :func:`.fb.expected_log_gauss` followed by
     :func:`.fb.forward_backward`, which :func:`e_step_auto` runs for CPU
@@ -448,8 +451,9 @@ def e_step_auto(x, mask, log_pz1, log_trans, niw) -> FBStats:
     """The VBEM E-step of every lane: expected log emissions of x under
     the NIW posterior ``niw`` (fields [..., K, ...], the lanes leading),
     then the scaled forward-backward.  x [..., N, T, D] and mask
-    [..., N, T] broadcast against the lanes; every sequence's step 0 must
-    be unmasked (the VBEM loop checks its lengths once).
+    [..., N, T] broadcast against the lanes; each mask row is a prefix of
+    its steps, an all-false row an empty sequence that contributes nothing
+    (the VBEM loop builds the mask from lengths).
 
     CPU tensors take the plain version (:func:`.fb.expected_log_gauss`,
     then :func:`.fb.forward_backward`).  CUDA tensors launch B2: the fused

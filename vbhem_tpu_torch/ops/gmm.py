@@ -100,9 +100,19 @@ def _em_to_tol(x, w_pt, g: GMM, ridge, max_iter: int, tol: float,
                log_floor: float, nx: int) -> GMM:
     """EM from ``g`` on every lane until its relative log-likelihood
     change is at most ``tol`` (after at least two iterations) or it has
-    run ``max_iter`` iterations; finished lanes are frozen."""
+    run ``max_iter`` iterations; finished lanes are frozen.
+
+    The EM runs on the data centered at its weighted mean, the means
+    shifted with it, which changes no likelihood: a covariance is
+    E[x x^T] - mean mean^T, and far from the origin (fixations in pixels)
+    that difference loses to float32 rounding what the ridge adds, so a
+    component on one or two points turned indefinite and its lane NaN."""
     dtype = x.dtype
     lanes = g.weight.shape[:-1]
+    center = torch.sum(w_pt[..., None] * x, dim=-2, keepdim=True) \
+        / torch.sum(w_pt, dim=-1)[..., None, None]
+    x = x - center
+    g = g._replace(mean=g.mean - center)
     big = torch.full(lanes, -torch.finfo(dtype).max, dtype=dtype,
                      device=x.device)
     ll, last = big, big
@@ -112,7 +122,7 @@ def _em_to_tol(x, w_pt, g: GMM, ridge, max_iter: int, tol: float,
         not_conv = torch.abs((ll - last) / denom) > tol
         active = (it < max_iter) & ((it < 2) | not_conv)
         if not bool(torch.any(active)):
-            return g
+            return g._replace(mean=g.mean + center)
         resp, new_ll = _e_step(x, w_pt, g, log_floor)
         nk, mean, cov = _m_step(x, resp, ridge, nx)
         new = GMM(weight=nk / torch.sum(nk, dim=-1, keepdim=True),
@@ -159,7 +169,9 @@ def fit_gmm(gen: torch.Generator, x: torch.Tensor, k: int,
     per data row and restart lane: the result has axes [*X, *lanes].
 
     ``weights`` [*X, M] weights each point (0 masks a padded one).  The
-    randSample start draws K distinct points per lane, uniformly, or with
+    randSample start draws K distinct points per lane, uniformly among the
+    points of positive weight (a padded step or an empty trial of a ragged
+    bank never seeds a component while K real points exist), or with
     ``start_weighted`` in proportion to ``weights`` (without replacement,
     by Gumbel top-k: a point of weight 0 never seeds a component while
     K points of positive weight exist), as the JAX package's ``fit_gmm``
@@ -177,6 +189,11 @@ def fit_gmm(gen: torch.Generator, x: torch.Tensor, k: int,
         w = w.reshape(w.shape[:nx] + (1,) * len(lanes) + (m,))
         u = torch.log(w / torch.sum(w, dim=-1, keepdim=True)) \
             - torch.log(-torch.log(u.clamp_min(1e-300)))
+    elif weights is not None:
+        # the uniforms of padded points fall below every real point's
+        real = weights.reshape(weights.shape[:nx] + (1,) * len(lanes)
+                               + (m,)) > 0
+        u = torch.where(real, u, -1.0)
     idx = torch.topk(u, k, dim=-1).indices                   # [*X, *L, K]
     xl = x.reshape(x.shape[:nx] + (1,) * len(lanes) + (m, d))
     xl = torch.broadcast_to(xl, x.shape[:nx] + lanes + (m, d))
