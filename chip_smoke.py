@@ -196,13 +196,27 @@ Phases (any failure exits non-zero and prints no result line):
      path leaves, up to 2% of the lanes; the four timed by CUDA events.
      Phase 14 also counts the k-means launches of each draw (four for
      'wtkmeans', none for the other modes) and of its 'auto' runs;
+  20. gmm (after phase 19): the GMM starts' EM kernel (``csrc/gmm.cu``)
+     against the plain ``ops.gmm.em_iterations`` on the same card tensors
+     at both bank cells' shapes (8192 subjects x 20 restarts of 1250
+     points, K = 2; 8192 ragged face viewers of 320 point slots, about
+     half padding, one restart at K = 1 and 50 at K = 2 and 3), from
+     ``fit_gmm``'s start: float64 fits within 1e-10 relative, NaN on the
+     same lanes and the same iterations on every lane; in float32 (the
+     same points and start) no more lanes off the plain float64 fit (1e-3)
+     than the plain float32 version leaves, up to 314 lanes, and no more
+     NaN lanes, up to 9 (GMM_F32_SLACK, GMM_F32_NAN_SLACK).  Then each
+     float32 case timed (the kernel by CUDA events and on the device trace, the
+     plain version once) beside the kernel's operations bound at the
+     iterations its lanes ran.  Phase 4 counts one launch for its
+     ``learn_bank``;
   18. fb assoc (last): ``ops.fb.forward_backward_assoc`` (plain PyTorch,
      on no path) on CUDA tensors against B2's entry 1 at 256 ragged
      sequences of T=4096, K=2 and K=4, float64 (gamma and xi_sum within
      1e-9 and 1e-8 absolute, phi_norm within 1e-10 relative); both timed
      in float32 by CUDA events.
 
-B3 is checked in phase 2 like B1 and B2.  Each of phases 3-9 and 11-19
+B3 is checked in phase 2 like B1 and B2.  Each of phases 3-9 and 11-20
 sets every
 kernel's launch count (B1's and B3's also by design) to 0 just before it
 runs its path and reads the counts just after.  Prints a JSON line
@@ -239,6 +253,8 @@ from vbhem_tpu_torch.models import (hmm_tools, vbhem, vbhmm, vbhmm_groups,
 from vbhem_tpu_torch.ops import _build
 from vbhem_tpu_torch.ops import fb as fb_plain
 from vbhem_tpu_torch.ops import fb_cuda
+from vbhem_tpu_torch.ops import gmm as gmm_plain
+from vbhem_tpu_torch.ops import gmm_cuda
 from vbhem_tpu_torch.ops import kmeans as kmeans_plain
 from vbhem_tpu_torch.ops import kmeans_cuda
 from vbhem_tpu_torch.ops import pair_estep as plain
@@ -263,6 +279,9 @@ KERNELS = {
     "kmeans": {"name": "kmeans", "route": "cuda",
                "source": "vbhem_tpu_torch/csrc/kmeans.cu",
                "replaces": None},
+    # the GMM starts' EM; the JAX package's GMM fit is plain jnp
+    "gmm": {"name": "gmm", "route": "cuda",
+            "source": "vbhem_tpu_torch/csrc/gmm.cu", "replaces": None},
 }
 # where each kernel's wide body (more than 8 states) lives
 WIDE_SOURCES = {"B1": "vbhem_tpu_torch/csrc/pair_recursion.cuh",
@@ -273,7 +292,8 @@ WIDE_SOURCES = {"B1": "vbhem_tpu_torch/csrc/pair_recursion.cuh",
 COUNTERS = {"B1": (pair_estep_cuda, "LAUNCHES"), "B2": (fb_cuda, "LAUNCHES"),
             "B2_fused": (fb_cuda, "FUSED_LAUNCHES"),
             "B3": (pair_estep_cuda, "BWD_FWD_LAUNCHES"),
-            "kmeans": (kmeans_cuda, "LAUNCHES")}
+            "kmeans": (kmeans_cuda, "LAUNCHES"),
+            "gmm": (gmm_cuda, "LAUNCHES")}
 # device kernel names; both B2 entries run fb_resident_kernel at the main
 # path's shapes (fb_streamed_kernel serves long sequences)
 DEVICE_NAMES = {"B1": "pair_estep_fused_kernel", "B2": "fb_resident_kernel",
@@ -1329,6 +1349,9 @@ def phase_vbem_path(fails: Failures, device, n_per_group=4096,
                 f"VBEM path launched B2's fused E-step "
                 f"{launches['B2_fused']} times (entry 1: {launches['B2']}) "
                 f"for {iters} EM iterations")
+    fails.check(launches["gmm"] == 1,
+                f"VBEM path: its GMM starts one launch of csrc/gmm.cu "
+                f"({launches['gmm']})")
     trans = torch.stack([r.model.trans for r in results])
     diag = torch.diagonal(trans, dim1=-2, dim2=-1).mean(-1).cpu().numpy()
     side = float(np.mean((diag > 0.5) == (labels == 0)))
@@ -2533,6 +2556,211 @@ def phase_kmeans(fails: Failures, device, vbem) -> dict:
     return out
 
 
+# (name, data, K, restarts): both bank cells' GMM starts (the face VBEM
+# cell's K = 1 one restart a viewer)
+GMM_CASES = (("bank K=2", "bank", 2, 20), ("face K=1", "face", 1, 1),
+             ("face K=2", "face", 2, 50), ("face K=3", "face", 3, 50))
+GMM_F64_TOL = 1e-10
+GMM_F32_TOL = 1e-3        # a lane's gap to the float64 fit (gmm_lanes_off)
+# Float32 against the plain float64 fit: the lanes the kernel may leave off
+# beyond the plain float32 version, twice the largest excess read on the
+# H100 (157 lanes, face K = 2 of tests/test_torch_gmm_cuda.py; 132 at the
+# bank here); the NaN lanes it may add, between the final kernel's largest
+# excess (7) and that of a kernel whose m2 - mean mean^T was fused (11).
+GMM_F32_SLACK = 314
+GMM_F32_NAN_SLACK = 9
+GMM_PLAIN_ROWS = 1024     # rows a plain float64 run takes at once
+
+
+def gmm_cell_data(kind, device, dtype):
+    """x [S, M, D] and the points' weights [S, M]: 'bank' the VBEM path's
+    8192 subjects (25 sequences of T=50, all real); 'face' 8192 viewers of
+    15-20 trials of 2-16 fixations around three face ROIs in pixels (sd
+    28), padded to 20 x 16 slots, as the face VBEM cell lays them out."""
+    if kind == "bank":
+        batches, _ = synthetic_subjects(4096, seed=1, device=device)
+        x = torch.stack([b.x for b in batches]).flatten(1, 2).to(dtype)
+        return x, torch.ones(x.shape[:2], dtype=dtype, device=device)
+    s, n, t = 8192, 20, 16
+    gen = torch.Generator(device=device).manual_seed(17)
+    trials = torch.randint(15, 21, (s,), generator=gen, device=device)
+    lengths = torch.randint(2, 17, (s, n), generator=gen, device=device)
+    lengths = torch.where(torch.arange(n, device=device) < trials[:, None],
+                          lengths, 0)
+    roi = torch.tensor([[255.0, 170.0], [180.0, 140.0], [330.0, 140.0]],
+                       dtype=torch.float64, device=device)
+    z = torch.randint(0, 3, (s, n, t), generator=gen, device=device)
+    x = roi[z] + 28.0 * torch.randn((s, n, t, 2), generator=gen,
+                                    device=device, dtype=torch.float64)
+    mask = torch.arange(t, device=device) < lengths[..., None]
+    x = torch.where(mask[..., None], x, 0.0)
+    return x.flatten(1, 2).to(dtype), mask.flatten(1).to(dtype)
+
+
+def gmm_start(x, w, k, lanes, seed=18):
+    """``fit_gmm``'s start for x [R, M, D], w [R, M] and ``lanes``
+    restarts a row, and the plain EM's arguments: (x [R, 1, M, D], w
+    [R, 1, M], GMM start [R, L, ..], ridge [R, 1, D, D])."""
+    r, m, d = x.shape
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    u = torch.rand((r, lanes, m), generator=gen, device=x.device,
+                   dtype=torch.float64)
+    u = torch.where(w[:, None] > 0, u, -1.0)
+    idx = torch.topk(u, k, dim=-1).indices
+    mean0 = torch.gather(x[:, None].expand(r, lanes, m, d), -2,
+                         idx[..., None].expand(idx.shape + (d,)))
+    x4, w4 = x[:, None], w[:, None]
+    _, data_cov, ridge = gmm_plain._pooled(x4, w4, 1e-6)
+    cov0 = torch.broadcast_to((data_cov + ridge)[..., None, :, :],
+                              (r, lanes, k, d, d))
+    weight0 = torch.full((r, lanes, k), 1.0 / k, dtype=x.dtype,
+                         device=x.device)
+    return x4, w4, gmm_plain.GMM(weight0, mean0, cov0), ridge
+
+
+def gmm_kernel(args):
+    """The kernel on ``gmm_start``'s arguments: (fit, iterations)."""
+    x4, w4, g, ridge = args
+    *fit, its = gmm_cuda.em_rows(
+        x4[:, 0].contiguous(), w4[:, 0].contiguous(),
+        ridge[:, 0].contiguous(), *(t.contiguous() for t in g))
+    return gmm_plain.GMM(*fit), its
+
+
+def gmm_plain_rows(args, rows=None):
+    """The plain version on ``gmm_start``'s arguments, ``rows`` rows at a
+    time (each lane is independent): (fit, iterations)."""
+    x4, w4, g, ridge = args
+    rows = rows or x4.shape[0]
+    outs, its = [], []
+    for a in range(0, x4.shape[0], rows):
+        sl = slice(a, a + rows)
+        fit, it = gmm_plain.em_iterations(
+            x4[sl], w4[sl], gmm_plain.GMM(*(t[sl] for t in g)), ridge[sl],
+            100, 1e-5, 0.0, 1)
+        outs.append(fit)
+        its.append(it)
+    return gmm_plain.GMM(*(torch.cat(p) for p in zip(*outs))), \
+        torch.cat(its)
+
+
+def gmm_bound(its, w, k, d, itemsize) -> dict:
+    """The kernel's least time for the iterations its lanes ran (its [R,
+    L]) over each row's real points (w [R, M] nonzero): per (lane, point,
+    component) and iteration the difference, the quadratic form, the
+    log-density and the moment sums, 4 D + 2.5 D (D + 1) + 5 flops, and one
+    exp; per (lane, point) K + 2 flops, a log and a division.  Bytes: the
+    points and weights read once a row, the start read and the fit
+    written once."""
+    real = torch.sum(w != 0, dim=-1).double()
+    terms = float(torch.sum(its.double().sum(-1) * real))
+    flop = terms * (k * (4 * d + 2.5 * d * (d + 1) + 5) + k + 2)
+    lanes = its.numel()
+    n_bytes = itemsize * (w.numel() * (d + 1)
+                          + 2 * lanes * k * (1 + d + d * d)) + 4 * lanes
+    return {**bound(n_bytes, terms * (k + 2), flop, itemsize),
+            "lane_point_iters": terms}
+
+
+def gmm_lanes_off(fit, ref, x, w, tol=GMM_F32_TOL) -> torch.Tensor:
+    """Lanes [R, L] whose fit leaves the float64 fit ``ref`` by more than
+    ``tol``: weights absolutely, means relative to the data's spread and
+    covariances to its square, or NaN where ``ref`` is not."""
+    scale = float(torch.std(x.double()[w > 0]))
+    gaps = ((fit.weight.double() - ref.weight).abs().amax(-1),
+            (fit.mean.double() - ref.mean).abs().flatten(2).amax(-1) / scale,
+            (fit.cov.double() - ref.cov).abs().flatten(2).amax(-1)
+            / scale ** 2)
+    off = torch.zeros_like(gaps[0], dtype=torch.bool)
+    for g in gaps:
+        off |= g > tol
+    return off | (_gmm_nan(fit) & ~_gmm_nan(ref))
+
+
+def _gmm_nan(fit) -> torch.Tensor:
+    return torch.isnan(fit.mean).flatten(2).any(-1)
+
+
+def phase_gmm(fails: Failures, device) -> dict:
+    """The GMM starts' EM kernel against the plain version at both bank
+    cells' shapes (GMM_CASES), from one start on float32 points: float64
+    parity and equal iterations; in float32 no more lanes off the plain
+    float64 fit than the plain float32 version leaves, up to
+    GMM_F32_SLACK, and no more NaN lanes, up to GMM_F32_NAN_SLACK; then
+    the float32 cases timed beside the kernel's bound."""
+    out = {"cases": {}}
+    worst64 = 0.0
+    for name, kind, k, lanes in GMM_CASES:
+        x32, w32 = gmm_cell_data(kind, device, torch.float32)
+        x, w = x32.double(), w32.double()
+        args = gmm_start(x, w, k, lanes)
+        reset_counts()
+        got, its = gmm_kernel(args)
+        torch.cuda.synchronize()
+        launched = read_counts()["gmm"]
+        ref, want_its = gmm_plain_rows(args, GMM_PLAIN_ROWS)
+        nan_same = all(torch.equal(torch.isnan(a), torch.isnan(b))
+                       for a, b in zip(got, ref))
+        rel = max(float(torch.max(torch.abs(a - b).nan_to_num(0.0))
+                        / torch.max(torch.abs(b).nan_to_num(0.0)))
+                  for a, b in zip(got, ref))
+        worst64 = max(worst64, rel)
+        its_differ = int(torch.sum(its.long() != want_its))
+        fails.check(launched == 1 and nan_same and rel <= GMM_F64_TOL
+                    and its_differ == 0,
+                    f"gmm {name} float64 ({its.numel()} lanes, M="
+                    f"{x.shape[1]}): {launched} launch, fits within "
+                    f"{rel:.2e} relative (<= {GMM_F64_TOL:.0e}), NaN "
+                    f"{'alike' if nan_same else 'DIFFERENT'}, {its_differ} "
+                    f"lanes at other iterations; iterations mean "
+                    f"{its.double().mean():.2f} max {int(its.max())}")
+        case = {"lanes": its.numel(), "m": x.shape[1], "f64_rel": rel,
+                "f64_iters_differ": its_differ,
+                "iters_mean": float(its.double().mean()),
+                "iters_max": int(its.max())}
+        del args, got
+        # float32: the same points and start
+        args = gmm_start(x32, w32, k, lanes)
+        got, its = gmm_kernel(args)
+        want, want_its = gmm_plain_rows(args)
+        off_k = int(gmm_lanes_off(got, ref, x, w).sum())
+        off_p = int(gmm_lanes_off(want, ref, x, w).sum())
+        nan = {"kernel": int(_gmm_nan(got).sum()),
+               "plain": int(_gmm_nan(want).sum()),
+               "float64": int(_gmm_nan(ref).sum())}
+        other = float((its.long() != want_its).double().mean())
+        fails.check(off_k <= off_p + GMM_F32_SLACK
+                    and nan["kernel"] <= nan["plain"] + GMM_F32_NAN_SLACK,
+                    f"gmm {name} float32: lanes off the plain float64 fit "
+                    f"{off_k} (kernel) vs {off_p} (plain float32) of "
+                    f"{its.numel()}, slack {GMM_F32_SLACK}; NaN lanes kernel "
+                    f"{nan['kernel']} plain {nan['plain']} float64 "
+                    f"{nan['float64']}, slack {GMM_F32_NAN_SLACK}; "
+                    f"{100 * other:.3f}% stopped at another iteration than "
+                    f"the plain run")
+        case.update(f32_lanes_off={"kernel": off_k, "plain": off_p},
+                    f32_iters_other_share=other, f32_nan=nan,
+                    f32_iters_mean=float(its.double().mean()))
+        del ref, want
+        # timing, float32
+        bnd = gmm_bound(its, w32, k, 2, 4)
+        dev = device_ms(lambda: gmm_kernel(args), "gmm_em_kernel", 3)
+        ms = _time(lambda: gmm_kernel(args), 3, device) * 1e3
+        plain_ms = _time(lambda: gmm_plain_rows(args), 1, device) * 1e3
+        case.update(kernel_device_ms=dev, kernel_ms=ms, plain_ms=plain_ms,
+                    **bnd)
+        print(f"timing gmm {name} [{its.numel()} lanes, M={x.shape[1]}, "
+              f"f32] kernel device {dev:.4f} ms (wrapper {ms:.4f} ms); "
+              f"plain {plain_ms:.1f} ms; {_bound_line(bnd)}, share "
+              f"{bnd['bound_ms'] / dev:.4f} on {nvidia_smi_line()}",
+              flush=True)
+        out["cases"][name] = case
+        del args, got, x, w, x32, w32
+        torch.cuda.empty_cache()
+    out["max_abs_err"] = worst64
+    return out
+
+
 GROUPED_N, GROUPED_T = 4096, 50
 GROUPED_TRANS = ([[0.8, 0.2], [0.2, 0.8]], [[0.2, 0.8], [0.8, 0.2]])
 GROUPED_CONFIG = VBConfig(mu0=(1.5, 1.5), w0=1.0, numtrials=20,
@@ -3681,6 +3909,7 @@ def main() -> int:
         run("protocol", lambda: phase_protocol(fails, device, vbem))
         run("initmodes", lambda: phase_initmodes(fails, device, vbem))
         run("kmeans", lambda: phase_kmeans(fails, device, vbem))
+        run("gmm", lambda: phase_gmm(fails, device))
         run("hyp gradient", lambda: phase_hyp_gradient(fails, device, vbem))
         run("timing B2", lambda: timing_b2(device, vbem))
         run("timing B3", lambda: timing_b3(device, vbem))
@@ -3788,6 +4017,17 @@ def main() -> int:
                                        "runner", "initmodes", "demo")
                           if path in results
                           and "launches" in results[path]}))
+    gm = results.get("gmm", {}).get("cases", {})
+    lines.append(dict(
+        KERNELS["gmm"], launches=results.get("VBEM path", {})
+        .get("launches", {}).get("gmm"),
+        max_abs_err=results.get("gmm", {}).get("max_abs_err"),
+        ms={n: c.get("kernel_device_ms") for n, c in gm.items()},
+        wrapper_ms={n: c.get("kernel_ms") for n, c in gm.items()},
+        plain_ms={n: c.get("plain_ms") for n, c in gm.items()},
+        bound_ms={n: c.get("bound_ms") for n, c in gm.items()},
+        bound_by={n: c.get("bound_by") for n, c in gm.items()},
+        library_ms=None))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all",
           flush=True)
     if fails.items:

@@ -37,7 +37,10 @@ def learn_bank(gen: torch.Generator, batches: Sequence[SeqBatch], k,
     nothing) and to the longest sequence (:func:`pad_bank`).  Restarts
     start from random GMM fits (`vbhmm_init.m:25-91`) that no padded point
     seeds.  In float32 each subject's restart is picked on its float64
-    bound.
+    bound.  On the card a K's GMM fits are one launch of the kernel of
+    ``csrc/gmm.cu``, which takes K up to 8 and D up to 4: a K beyond it
+    is refused before its draws
+    (:func:`~vbhem_tpu_torch.ops.gmm_cuda.check_fit`).
 
     ``k`` is an int or a sequence of ints.  Each K runs its own restart
     set (one restart for K = 1) as the lanes [S, L] of one EM loop; with a

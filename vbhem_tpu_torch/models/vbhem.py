@@ -34,7 +34,7 @@ from ..ops import pair_estep_cuda
 from ..ops.pair_estep_cuda import pair_estep_fused_auto
 from ..ops.gmm import (fit_gmm_from_means, mix_hier_em,
                        sample_without_replacement)
-from ..ops import kmeans_cuda
+from ..ops import gmm_cuda, kmeans_cuda
 from ..ops.kmeans import kmeans_pp_from_uniforms
 from ..utils import profiling
 from ..utils.numeric import (block_cast, e_log_det_lambda, e_log_dirichlet,
@@ -1435,7 +1435,9 @@ def cluster(gen: torch.Generator, base: H3M, k, s,
     mode each cell kept.  On the card 'wtkmeans' (alone or in 'auto')
     takes K and S up to 8 and D up to 4, its k-means kernels' range: a
     grid beyond it is refused before anything is drawn
-    (:func:`~vbhem_tpu_torch.ops.kmeans_cuda.check_grid`).
+    (:func:`~vbhem_tpu_torch.ops.kmeans_cuda.check_grid`); so is 'random'
+    past its GMM kernel's S up to 8 and D up to 4
+    (:func:`~vbhem_tpu_torch.ops.gmm_cuda.check_fit`).
 
     With ``config.learn_hyps`` every mode's unique restart solutions are
     hyp-optimized together (:func:`optimize_solution_hyps_batched`), the
@@ -1451,6 +1453,8 @@ def cluster(gen: torch.Generator, base: H3M, k, s,
     dim = base.hmm.mean.shape[-1]
     if "wtkmeans" in modes:
         kmeans_cuda.check_grid(base.hmm.mean.device, max(ks), max(ss), dim)
+    if "random" in modes:
+        gmm_cuda.check_fit(base.hmm.mean.device, max(ss), dim)
     hyps0 = hyps if hyps is not None else VBHEMHyps.from_config(
         config, dim, base.hmm.mean.dtype, base.hmm.mean.device)
 
@@ -1753,6 +1757,8 @@ def _cluster_batched(gen, base, k, s, config, hyps):
     dtype = base.hmm.mean.dtype
     if "wtkmeans" in modes:
         kmeans_cuda.check_grid(base.hmm.mean.device, max(ks), max(ss), dim)
+    if "random" in modes:
+        gmm_cuda.check_fit(base.hmm.mean.device, max(ss), dim)
     hyps0 = hyps if hyps is not None else VBHEMHyps.from_config(
         config, dim, dtype, base.hmm.mean.device)
 

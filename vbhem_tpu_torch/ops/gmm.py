@@ -19,6 +19,11 @@ that has converged is frozen while the others run.
 
 Randomness comes from an explicit ``torch.Generator``, drawn on the
 generator's device; its draws differ from ``jax.random``'s.
+
+The EM to tolerance (:func:`_em_to_tol`) is this module's plain version;
+on the card the fits run it as one launch of the CUDA kernel of
+``csrc/gmm.cu`` (:func:`.gmm_cuda.em_to_tol_auto`), which takes K up to 8
+and D up to 4 (:func:`.gmm_cuda.check_fit`, called before any draw).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from . import gmm_cuda
 from .kmeans import inverse_cdf
 from ..utils.numeric import (inv_psd, lane_contract, logdet_psd,
                              logsumexp, quad_diff, sym)
@@ -100,7 +106,14 @@ def _em_to_tol(x, w_pt, g: GMM, ridge, max_iter: int, tol: float,
                log_floor: float, nx: int) -> GMM:
     """EM from ``g`` on every lane until its relative log-likelihood
     change is at most ``tol`` (after at least two iterations) or it has
-    run ``max_iter`` iterations; finished lanes are frozen.
+    run ``max_iter`` iterations; finished lanes are frozen.  The plain
+    version: :func:`em_iterations` also returns each lane's count."""
+    return em_iterations(x, w_pt, g, ridge, max_iter, tol, log_floor, nx)[0]
+
+
+def em_iterations(x, w_pt, g: GMM, ridge, max_iter: int, tol: float,
+                  log_floor: float, nx: int):
+    """:func:`_em_to_tol` and the iterations each lane ran (int64 [lanes]).
 
     The EM runs on the data centered at its weighted mean, the means
     shifted with it, which changes no likelihood: a covariance is
@@ -122,7 +135,7 @@ def _em_to_tol(x, w_pt, g: GMM, ridge, max_iter: int, tol: float,
         not_conv = torch.abs((ll - last) / denom) > tol
         active = (it < max_iter) & ((it < 2) | not_conv)
         if not bool(torch.any(active)):
-            return g._replace(mean=g.mean + center)
+            return g._replace(mean=g.mean + center), it
         resp, new_ll = _e_step(x, w_pt, g, log_floor)
         nk, mean, cov = _m_step(x, resp, ridge, nx)
         new = GMM(weight=nk / torch.sum(nk, dim=-1, keepdim=True),
@@ -156,8 +169,9 @@ def fit_gmm_from_means(x: torch.Tensor, mean0: torch.Tensor,
                               lanes + (k, d, d))
     weight0 = torch.full(lanes + (k,), 1.0 / k, dtype=x.dtype,
                          device=x.device)
-    return _em_to_tol(x, w_pt, GMM(weight0, mean0.to(x.dtype), cov0), ridge,
-                      max_iter, tol, 0.0, nx)
+    start = GMM(weight0, mean0.to(x.dtype), cov0)
+    return gmm_cuda.em_to_tol_auto(x, w_pt, start, ridge, max_iter, tol, 0.0,
+                                   nx)
 
 
 def fit_gmm(gen: torch.Generator, x: torch.Tensor, k: int,
@@ -180,6 +194,7 @@ def fit_gmm(gen: torch.Generator, x: torch.Tensor, k: int,
     covariances."""
     lanes = tuple(lanes)
     m, d = x.shape[-2:]
+    gmm_cuda.check_fit(x.device, k, d)
     nx = x.dim() - 2
     shape = x.shape[:nx] + lanes + (m,)
     u = torch.rand(shape, generator=gen, device=gen.device,
@@ -232,6 +247,7 @@ def fit_gmm_split(x: torch.Tensor, k: int,
     eigenvector by +-0.5 sqrt(lambda_max), halve its weight and run a few
     masked EM iterations; finish with EM to tolerance.  Deterministic."""
     m, d = x.shape[-2:]
+    gmm_cuda.check_fit(x.device, k, d)
     lead = x.shape[:-2]
     dtype, dev = x.dtype, x.device
     w_pt = _weights(x, weights)
@@ -284,7 +300,8 @@ def fit_gmm_split(x: torch.Tensor, k: int,
         cov = g.cov.clone()
         cov[..., n_active, :, :] = cj
         g = masked_em(GMM(weight, mean, cov), slots < n_active + 1)
-    return _em_to_tol(x, w_pt, g, ridge, max_iter, tol, 1e-300, len(lead))
+    return gmm_cuda.em_to_tol_auto(x, w_pt, g, ridge, max_iter, tol, 1e-300,
+                                   len(lead))
 
 
 def mix_hier_em(gen: torch.Generator, mean: torch.Tensor, cov: torch.Tensor,
