@@ -27,9 +27,9 @@ synthetic subjects x 20 restarts, 25 sequences of T=50, D=2, K=2, float32)
 it times the stages of one iteration (the emission constants, the
 expectations of pi and A, the E-step in kernel B2's fused entry, which
 forms the emission scores on chip, ``suff_stats``, ``elbo``, ``m_step``),
-the per-iteration lane freeze of ``vbem_em`` (its ``torch.where`` over
-gamma), the whole iteration and the float64 rescoring pass the same way,
-and reads a profiler window of ``max(iters // 4, 2)`` iterations for the
+the per-iteration lane freeze of ``vbem_em`` (``lanes.lane_where`` over
+the whole ``EMState``), the whole iteration and the float64 rescoring
+pass the same way, and reads a profiler window of ``max(iters // 4, 2)`` iterations for the
 device kernels, the busy share and B2's mean device time.
 
 VHEM: at the largest launch of chip_smoke.py's VHEM path (20 restart
@@ -63,6 +63,7 @@ sys.path.insert(0, str(REPO))
 from vbhem_tpu_torch import (HEMConfig, SeqBatch, VBConfig,  # noqa: E402
                              VBHEMConfig)
 from vbhem_tpu_torch.models import rescore, vbhem, vbhmm, vhem  # noqa: E402
+from vbhem_tpu_torch.models.lanes import lane_where  # noqa: E402
 from vbhem_tpu_torch.ops import fb as fb_plain  # noqa: E402
 from vbhem_tpu_torch.ops import fb_cuda, pair_estep_cuda  # noqa: E402
 from vbhem_tpu_torch.ops import pair_estep as pair_plain  # noqa: E402
@@ -186,8 +187,11 @@ def profile_vbem(n, iters, trace_dir: Path, n_per_group=4096, trials=20):
     log_trans = e_log_dirichlet(post.epsilon)
     fb = fb_cuda.e_step_fused(x, mask, log_pz1, log_trans, emis)
     stats = vbhmm.suff_stats(bank, fb)
-    active = torch.ones(post.alpha.shape[:-1], dtype=torch.bool,
-                        device=device)
+    ll = vbhmm.elbo(bank, post, fb, stats, hyps)
+    it = torch.ones(ll.shape, dtype=torch.int64, device=device)
+    active = torch.ones(ll.shape, dtype=torch.bool, device=device)
+    st = vbhmm.EMState(post=post, ll=ll, last_ll=ll, it=it, gamma=fb.gamma,
+                       stats=stats, done=~active)
     n_small = max(n // 10, 3)
     stages = {
         "emission_constants": lambda: fb_plain.emission_constants(post.niw),
@@ -198,9 +202,8 @@ def profile_vbem(n, iters, trace_dir: Path, n_per_group=4096, trials=20):
         "suff_stats": lambda: vbhmm.suff_stats(bank, fb),
         "elbo": lambda: vbhmm.elbo(bank, post, fb, stats, hyps),
         "m_step": lambda: vbhmm.m_step(stats, hyps),
-        "lane freeze (vbem_em's torch.where over gamma)":
-            lambda: torch.where(active[..., None, None, None], fb.gamma,
-                                fb.gamma),
+        "lane freeze (vbem_em's lane_where over the EMState)":
+            lambda: lane_where(active, st, st),
         "em_iteration": lambda: vbhmm._iteration(bank, post, hyps),
         "f64 rescoring (vbem_rescore_lanes)":
             lambda: rescore.vbem_rescore_lanes(bank, post, hyps),

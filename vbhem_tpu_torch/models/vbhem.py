@@ -42,6 +42,8 @@ from ..utils.numeric import (block_cast, e_log_det_lambda, e_log_dirichlet,
                              masked_e_log_dirichlet,
                              masked_log_dirichlet_const, sym, tiny)
 from . import vbhmm
+from .lanes import (chunk_slices, in_chunks, lane_where, run_lanes, settle,
+                    start, within)
 
 
 class VBHEMHyps(NamedTuple):
@@ -550,11 +552,6 @@ def _em_iteration(base: H3M, post: H3MPosterior, hyps: VBHEMHyps,
     return m_step(stats, hyps, covar_type), ll, pair.ll_elbo, hat_z, stats
 
 
-def _lane(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """Broadcast a per-lane mask [...] against a lane-leading tensor."""
-    return mask.reshape(mask.shape + (1,) * (like.dim() - mask.dim()))
-
-
 def vbhem_em(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
              nv: int, tau: int, max_iter: int = 200,
              min_diff: float = 1e-5, covar_type: str = "full",
@@ -582,62 +579,34 @@ def vbhem_em(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
     slice of the whole one, not renormalized.  The statistics and the
     ELBO's sums over Kb are summed over the ranks; hat_z and ll_elbo stay
     the shard's rows.  ``group=None`` is the unsharded loop."""
-    dtype = base.hmm.mean.dtype
-    dev = base.hmm.mean.device
     kb = kb_total if kb_total is not None else base.num_hmms
     tilde_n = (nv * kb) * base.omega
     if covar_type == "diag":
         init_post = _project_diag(init_post)
-    lanes = init_post.alpha.shape[:-1]
     if (cmask is None) != (smask is None):
         raise ValueError("cmask and smask go together")
+    converged = within(min_diff)
 
     def body(st: VBHEMState) -> VBHEMState:
         new_post, ll, ll_elbo, hat_z, stats = _em_iteration(
             base, st.post, hyps, tilde_n, tau, covar_type, (cmask, smask),
             group)
-        unstable = torch.isnan(ll)
-        ll = torch.where(unstable, torch.full_like(ll, -math.inf), ll)
-        lik_incr = torch.abs((ll - st.ll) / st.ll)
-        converged = (st.it > 0) & (lik_incr <= min_diff)
-        done = converged | unstable | (st.it + 1 >= max_iter)
-        new_post = tree_map(
-            lambda new, old: torch.where(_lane(unstable, new), old, new),
-            new_post, st.post)
-        return VBHEMState(post=new_post, ll=ll, last_ll=st.ll, it=st.it + 1,
-                          hat_z=hat_z, ll_elbo=ll_elbo, stats=stats,
-                          done=done)
+        ll, unstable, done = settle(ll, st.ll, st.it, max_iter, converged)
+        return VBHEMState(post=lane_where(unstable, st.post, new_post), ll=ll,
+                          last_ll=st.ll, it=st.it + 1, hat_z=hat_z,
+                          ll_elbo=ll_elbo, stats=stats, done=done)
 
-    ll0 = torch.full(lanes, -torch.finfo(dtype).max, dtype=dtype, device=dev)
-    st0 = VBHEMState(post=init_post, ll=ll0, last_ll=ll0,
-                     it=torch.zeros(lanes, dtype=torch.int64, device=dev),
-                     hat_z=None, ll_elbo=None, stats=None,
-                     done=torch.zeros(lanes, dtype=torch.bool, device=dev))
-    # the first iteration runs on every lane (the loop body always runs
-    # at least once).  Under ``group`` every rank of the group must run
-    # the same iterations, or a collective waits for ever: ``done`` is a
-    # function of ``ll`` and ``it`` alone, ``ll`` is the same bits on every
-    # rank because its sums over Kb come out of the all-reduce and every
-    # other term is computed the same way on every rank from the same
-    # posterior, so the ranks leave the loop together.  Each iteration's
-    # span ends on its ``done`` check, whose sync waits for its device work.
-    with profiling.span("vbhem_em.iter"):
-        st = body(st0)
-        finished = bool(torch.all(st.done))
-    n_iter = 1
-    while not finished:
-        with profiling.span("vbhem_em.iter"):
-            active = ~st.done
-            st = tree_map(lambda new, old: torch.where(_lane(active, new),
-                                                        new, old),
-                          body(st), st)
-            finished = bool(torch.all(st.done))
-        n_iter += 1
-    if profiling.active():
-        profiling.count("vbhem_em.lane_iters_active", int(torch.sum(st.it)))
-        profiling.count("vbhem_em.lane_iters_launched",
-                        n_iter * math.prod(lanes))
-    return st
+    ll0, it0, done0 = start(init_post.alpha.shape[:-1], base.hmm.mean.dtype,
+                            base.hmm.mean.device)
+    # Under ``group`` every rank of the group must run the same
+    # iterations, or a collective waits for ever: ``done`` is a function of
+    # the bounds and ``it`` alone (:func:`.lanes.settle`), ``ll`` is the same
+    # bits on every rank because its sums over Kb come out of the
+    # all-reduce and every other term is computed the same way on every
+    # rank from the same posterior, so the ranks leave the loop together.
+    return run_lanes("vbhem_em", body, VBHEMState(
+        post=init_post, ll=ll0, last_ll=ll0, it=it0, hat_z=None,
+        ll_elbo=None, stats=None, done=done0))
 
 
 def vbhem_em_masked(base: H3M, init_post: H3MPosterior, hyps: VBHEMHyps,
@@ -1216,12 +1185,9 @@ def draw_lanes(mode: str, gen: torch.Generator, base: H3M, kr: int, sr: int,
     memory: each lane's start is the same for every ``chunk``."""
     draw, consume = _DRAWS[resolve_initmode(mode)]
     draws = draw(gen, base, kr, sr, (n,))
-    step = chunk or n
-    parts = [consume(base, kr, sr, hyps, nv,
-                     **{k: v[a:a + step] for k, v in draws.items()})
-             for a in range(0, n, step)]
-    return parts[0] if len(parts) == 1 else tree_map(
-        lambda *xs: torch.cat(xs), *parts)
+    return in_chunks(lambda sl: consume(
+        base, kr, sr, hyps, nv, **{k: v[sl] for k, v in draws.items()}),
+        n, chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -1286,26 +1252,16 @@ def select_best_trial(states: VBHEMState) -> VBHEMState:
     return tree_map(lambda a: a[best], states)
 
 
-def _chunks(base: H3M, posts: H3MPosterior, tau: int):
-    """Lane slices of ``posts`` (leading lane axis) that run together: as
-    many lanes as :func:`lane_chunk` lets share the card's memory at the
-    posterior's (K, S); all of them on the CPU."""
-    n = posts.alpha.shape[0]
-    kr, sr = posts.eta.shape[-2:]
-    step = lane_chunk(base, kr, sr, tau, n) or n
-    return [slice(a, min(a + step, n)) for a in range(0, n, step)]
-
-
 def em_lanes(base: H3M, posts: H3MPosterior, hyps: VBHEMHyps,
              config: VBHEMConfig, cmask=None, smask=None,
              stats: Optional[dict] = None) -> VBHEMState:
     """:func:`vbhem_em` (masked where ``cmask``/``smask`` [n, ...] are
     given) over the lanes of ``posts``, each lane under its own hyps or
-    all under one set, in the lane chunks of :func:`_chunks`; lanes are
-    independent, so chunking changes nothing but memory.  ``stats``
-    counts the EM iterations ('em_iters', each chunk's slowest lane)."""
-    parts = []
-    for sl in _chunks(base, posts, config.tau):
+    all under one set, in the lane chunks :func:`lane_chunk` sizes for the
+    posterior's (K, S) (one chunk on the CPU); lanes are independent, so
+    chunking changes nothing but memory.  ``stats`` counts the EM
+    iterations ('em_iters', each chunk's slowest lane)."""
+    def run(sl):
         st = vbhem_em(base, tree_map(lambda a: a[sl], posts),
                       hypmod.lane_slice(hyps, sl), nv=config.nv,
                       tau=config.tau, max_iter=config.max_iter,
@@ -1313,9 +1269,10 @@ def em_lanes(base: H3M, posts: H3MPosterior, hyps: VBHEMHyps,
                       cmask=None if cmask is None else cmask[sl],
                       smask=None if smask is None else smask[sl])
         hypmod.tally(stats, "em_iters", int(torch.max(st.it)))
-        parts.append(st)
-    return parts[0] if len(parts) == 1 else tree_map(
-        lambda *xs: torch.cat(xs), *parts)
+        return st
+    n = posts.alpha.shape[0]
+    return in_chunks(run, n, lane_chunk(base, *posts.eta.shape[-2:],
+                                        config.tau, n))
 
 
 def neg_elbo_objective(base: H3M, init_posts: H3MPosterior,
@@ -1335,8 +1292,8 @@ def neg_elbo_objective(base: H3M, init_posts: H3MPosterior,
         posts = tree_map(lambda a: a[lanes], init_posts)
         cm = None if cmask is None else cmask[lanes]
         sm = None if smask is None else smask[lanes]
-        vals = []
-        for sl in _chunks(base, posts, config.tau):
+
+        def run(sl):
             h = hypmod.lane_slice(hyps, sl)
             masks = (None, None) if cm is None else (cm[sl], sm[sl])
             with torch.no_grad():
@@ -1353,9 +1310,10 @@ def neg_elbo_objective(base: H3M, init_posts: H3MPosterior,
                                                    pair.ll_elbo)
             hypmod.tally(stats, "em_iters", int(torch.max(st.it)))
             hypmod.tally(stats, "e_steps", 1)
-            vals.append(-elbo(post_w, exps_w, pair, hat_z, z_ni, nj, h,
-                              *masks))
-        return torch.cat(vals)
+            return -elbo(post_w, exps_w, pair, hat_z, z_ni, nj, h, *masks)
+        n = posts.alpha.shape[0]
+        return in_chunks(run, n, lane_chunk(base, *posts.eta.shape[-2:],
+                                            config.tau, n))
     return fun
 
 
@@ -1646,18 +1604,15 @@ def fit_grid_batched(gen: torch.Generator, base: H3M, ks, ss,
                            n_lanes, trial_chunk)
     ci = torch.arange(n_cells, device=dev).repeat_interleave(trials)
     cm, sm = cmasks[ci], smasks[ci]
-    chunk = trial_chunk or n_lanes
-    parts = []
-    for a in range(0, n_lanes, chunk):
-        sl = slice(a, min(a + chunk, n_lanes))
+
+    def run(sl):
         with profiling.span("cluster_batched.em"):
-            parts.append(vbhem_em_masked(
+            return vbhem_em_masked(
                 base, tree_map(lambda x: x[sl], post0), hyps, nv=config.nv,
                 tau=config.tau, cmask=cm[sl], smask=sm[sl],
                 max_iter=config.max_iter, min_diff=config.min_diff,
-                covar_type=config.covar_type))
-    states = parts[0] if len(parts) == 1 else tree_map(
-        lambda *xs: torch.cat(xs), *parts)
+                covar_type=config.covar_type)
+    states = in_chunks(run, n_lanes, trial_chunk)
     states = tree_map(lambda x: x.reshape((n_cells, trials) + x.shape[1:]),
                       states)
     return states, cells, cmasks, smasks
@@ -1667,8 +1622,7 @@ def chunk_iterations(it: torch.Tensor, chunk: Optional[int]) -> list:
     """The EM iterations each lane chunk ran (its slowest lane's), from the
     lanes' iteration counts ``it`` in lane order; one pair E-step each."""
     flat = it.reshape(-1).cpu()
-    step = chunk or flat.numel()
-    return [int(flat[a:a + step].max()) for a in range(0, flat.numel(), step)]
+    return [int(flat[sl].max()) for sl in chunk_slices(flat.numel(), chunk)]
 
 
 def optimize_hyps_grid_batched(base: H3M, states: VBHEMState, cells,

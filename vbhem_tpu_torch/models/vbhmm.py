@@ -31,7 +31,7 @@ from .. import hyp as hypmod
 from ..ops.fb import FBStats
 from ..ops.fb_cuda import e_step_auto
 from ..ops.gmm import GMM, fit_gmm, fit_gmm_split
-from ..utils import profiling
+from .lanes import lane_where, run_lanes, settle, start, within
 from ..utils.numeric import (block_cast, e_log_det_lambda, e_log_dirichlet,
                              inv_psd, lane_contract, lane_hyp,
                              log_dirichlet_const, log_wishart_b, logdet_psd,
@@ -277,11 +277,6 @@ class EMState(NamedTuple):
     done: torch.Tensor        # [...] bool
 
 
-def _lane(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """Broadcast a per-lane mask [...] against a lane-leading tensor."""
-    return mask.reshape(mask.shape + (1,) * (like.dim() - mask.dim()))
-
-
 def _iteration(batch, post, hyps, covar_type="full"):
     """One EM iteration on every lane: (new posterior, ELBO of ``post``,
     gamma, stats)."""
@@ -306,48 +301,21 @@ def vbem_em(batch: SeqBatch, init_post: HMMPosterior, hyps: VBHyps,
     ``max_iter``; from then on it is frozen, as under ``jax.vmap`` of
     ``lax.while_loop``."""
     check_lengths(batch)
-    dtype = batch.x.dtype
-    dev = batch.x.device
-    lanes = init_post.alpha.shape[:-1]
+    converged = within(min_diff)
 
     def body(st: EMState) -> EMState:
         new_post, ll, gamma, stats = _iteration(batch, st.post, hyps,
                                                 covar_type)
-        unstable = torch.isnan(ll)
-        ll = torch.where(unstable, torch.full_like(ll, -math.inf), ll)
-        lik_incr = torch.abs((ll - st.ll) / st.ll)
-        converged = (st.it > 0) & (lik_incr <= min_diff)
-        done = converged | unstable | (st.it + 1 >= max_iter)
-        new_post = tree_map(
-            lambda new, old: torch.where(_lane(unstable, new), old, new),
-            new_post, st.post)
-        return EMState(post=new_post, ll=ll, last_ll=st.ll, it=st.it + 1,
-                       gamma=gamma, stats=stats, done=done)
+        ll, unstable, done = settle(ll, st.ll, st.it, max_iter, converged)
+        return EMState(post=lane_where(unstable, st.post, new_post), ll=ll,
+                       last_ll=st.ll, it=st.it + 1, gamma=gamma, stats=stats,
+                       done=done)
 
-    ll0 = torch.full(lanes, -torch.finfo(dtype).max, dtype=dtype, device=dev)
-    st0 = EMState(post=init_post, ll=ll0, last_ll=ll0,
-                  it=torch.zeros(lanes, dtype=torch.int64, device=dev),
-                  gamma=None, stats=None,
-                  done=torch.zeros(lanes, dtype=torch.bool, device=dev))
-    # each iteration's span ends on its ``done`` check, whose sync waits
-    # for its device work
-    with profiling.span("vbem_em.iter"):
-        st = body(st0)
-        finished = bool(torch.all(st.done))
-    n_iter = 1
-    while not finished:
-        with profiling.span("vbem_em.iter"):
-            active = ~st.done
-            st = tree_map(lambda new, old: torch.where(_lane(active, new),
-                                                        new, old),
-                          body(st), st)
-            finished = bool(torch.all(st.done))
-        n_iter += 1
-    if profiling.active():
-        profiling.count("vbem_em.lane_iters_active", int(torch.sum(st.it)))
-        profiling.count("vbem_em.lane_iters_launched",
-                        n_iter * math.prod(lanes))
-    return st
+    ll0, it0, done0 = start(init_post.alpha.shape[:-1], batch.x.dtype,
+                            batch.x.device)
+    return run_lanes("vbem_em", body, EMState(
+        post=init_post, ll=ll0, last_ll=ll0, it=it0, gamma=None, stats=None,
+        done=done0))
 
 
 def em_trace(batch: SeqBatch, init_post: HMMPosterior, hyps: VBHyps,
@@ -471,10 +439,6 @@ def finalize(batch: SeqBatch, st: EMState) -> VBHMMResult:
         state_mask=torch.ones_like(post.alpha, dtype=torch.bool))
 
 
-def _lanes_of(batch: SeqBatch, lanes: torch.Tensor) -> SeqBatch:
-    return SeqBatch(x=batch.x[lanes], lengths=batch.lengths[lanes])
-
-
 def neg_elbo_objective(batch: SeqBatch, init_posts: HMMPosterior,
                        config: VBConfig, per_lane_data: bool = False,
                        stats: Optional[dict] = None):
@@ -488,7 +452,7 @@ def neg_elbo_objective(batch: SeqBatch, init_posts: HMMPosterior,
     its leading axis.  ``stats`` counts the EM iterations ('em_iters', the
     slowest lane's per run) and the E-steps outside EM ('e_steps')."""
     def fun(hyps, lanes):
-        b = _lanes_of(batch, lanes) if per_lane_data else batch
+        b = tree_map(lambda a: a[lanes], batch) if per_lane_data else batch
         p0 = tree_map(lambda a: a[lanes], init_posts)
         with torch.no_grad():
             st = vbem_em(b, p0, tree_map(torch.Tensor.detach, hyps),

@@ -33,6 +33,7 @@ from ..utils.numeric import (block_cast, e_log_det_lambda, e_log_dirichlet,
                              lane_hyp, log_dirichlet_const, log_wishart_b,
                              logdet_psd, tiny)
 from . import vbhmm
+from .lanes import lane_where, run_lanes, settle, start, within
 from .vbhmm import SuffStats, VBHyps
 
 
@@ -182,36 +183,23 @@ def vbem_em(batch: SeqBatch, init_post: GroupedPosterior, hyps: VBHyps,
     lane is done once it converged, went unstable or reached
     ``max_iter``, and is frozen from then on."""
     vbhmm.check_lengths(batch)
-    dtype, dev = batch.x.dtype, batch.x.device
-    lanes = init_post.alpha.shape[:-2]
     n_groups = init_post.num_groups
+    converged = within(min_diff)
 
     def body(st: GroupedEMState) -> GroupedEMState:
         fb = e_step(batch, st.post, group_map)
         stats = grouped_stats(batch, fb, group_map, n_groups)
-        ll = elbo(batch, st.post, fb, stats, hyps)
-        unstable = torch.isnan(ll)
-        ll = torch.where(unstable, torch.full_like(ll, -math.inf), ll)
-        converged = (st.it > 0) & (torch.abs((ll - st.ll) / st.ll)
-                                   <= min_diff)
-        done = converged | unstable | (st.it + 1 >= max_iter)
-        new_post = tree_map(
-            lambda new, old: torch.where(vbhmm._lane(unstable, new), old,
-                                         new),
-            m_step(stats, hyps, covar_type), st.post)
-        return GroupedEMState(post=new_post, ll=ll, it=st.it + 1,
-                              gamma=fb.gamma, stats=stats, done=done)
+        ll, unstable, done = settle(elbo(batch, st.post, fb, stats, hyps),
+                                    st.ll, st.it, max_iter, converged)
+        return GroupedEMState(
+            post=lane_where(unstable, st.post, m_step(stats, hyps,
+                                                      covar_type)),
+            ll=ll, it=st.it + 1, gamma=fb.gamma, stats=stats, done=done)
 
-    ll0 = torch.full(lanes, -torch.finfo(dtype).max, dtype=dtype, device=dev)
-    st = body(GroupedEMState(
-        post=init_post, ll=ll0,
-        it=torch.zeros(lanes, dtype=torch.int64, device=dev), gamma=None,
-        stats=None, done=torch.zeros(lanes, dtype=torch.bool, device=dev)))
-    while not bool(torch.all(st.done)):
-        active = ~st.done
-        st = tree_map(lambda new, old: torch.where(
-            vbhmm._lane(active, new), new, old), body(st), st)
-    return st
+    ll0, it0, done0 = start(init_post.alpha.shape[:-2], batch.x.dtype,
+                            batch.x.device)
+    return run_lanes("grouped_em", body, GroupedEMState(
+        post=init_post, ll=ll0, it=it0, gamma=None, stats=None, done=done0))
 
 
 def from_ungrouped(post: HMMPosterior, n_groups: int) -> GroupedPosterior:

@@ -41,6 +41,7 @@ from ..containers import H3M, HMM, tree_map
 from ..ops.pair_estep import PairStats, expected_pair_ll_point
 from ..ops.pair_estep_cuda import pair_bwd_fwd_auto
 from ..utils.numeric import logsumexp, sym, tiny
+from .lanes import lane_where, run_lanes, settle, start
 
 
 class VHEMState(NamedTuple):
@@ -245,11 +246,6 @@ def fix_degenerate_states(h3m: H3M, emit_counts: torch.Tensor,
                                 mean=mean_new, cov=cov_new))
 
 
-def _lane(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """Broadcast a per-lane mask [...] against a lane-leading tensor."""
-    return mask.reshape(mask.shape + (1,) * (like.dim() - mask.dim()))
-
-
 def _iteration(base: H3M, h3m: H3M, config: HEMConfig, n_i: torch.Tensor,
                inf_norm: float, gen: torch.Generator):
     """One EM iteration on every lane: returns (new H3M after the
@@ -282,8 +278,6 @@ def vhem_em(base: H3M, init: H3M, config: HEMConfig,
     dtype = base.hmm.mean.dtype
     dev = base.hmm.mean.device
     kb = base.num_hmms
-    kr, sr = init.hmm.prior.shape[-2:]
-    lanes = init.omega.shape[:-1]
     n_i = (config.nv * kb) * base.omega                       # [Kb]
     inf_norm = _inf_norm(config.inf_norm, config.nv, config.tau, kb)
     if gen is None:
@@ -295,38 +289,22 @@ def vhem_em(base: H3M, init: H3M, config: HEMConfig,
         cov=init.hmm.cov + config.reg_cov * torch.eye(d, dtype=dtype,
                                                       device=dev)))
 
+    def converged(ll, last):
+        return (ll - last) / torch.abs(last) < config.min_diff
+
     def body(st: VHEMState) -> VHEMState:
         new_h3m, emit_counts, ll, z, ll_elbo = _iteration(
             base, st.h3m, config, n_i, inf_norm, gen)
-        unstable = torch.isnan(ll)
-        ll = torch.where(unstable, torch.full_like(ll, -math.inf), ll)
-        change = (ll - st.ll) / torch.abs(st.ll)
-        converged = (st.it > 0) & (change < config.min_diff)
-        done = converged | unstable | (st.it + 1 >= config.max_iter)
-        new_h3m = tree_map(
-            lambda new, old: torch.where(_lane(unstable, new), old, new),
-            new_h3m, st.h3m)
-        return VHEMState(h3m=new_h3m, ll=ll, last_ll=st.ll, it=st.it + 1,
-                         z=z, ll_elbo=ll_elbo, emit_counts=emit_counts,
-                         done=done)
+        ll, unstable, done = settle(ll, st.ll, st.it, config.max_iter,
+                                    converged)
+        return VHEMState(h3m=lane_where(unstable, st.h3m, new_h3m), ll=ll,
+                         last_ll=st.ll, it=st.it + 1, z=z, ll_elbo=ll_elbo,
+                         emit_counts=emit_counts, done=done)
 
-    ll0 = torch.full(lanes, -torch.finfo(dtype).max, dtype=dtype, device=dev)
-    st = VHEMState(h3m=init, ll=ll0, last_ll=ll0,
-                   it=torch.zeros(lanes, dtype=torch.int64, device=dev),
-                   z=torch.zeros(lanes + (kb, kr), dtype=dtype, device=dev),
-                   ll_elbo=torch.zeros(lanes + (kb, kr), dtype=dtype,
-                                       device=dev),
-                   emit_counts=torch.zeros(lanes + (kr, sr), dtype=dtype,
-                                           device=dev),
-                   done=torch.zeros(lanes, dtype=torch.bool, device=dev))
-    # the first iteration runs on every lane (the loop body always runs
-    # at least once)
-    st = body(st)
-    while not bool(torch.all(st.done)):
-        active = ~st.done
-        st = tree_map(lambda new, old: torch.where(_lane(active, new), new,
-                                                    old), body(st), st)
-    return st
+    ll0, it0, done0 = start(init.omega.shape[:-1], dtype, dev)
+    return run_lanes("vhem_em", body, VHEMState(
+        h3m=init, ll=ll0, last_ll=ll0, it=it0, z=None, ll_elbo=None,
+        emit_counts=None, done=done0))
 
 
 # ---------------------------------------------------------------------------

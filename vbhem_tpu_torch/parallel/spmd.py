@@ -34,6 +34,7 @@ import torch.distributed as dist
 
 from ..containers import H3M, H3MPosterior, tree_map
 from ..models import vbhem
+from ..models.lanes import in_chunks
 
 
 class Mesh(NamedTuple):
@@ -187,17 +188,12 @@ def _sharded_em(mesh: Mesh, base: H3M, posts: H3MPosterior,
         least = torch.tensor([step], device=shard.omega.device)
         dist.all_reduce(least, op=dist.ReduceOp.MIN, group=group)
         step = int(least)
-    parts = []
-    for a in range(0, n, step):
-        sl = slice(a, min(a + step, n))
-        parts.append(vbhem.vbhem_em(
-            shard, tree_map(lambda x: x[sl], posts), hyps, nv, tau,
-            max_iter=max_iter, min_diff=min_diff, covar_type=covar_type,
-            cmask=None if cmask is None else cmask[sl],
-            smask=None if smask is None else smask[sl], group=group,
-            kb_total=base.num_hmms))
-    return parts[0] if len(parts) == 1 else tree_map(
-        lambda *xs: torch.cat(xs), *parts)
+    return in_chunks(lambda sl: vbhem.vbhem_em(
+        shard, tree_map(lambda x: x[sl], posts), hyps, nv, tau,
+        max_iter=max_iter, min_diff=min_diff, covar_type=covar_type,
+        cmask=None if cmask is None else cmask[sl],
+        smask=None if smask is None else smask[sl], group=group,
+        kb_total=base.num_hmms), n, step)
 
 
 def sharded_vbhem_em(mesh: Mesh, base: H3M, posts: H3MPosterior,
